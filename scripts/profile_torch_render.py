@@ -1,0 +1,109 @@
+#!/usr/bin/env python3
+"""Where one render request's time goes in the PyTorch/CUDA port.
+
+Builds the seeded bf16 SRN model and scene of ``chip_smoke.py``, answers
+two warm-up requests (one 128x128 novel view each, one ray chunk per
+image), times three more with the host clock around ``synchronize()``,
+then runs one under ``torch.profiler`` and prints one JSON line: the
+request's wall time, the device time summed over its kernels, the device's
+idle share, and the device time of the kernels grouped (the two CUDA
+kernels of the port, then the rest by name).
+
+Usage, on a machine with one NVIDIA GPU, from the repository root:
+``python3 scripts/profile_torch_render.py [--trace PATH]``
+(``--trace`` also writes the profiler's chrome trace).
+"""
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--trace", default=None, help="write the chrome trace here")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("needs an NVIDIA GPU", file=sys.stderr)
+        return 2
+    sys.path.insert(0, REPO)
+    import chip_smoke as cs
+    from pixelnerf_tpu_torch.eval import FullRenderer
+    from pixelnerf_tpu_torch.utils import geometry
+
+    dev = torch.device("cuda")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip()
+    g = torch.Generator().manual_seed(0)
+    net, cfg = cs.make_srn_model(dev, g)
+    images, src_pose = cs.source_view(g, dev)
+    pose = cs.target_poses()[0]
+    renderer = FullRenderer(net, cfg, ray_chunk=cs.RAY_CHUNK, fast=True)
+    rgen = torch.Generator(device=dev).manual_seed(1)
+
+    def request():
+        rays = geometry.gen_rays(pose[None], cs.IMAGE, cs.IMAGE, cs.FOCAL, cs.NEAR, cs.FAR, device=dev)[0]
+        rgb, depth = renderer.render_image(enc, rays, generator=rgen)
+        torch.cuda.synchronize()
+        return rgb, depth
+
+    with torch.inference_mode():
+        enc = net.encode(images, src_pose, cs.FOCAL)
+        for _ in range(2):
+            request()
+        wall = []
+        for _ in range(3):
+            t0 = time.time()
+            request()
+            wall.append((time.time() - t0) * 1e3)
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.time()
+            request()
+            prof_wall_ms = (time.time() - t0) * 1e3
+
+    groups = {}
+    device_ms = 0.0
+    for ev in prof.key_averages():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        ms = ev.self_device_time_total / 1e3
+        if ms <= 0:
+            continue
+        device_ms += ms
+        name = ev.key
+        if "gather_bilerp_kernel" in name:
+            name = "gather_bilerp (kernel A)"
+        elif "fused_mlp_kernel" in name:
+            name = "fused_resnetfc_infer (kernel B)"
+        entry = groups.setdefault(name, {"ms": 0.0, "calls": 0})
+        entry["ms"] += ms
+        entry["calls"] += ev.count
+    top = sorted(groups.items(), key=lambda kv: -kv[1]["ms"])
+    if args.trace:
+        os.makedirs(os.path.dirname(os.path.abspath(args.trace)), exist_ok=True)
+        prof.export_chrome_trace(args.trace)
+    print(json.dumps({
+        "card": smi,
+        "request": "one 128x128 view, conf/exp/srn.conf bf16, fast=True, one ray chunk",
+        "wall_ms_unprofiled": wall,
+        "wall_ms_profiled": prof_wall_ms,
+        "device_ms": device_ms,
+        "idle_share_profiled": 1.0 - device_ms / prof_wall_ms,
+        "idle_share_unprofiled_est": 1.0 - device_ms / min(wall),
+        "kernels": [{"name": k, "ms": v["ms"], "calls": v["calls"], "share": v["ms"] / device_ms}
+                    for k, v in top[:25]],
+    }), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
