@@ -1,22 +1,41 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path on one NVIDIA GPU and check it.
+"""Drive the PyTorch/CUDA port's main paths on one NVIDIA GPU and check them.
 
-The main path is SRN single-view novel-view inference at the full SRN
-width (``conf/exp/srn.conf``: ResNet34 to a 512-channel latent, ResnetFC
-512 x 5 blocks, 64 coarse + 32 fine samples) in bf16: ``make_model`` ->
-``encode`` of one 128^2 source view -> ``FullRenderer(fast=True)
-.render_image`` of three 128x128 novel views (three requests), weights
-random from a seed. Phases, one JSON line each:
+Two paths at the full width of the SRN model (``conf/exp/srn.conf``:
+ResNet34 to a 512-channel latent, ResnetFC 512 x 5 blocks, 64 coarse + 32
+fine samples), weights random from a seed:
+
+- inference, in bf16: ``make_model`` -> ``encode`` of one 128^2 source
+  view -> ``FullRenderer(fast=True).render_image`` of three 128x128 novel
+  views (three requests);
+- training: ``make_train_step`` steps on batches of the port's synthetic
+  scenes at SRN geometry (128^2, focal 131.25, near 0.8, far 1.8), at the
+  reference config (f32, 4 objects x 128 rays, unchunked, 20 steps on one
+  batch) and at the chip-filling config (bf16 compute, f32 parameters and
+  Adam, 4 objects x 2048 rays, 256-ray chunks, ``remat="features"``,
+  5 steps); and the training app itself for a few steps.
+
+Phases, one JSON line each:
 
 1. device: ``nvidia-smi`` name and power limit, torch and CUDA versions
-2. build: both CUDA kernels from ``pixelnerf_tpu_torch/csrc`` for sm_90a,
-   one nvcc each, in parallel
+2. build: the three CUDA sources of ``pixelnerf_tpu_torch/csrc`` for
+   sm_90a, one nvcc each, in parallel
 3. kernel A (gather) and 4. kernel B (fused MLP) against their plain
-   PyTorch versions at the main path's shapes, with times, the bound and a
-   library call's time
-5. the main path, with both kernels' launch counts read around it
-6. the same render of a 2048-ray crop through the kernels and through
-   their plain versions, on the same noise
+   PyTorch versions at the inference path's shapes, with times, the bound
+   and a library call's time
+5. main_path: the inference path, with A's and B's launch counts read
+   around it
+6. kernel_vs_plain_e2e: a 2048-ray crop rendered through the kernels and
+   through their plain versions, on the same noise
+7. kernel_c and 8. kernel_c_bwd: kernel C (weighted 4-row gather) and its
+   backward against their plain versions at the training path's shapes
+9. train: both training configs, with C's and C-bwd's launch counts read
+   around each
+10. train_app: ``apps.train.main`` for 2 x 2 batches (f32, 4 x 128 rays),
+    eval and checkpoints included, with the launch counts read around it
+11. train_kernel_vs_plain: one step of the reference config (a) at its
+    full shape through the kernels and through their plain versions, from
+    one state, batch and noise
 
 then the ``kernels`` line, the card's name and power limit, and
 ``{"ok": true, ...}`` as the last line. Any failure raises and exits
@@ -24,6 +43,7 @@ non-zero; without a GPU it exits non-zero before printing anything.
 
 Usage: ``python3 chip_smoke.py`` from the root of the repository.
 """
+import copy
 import json
 import math
 import os
@@ -46,6 +66,16 @@ FOCAL = 131.25
 NEAR, FAR = 0.8, 1.8
 RAY_CHUNK = IMAGE * IMAGE   # one image per chunk
 N_REQUESTS = 3
+PEAK_F32_FLOPS = 67e12      # off the tensor cores
+
+# training configs (bench.py's reference and chip-filling train configs)
+TRAIN_SB = 4
+TRAIN_CONFIGS = {
+    "a": {"dtype": None, "rays": 128, "ray_chunk": None, "remat": False, "steps": 20, "fixed_batch": True},
+    "b": {"dtype": "bfloat16", "rays": 2048, "ray_chunk": 256, "remat": "features", "steps": 5,
+          "fixed_batch": False},
+}
+TRAIN_LR = 1e-4
 
 
 def emit(obj):
@@ -225,6 +255,321 @@ def target_poses():
             for a in (0.6, 1.8, 3.0)]
 
 
+def train_launches_per_step():
+    """C's (and C-bwd's) launches per train step of each config: two
+    gathers per ray chunk (the coarse samples, the new fine samples)."""
+    return {k: 2 * (1 if tc["ray_chunk"] is None else tc["rays"] // tc["ray_chunk"])
+            for k, tc in TRAIN_CONFIGS.items()}
+
+
+def kernel_c_inputs(dev, g):
+    """Kernel C at the chip-filling train config's coarse gather of one
+    256-ray chunk: SB=4 latents of 64x64x512 bf16 folded into one
+    16384-row table, 4 x 256 x 64 = 65,536 points (16,384 per view), bf16
+    output. Also the same points as an NCHW map and a grid for
+    ``F.grid_sample``."""
+    from pixelnerf_tpu_torch.ops.grid_sample import bilinear_corners
+
+    views, hl, wl, c = TRAIN_SB, 64, 64, 512
+    per_view = 256 * 64
+    table = torch.randn((views * hl * wl, c), generator=g).to(torch.bfloat16).to(dev)
+    ix = (torch.rand((views, per_view), generator=g) * (wl - 1)).to(dev)
+    iy = (torch.rand((views, per_view), generator=g) * (hl - 1)).to(dev)
+    idx, w = bilinear_corners(ix, iy, hl, wl)
+    idx = idx + (torch.arange(views, device=dev, dtype=torch.int32) * (hl * wl))[:, None, None]
+    fmap = table.reshape(views, hl, wl, c).permute(0, 3, 1, 2).contiguous()
+    grid = torch.stack([ix / (wl - 1) * 2 - 1, iy / (hl - 1) * 2 - 1], dim=-1)[:, None]
+    return table, idx.reshape(-1, 4).contiguous(), w.reshape(-1, 4).contiguous(), fmap, grid.to(torch.bfloat16)
+
+
+def check_kernel_c(dev, inputs):
+    import torch.nn.functional as F
+
+    from pixelnerf_tpu_torch.ops.gather_rows import gather_rows_lerp, gather_rows_lerp_plain
+
+    table, idx, w, fmap, grid = inputs
+    n, c = idx.shape[0], table.shape[1]
+    out = gather_rows_lerp(table, idx, w, torch.bfloat16)
+    torch.cuda.synchronize()
+    ref = gather_rows_lerp_plain(table, idx, w, torch.bfloat16)
+    err = (out.float() - ref.float()).abs().max().item()
+    # bit-equal by design (no contracted multiply-adds); 0 is expected
+    tol = 0.0
+    if not err <= tol:
+        raise AssertionError(f"kernel C disagrees with its plain version: {err} > {tol}")
+    ms = time_ms(lambda: gather_rows_lerp(table, idx, w, torch.bfloat16), reps=50)
+    plain_ms = time_ms(lambda: gather_rows_lerp_plain(table, idx, w, torch.bfloat16), reps=10)
+    library_ms = time_ms(
+        lambda: F.grid_sample(fmap, grid, mode="bilinear", padding_mode="border", align_corners=True),
+        reps=20,
+    )
+    bytes_moved = n * c * 2 + n * (16 + 16) + table.numel() * 2
+    bound_ms, bound_by = bound(bytes_moved, 7 * n * c, PEAK_F32_FLOPS)
+    res = {
+        "name": "gather_rows_lerp", "route": "cuda",
+        "source": "pixelnerf_tpu_torch/csrc/gather_rows.cu",
+        "replaces": "pixelnerf_tpu/ops/gather_pallas.py:172",
+        "shape": {"table": list(table.shape), "points": n, "out_dtype": "bfloat16"},
+        "max_abs_err": err, "tolerance": tol,
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": library_ms, "library_call": "F.grid_sample(NCHW bf16, bilinear, border)",
+        "launches_per_train_step": train_launches_per_step(),
+    }
+    emit({"phase": "kernel_c", **res})
+    return res
+
+
+def check_kernel_c_bwd(dev, g, inputs):
+    import torch.nn.functional as F
+
+    from pixelnerf_tpu_torch.ops.gather_rows import gather_rows_lerp_bwd, gather_rows_lerp_bwd_plain
+
+    table, idx, w, fmap, grid = inputs
+    n, c = idx.shape[0], table.shape[1]
+    grad_out = torch.randn((n, c), generator=g).to(torch.bfloat16).to(dev)
+    gt, gw = gather_rows_lerp_bwd(table, idx, w, grad_out)
+    torch.cuda.synchronize()
+    rt, rw = gather_rows_lerp_bwd_plain(table, idx, w, grad_out)
+    err_t = (gt.float() - rt.float()).abs().max().item()
+    err_w = (gw - rw).abs().max().item()
+    # float32 sums in another order (atomics; a warp's shuffle tree): a
+    # few float32 ulps of the largest entry, plus one bf16 rounding of the
+    # table gradient that may fall the other way (2^-8 of the entry)
+    tol_t = 8e-3 * rt.float().abs().max().item()
+    tol_w = 1e-5 * rw.abs().max().item()
+    if not (err_t <= tol_t and err_w <= tol_w):
+        raise AssertionError(f"kernel C-bwd disagrees with its plain version: {err_t} > {tol_t} or {err_w} > {tol_w}")
+    ms = time_ms(lambda: gather_rows_lerp_bwd(table, idx, w, grad_out), reps=20)
+    plain_ms = time_ms(lambda: gather_rows_lerp_bwd_plain(table, idx, w, grad_out), reps=5)
+    # yardstick: torch's grid-sampler backward for the same points, both
+    # gradients (map and grid), timed on a retained graph
+    fmap_g = fmap.detach().requires_grad_()
+    grid_g = grid.detach().requires_grad_()
+    out = F.grid_sample(fmap_g, grid_g, mode="bilinear", padding_mode="border", align_corners=True)
+    gout = grad_out.reshape(TRAIN_SB, -1, c).permute(0, 2, 1)[:, :, None].contiguous()
+    library_ms = time_ms(
+        lambda: torch.autograd.grad(out, (fmap_g, grid_g), gout, retain_graph=True), reps=10
+    )
+    bytes_moved = n * c * 2 + table.numel() * 2 + n * 32 + table.numel() * 2 + n * 16
+    bound_ms, bound_by = bound(bytes_moved, 16 * n * c, PEAK_F32_FLOPS)
+    res = {
+        "name": "gather_rows_lerp_bwd", "route": "cuda",
+        "source": "pixelnerf_tpu_torch/csrc/gather_rows.cu",
+        "replaces": "XLA gather transpose (pixelnerf_tpu/ops/grid_sample.py:126-133); no Pallas counterpart",
+        "shape": {"table": list(table.shape), "points": n, "grad_out_dtype": "bfloat16"},
+        "max_abs_err": max(err_t, err_w), "max_abs_err_by_output": {"grad_table": err_t, "grad_w": err_w},
+        "tolerance": {"grad_table": tol_t, "grad_w": tol_w},
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": library_ms,
+        "library_call": "torch.autograd.grad through F.grid_sample (NCHW bf16 map and grid)",
+        "launches_per_train_step": train_launches_per_step(),
+    }
+    emit({"phase": "kernel_c_bwd", **res})
+    return res
+
+
+def train_setup(dev, key, seed=0):
+    """The SRN model for training config ``key`` (weights from ``seed``),
+    its Adam, the train step and the config's batches from the port's
+    synthetic scenes at SRN geometry."""
+    from pixelnerf_tpu_torch.config import load_config
+    from pixelnerf_tpu_torch.data import RayBatchPipeline, SyntheticSphereDataset
+    from pixelnerf_tpu_torch.models import make_model
+    from pixelnerf_tpu_torch.render import RenderConfig
+
+    tc = TRAIN_CONFIGS[key]
+    conf = load_config(os.path.join(REPO, "conf", "exp", "srn.conf"))
+    if tc["dtype"]:
+        conf["model"]["dtype"] = tc["dtype"]
+    net = make_model(conf["model"], device=dev, generator=torch.Generator().manual_seed(seed))
+    cfg = RenderConfig.from_conf(conf["renderer"])
+    ds = SyntheticSphereDataset(num_objects=TRAIN_SB, num_views=12, image_size=(IMAGE, IMAGE), radius=1.3)
+    ds.focal, ds.z_near, ds.z_far = FOCAL, NEAR, FAR
+    pipe = iter(RayBatchPipeline(ds, batch_size=TRAIN_SB, rays_per_object=tc["rays"], seed=seed,
+                                 prefetch=0, workers=1))
+    n_batches = 1 if tc["fixed_batch"] else tc["steps"]
+    batches = [{k: torch.as_tensor(v).to(dev) for k, v in next(pipe).items() if k != "step"}
+               for _ in range(n_batches)]
+    return net, cfg, conf, batches
+
+
+def run_train(dev, key):
+    """Train config ``key`` on the card: per-step host time around work
+    ending in a synchronize, the loss and gradient norm of every step,
+    peak memory, and the launch counts of C and C-bwd (reset just before
+    the steps, read just after)."""
+    from pixelnerf_tpu_torch.ops.fused_mlp import fused_resnetfc_infer
+    from pixelnerf_tpu_torch.ops.gather import gather_bilerp
+    from pixelnerf_tpu_torch.ops.gather_rows import gather_rows_lerp, gather_rows_lerp_bwd
+    from pixelnerf_tpu_torch.train import make_render_loss, make_train_step
+
+    tc = TRAIN_CONFIGS[key]
+    net, cfg, conf, batches = train_setup(dev, key)
+    opt = torch.optim.Adam(net.parameters(), lr=TRAIN_LR, betas=(0.9, 0.999), eps=1e-8)
+    step = make_train_step(net, cfg, opt, make_render_loss(conf["loss"]),
+                           ray_chunk=tc["ray_chunk"], remat=tc["remat"])
+    gen = torch.Generator(device=dev).manual_seed(3)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in (gather_rows_lerp, gather_rows_lerp_bwd, gather_bilerp, fused_resnetfc_infer):
+        fn.launches = 0
+    step_s, losses, gnorms = [], [], []
+    for i in range(tc["steps"]):
+        t0 = time.time()
+        m = step(batches[i % len(batches)], generator=gen)
+        torch.cuda.synchronize()
+        step_s.append(time.time() - t0)
+        losses.append(m["t"].item())
+        gnorms.append(m["gnorm"].item())
+    launches = {"gather_rows_lerp": gather_rows_lerp.launches,
+                "gather_rows_lerp_bwd": gather_rows_lerp_bwd.launches,
+                "gather_bilerp": gather_bilerp.launches,
+                "fused_resnetfc_infer": fused_resnetfc_infer.launches}
+    # the prediction: each chunk gathers twice (the coarse samples, the new
+    # fine samples; the fine MLP reuses the coarse features), and each
+    # gather has one backward; "features" remat recomputes only the MLPs,
+    # so no gather runs again. No inference kernel runs.
+    per_step = train_launches_per_step()[key]
+    expect = {"gather_rows_lerp": per_step * tc["steps"], "gather_rows_lerp_bwd": per_step * tc["steps"],
+              "gather_bilerp": 0, "fused_resnetfc_infer": 0}
+    if launches != expect:
+        raise AssertionError(f"train {key}: launch counts {launches} != expected {expect}")
+    if not (all(math.isfinite(v) for v in losses) and all(math.isfinite(v) for v in gnorms)):
+        raise AssertionError(f"train {key}: non-finite loss or gnorm: {losses}, {gnorms}")
+    if tc["fixed_batch"] and not losses[-1] < losses[0]:
+        raise AssertionError(f"train {key}: the loss did not fall on one batch: {losses}")
+    steady = step_s[1:]
+    steps_per_s = len(steady) / sum(steady)
+    res = {
+        "config": key, "model": f"conf/exp/srn.conf, {tc['dtype'] or 'float32'}",
+        "objects": TRAIN_SB, "rays_per_object": tc["rays"], "ray_chunk": tc["ray_chunk"],
+        "remat": tc["remat"], "steps": tc["steps"],
+        "first_step_s": step_s[0], "step_s": step_s, "steps_per_s_steady": steps_per_s,
+        "train_rays_per_s_steady": steps_per_s * TRAIN_SB * tc["rays"],
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "loss": losses, "gnorm": gnorms,
+        "launches": launches, "launches_per_step": {"gather_rows_lerp": per_step, "gather_rows_lerp_bwd": per_step},
+    }
+    emit({"phase": "train", **res})
+    return res
+
+
+def run_train_app(dev):
+    """The user's entry point, ``python -m pixelnerf_tpu_torch.apps.train``,
+    on the card: the SRN model in f32, 4 objects x 128 rays of the
+    synthetic scenes (128^2, cameras at radius 1.3), 2 epochs x 2 batches,
+    with the trainer's eval (kernel A's gather) and checkpoints, written to
+    a temporary directory. Its printed metrics are captured, not echoed."""
+    import contextlib
+    import io
+    import tempfile
+
+    from pixelnerf_tpu_torch.apps import train as train_app
+    from pixelnerf_tpu_torch.ops.fused_mlp import fused_resnetfc_infer
+    from pixelnerf_tpu_torch.ops.gather import gather_bilerp
+    from pixelnerf_tpu_torch.ops.gather_rows import gather_rows_lerp, gather_rows_lerp_bwd
+    from pixelnerf_tpu_torch.train import load_variables
+
+    os.environ["PIXELNERF_NO_TB"] = "1"
+    epochs, batches = 2, 2
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = [
+            "-n", "chip_smoke", "-c", os.path.join(REPO, "conf", "exp", "srn.conf"), "-F", "synthetic",
+            "--epochs", str(epochs), "--epoch_batches", str(batches), "--device", str(dev), "--workers", "1",
+            "--checkpoints_path", os.path.join(tmp, "ck"), "--logs_path", os.path.join(tmp, "logs"),
+            "--override", f"data.image_size=[{IMAGE}, {IMAGE}]", "--override", f"data.num_objects={TRAIN_SB}",
+            "--override", "data.radius=1.3",
+        ]
+        for fn in (gather_rows_lerp, gather_rows_lerp_bwd, gather_bilerp, fused_resnetfc_infer):
+            fn.launches = 0
+        out = io.StringIO()
+        t0 = time.time()
+        with contextlib.redirect_stdout(out):
+            trainer = train_app.main(argv)
+        torch.cuda.synchronize()
+        seconds = time.time() - t0
+        launches = {"gather_rows_lerp": gather_rows_lerp.launches,
+                    "gather_rows_lerp_bwd": gather_rows_lerp_bwd.launches,
+                    "gather_bilerp": gather_bilerp.launches,
+                    "fused_resnetfc_infer": fused_resnetfc_infer.launches}
+        saved = load_variables(os.path.join(tmp, "ck", "chip_smoke"))
+    lines = out.getvalue().splitlines()
+    losses = [float(l.split(" t:")[1].split()[0]) for l in lines if l.startswith("E")]
+    evals = [l for l in lines if l.startswith("*** eval:")]
+    steps = epochs * batches
+    # unchunked train steps: 2 gathers and 2 backwards each; the trainer's
+    # eval (batch 1 of each epoch) renders through kernel A, 2 launches
+    expect = {"gather_rows_lerp": 2 * steps, "gather_rows_lerp_bwd": 2 * steps,
+              "gather_bilerp": 2 * epochs, "fused_resnetfc_infer": 0}
+    res = {"phase": "train_app", "argv": argv[2:], "seconds": seconds, "steps": trainer.step,
+           "printed_losses": losses, "evals": len(evals), "checkpoint_step": saved and saved["step"],
+           "launches": launches, "expected_launches": expect}
+    emit(res)
+    if launches != expect:
+        raise AssertionError(f"train app: launch counts {launches} != expected {expect}")
+    if trainer.step != steps or not saved or saved["step"] != steps or len(evals) != epochs:
+        raise AssertionError(f"train app: steps {trainer.step}, checkpoint {saved and saved['step']}, "
+                             f"evals {len(evals)}")
+    if not losses or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"train app: printed losses {losses}")
+    return res
+
+
+def train_kernel_vs_plain(dev):
+    """One step of the reference config (f32, SB=4, 128 rays per object,
+    unchunked: kernel C and C-bwd on an f32 table at 32,768 coarse points),
+    from one state, batch and noise, through kernel C and its backward and
+    through their plain versions."""
+    from pixelnerf_tpu_torch.render import draw_noise
+    from pixelnerf_tpu_torch.train import make_render_loss, make_train_step
+
+    rays = TRAIN_CONFIGS["a"]["rays"]
+    net, cfg, conf, batches = train_setup(dev, "a", seed=5)
+    batch = batches[0]
+    noise = [draw_noise(batch["rays"], cfg, torch.Generator(device=dev).manual_seed(4), train=True)]
+    runs = {}
+    for use_kernels in (True, False):
+        model = copy.deepcopy(net)
+        opt = torch.optim.Adam(model.parameters(), lr=TRAIN_LR, betas=(0.9, 0.999), eps=1e-8)
+        step = make_train_step(model, cfg, opt, make_render_loss(conf["loss"]), use_kernels=use_kernels)
+        m = step(batch, noise=noise)
+        # the step leaves this step's gradients in .grad
+        runs[use_kernels] = (
+            m["t"].item(),
+            {k: p.grad for k, p in model.named_parameters() if p.grad is not None},
+            {k: p.detach() for k, p in model.named_parameters()},
+        )
+    (loss_k, grads_k, params_k), (loss_p, grads_p, params_p) = runs[True], runs[False]
+    # the forward is bit-equal (kernel C is); only the backward's float32
+    # sums differ in order (atomics, shuffle tree), so every gradient
+    # agrees to float32 rounding of its largest entry
+    loss_err = abs(loss_k - loss_p)
+    grad_err = max(((grads_k[k] - grads_p[k]).abs().max() / grads_p[k].abs().max().clamp_min(1e-30)).item()
+                   for k in grads_p)
+    # Adam's first move is ~lr * sign(g): equal where the sign is clear,
+    # at most 2 lr apart where a gradient entry is ~0
+    clear_err, any_err = 0.0, 0.0
+    for k in params_p:
+        d = (params_k[k] - params_p[k]).abs()
+        clear = grads_p[k].abs() > max(1e-3 * grads_p[k].abs().max().item(), 1e-5)
+        clear_err = max(clear_err, torch.where(clear, d, torch.zeros((), device=dev)).max().item())
+        any_err = max(any_err, d.max().item())
+    # the loss is expected bit-equal; a float32 ulp of slack
+    tol = {"loss": 1e-6 * abs(loss_p), "grad_rel": 1e-4, "param_clear_sign": 1e-6,
+           "param_any": 2 * TRAIN_LR + 1e-6}
+    res = {"phase": "train_kernel_vs_plain", "config": "a", "rays_per_object": rays,
+           "loss": {"kernels": loss_k, "plain": loss_p}, "max_abs_err": {
+               "loss": loss_err, "grad_rel": grad_err, "param_clear_sign": clear_err, "param_any": any_err},
+           "tolerance": tol, "gradients": len(grads_p)}
+    emit(res)
+    if len(grads_k) != len(grads_p) or len(grads_p) != len(list(net.parameters())):
+        raise AssertionError("a parameter got no gradient")
+    if not (loss_err <= tol["loss"] and grad_err <= tol["grad_rel"] and clear_err <= tol["param_clear_sign"]
+            and any_err <= tol["param_any"]):
+        raise AssertionError(f"train step through the kernels disagrees with the plain step: {res['max_abs_err']}")
+    return res
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs an NVIDIA GPU", file=sys.stderr)
@@ -248,7 +593,7 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
 
     t0 = time.time()
-    logs = _build.build(["gather", "fused_mlp"])
+    logs = _build.build(["gather", "fused_mlp", "gather_rows"])
     emit({"phase": "build", "seconds": time.time() - t0,
           "ptxas": {k: [l.strip() for l in v.splitlines() if "registers" in l or "spill" in l]
                     for k, v in logs.items()}})
@@ -328,9 +673,24 @@ def main():
     if max(e2e.values()) > e2e_tol:
         raise AssertionError(f"kernel and plain renders disagree: {e2e}")
 
+    # the training path's kernels at its own shapes
+    inputs_c = kernel_c_inputs(dev, g)
+    res_c = check_kernel_c(dev, inputs_c)
+    res_c_bwd = check_kernel_c_bwd(dev, g, inputs_c)
+    del inputs_c
+    train_launches = {"gather_rows_lerp": 0, "gather_rows_lerp_bwd": 0}
+    for res in [run_train(dev, key) for key in TRAIN_CONFIGS] + [run_train_app(dev)]:
+        for k in train_launches:
+            train_launches[k] += res["launches"][k]
+    train_kernel_vs_plain(dev)
+
     keys = ("name", "route", "source", "replaces", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")
-    emit({"kernels": [{**{k: r[k] for k in keys}, "launches": launches[r["name"]]} for r in (res_a, res_b)],
+    # launches: A and B over the inference path, C and C-bwd over both
+    # training configs and the train app
+    launches.update(train_launches)
+    emit({"kernels": [{**{k: r[k] for k in keys}, "launches": launches[r["name"]]}
+                      for r in (res_a, res_b, res_c, res_c_bwd)],
           "card": smi, "seconds": time.time() - t_start})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,11 +2,11 @@
 
 A second package beside the JAX one, for NVIDIA Hopper (H100). It mirrors
 the JAX package's layout (``config/``, ``utils/``, ``models/``, ``ops/``,
-``render/``, ``eval/``) so each module's counterpart is easy to find, keeps
-the JAX layouts at its public functions (NHWC images, ``(N, Hl, Wl, C)``
-latents, ``(SB, B, 8)`` rays), and replaces each Pallas TPU kernel on its
-path with a CUDA C++ kernel for ``sm_90a`` (``csrc/``, built at first use by
-``ops/_build.py``).
+``render/``, ``eval/``, ``train/``, ``data/``, ``apps/``) so each module's
+counterpart is easy to find, keeps the JAX layouts at its public functions
+(NHWC images, ``(N, Hl, Wl, C)`` latents, ``(SB, B, 8)`` rays), and
+replaces each Pallas TPU kernel on its path with a CUDA C++ kernel for
+``sm_90a`` (``csrc/``, built at first use by ``ops/_build.py``).
 
 It imports torch, numpy and the standard library only. Entry points default
 to ``device="cuda"``; the CPU is used only when the caller asks for it.

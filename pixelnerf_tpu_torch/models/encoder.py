@@ -3,8 +3,10 @@
 
 ``SpatialEncoder.forward`` returns the latent instead of caching it, and the
 pixel-aligned lookup is the free function :func:`index_latent` on it. For
-bilinear/border lookup :func:`index_latent` goes through the gather kernel
-(``ops/gather.py``); the other modes use the plain ``grid_sample``.
+bilinear/border lookup :func:`index_latent` goes through a gather kernel:
+kernel A (``ops/gather.py``) for inference, kernel C with its backward
+(``ops/gather_rows.py``) for training; the other modes use the plain
+``grid_sample``.
 """
 from __future__ import annotations
 
@@ -14,7 +16,8 @@ import torch
 import torch.nn as nn
 
 from ..ops.gather import gather_bilerp, gather_bilerp_plain
-from ..ops.grid_sample import _compute_source_index, bilinear_pair_bases, grid_sample
+from ..ops.gather_rows import GatherRowsLerp
+from ..ops.grid_sample import _compute_source_index, bilinear_corners, bilinear_pair_bases, grid_sample
 from ..ops.resize import resize_bilinear
 from .resnet import ResNetFeatures
 
@@ -22,12 +25,12 @@ from .resnet import ResNetFeatures
 def latent_scaling(latent_h: int, latent_w: int, device=None) -> torch.Tensor:
     """Pixel->grid scaling constants, (2,) [sx, sy]: ``s = size/(size-1) * 2``
     per axis, the align_corners=True convention relating original-image
-    pixel coordinates to the latent's [-1, 1] grid."""
-    return torch.tensor(
-        [latent_w / (latent_w - 1) * 2.0, latent_h / (latent_h - 1) * 2.0],
-        dtype=torch.float32,
-        device=device,
-    )
+    pixel coordinates to the latent's [-1, 1] grid. Filled on ``device``
+    (``torch.tensor`` of a list would copy from the host and stall the
+    stream once per lookup)."""
+    scale = torch.full((2,), latent_w / (latent_w - 1) * 2.0, dtype=torch.float32, device=device)
+    scale[1] = latent_h / (latent_h - 1) * 2.0
+    return scale
 
 
 def index_latent(
@@ -38,6 +41,7 @@ def index_latent(
     padding: str = "border",
     out_dtype: torch.dtype = torch.float32,
     use_kernels: bool = True,
+    differentiable: bool = False,
 ) -> torch.Tensor:
     """Pixel-aligned feature lookup.
 
@@ -47,9 +51,13 @@ def index_latent(
         Ng == N, or N == 1
     :param image_shape: (2,) [W, H] of the original image, or None
     :param out_dtype: dtype of the result (the consumer's compute dtype)
-    :param use_kernels: bilinear/border goes through :func:`gather_bilerp`
-        (the CUDA kernel for CUDA tensors) if True, else through its plain
-        version; a caller-side choice, used to compare the two on the card
+    :param use_kernels: bilinear/border goes through the CUDA kernels (for
+        CUDA tensors) if True, else through their plain versions; a
+        caller-side choice, used to compare the two on the card
+    :param differentiable: bilinear/border goes through
+        :class:`GatherRowsLerp` (kernel C and its backward), with gradients
+        for the latent and, through the corner weights, for ``uv``; else
+        through :func:`gather_bilerp` (kernel A, inference only)
     :return: (Ng, P, C) features
     """
     N, Hl, Wl, C = latent.shape
@@ -60,11 +68,25 @@ def index_latent(
     Ng, P = uv.shape[:2]
     ix = _compute_source_index(uv[..., 0], Wl, "border", True)
     iy = _compute_source_index(uv[..., 1], Hl, "border", True)
-    base, w = bilinear_pair_bases(ix, iy, Hl, Wl)                  # (Ng, P, 2)
+    # fold the view index into the row index of one flat table
+    off = None
     if N > 1:
-        # fold the view index into the row index of one flat table
-        off = torch.arange(Ng, device=uv.device, dtype=torch.int32) * (Hl * Wl)
-        base = base + off[:, None, None]
+        off = torch.arange(Ng, device=uv.device, dtype=torch.int32)[:, None, None] * (Hl * Wl)
+    if differentiable:
+        idx, w = bilinear_corners(ix, iy, Hl, Wl)                  # (Ng, P, 4)
+        if off is not None:
+            idx = idx + off
+        out = GatherRowsLerp.apply(
+            latent.reshape(N * Hl * Wl, C),
+            idx.reshape(-1, 4).contiguous(),
+            w.reshape(-1, 4).contiguous(),
+            out_dtype,
+            use_kernels,
+        )
+        return out.reshape(Ng, P, C)
+    base, w = bilinear_pair_bases(ix, iy, Hl, Wl)                  # (Ng, P, 2)
+    if off is not None:
+        base = base + off
     gather = gather_bilerp if use_kernels else gather_bilerp_plain
     out = gather(
         latent.reshape(N * Hl * Wl, C),
@@ -105,9 +127,10 @@ class SpatialEncoder(nn.Module):
     def latent_size(self) -> int:
         return [0, 64, 128, 256, 512, 1024][self.num_layers]
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """:param x: (B, H, W, 3) images in [-1, 1] -> (B, H', W', latent_size)"""
-        latents = self.model(x)
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        """:param x: (B, H, W, 3) images in [-1, 1] -> (B, H', W', latent_size)
+        :param train: the trunk's batch norms in training mode"""
+        latents = self.model(x, train)
         target_h, target_w = latents[0].shape[1:3]
         # the JAX package compares index_interp against "nearest " (with a
         # trailing space), which never matches: align_corners is always True

@@ -58,6 +58,7 @@ def make_model(
     conf,
     device="cuda",
     generator: Optional[torch.Generator] = None,
+    stop_encoder_grad: bool = False,
 ) -> PixelNeRFNet:
     """Build a PixelNeRFNet from a 'model' config subtree, initialised from
     ``generator`` (a CPU ``torch.Generator``; seed 0 if None), in eval mode,
@@ -65,7 +66,8 @@ def make_model(
 
     A model-level ``dtype`` (``bfloat16`` or ``float32``) is pushed into the
     encoder and MLP subtrees as their compute dtype and is the storage dtype
-    of the encoded latent; parameters stay float32.
+    of the encoded latent; parameters stay float32. ``stop_encoder_grad``
+    detaches the gathered features (a frozen encoder, ``--freeze_enc``).
     """
     if conf.get_string("type", "pixelnerf") != "pixelnerf":
         raise NotImplementedError(f"model type {conf.get_string('type')!r}")
@@ -113,6 +115,7 @@ def make_model(
         normalize_z=conf.get_bool("normalize_z", True),
         use_code_viewdirs=use_code_viewdirs,
         use_viewdirs=use_viewdirs,
+        stop_encoder_grad=stop_encoder_grad,
         latent_dtype=getattr(torch, dtype) if dtype is not None else torch.float32,
     )
     if generator is None:

@@ -71,6 +71,7 @@ class PixelNeRFNet(nn.Module):
         normalize_z: bool = True,
         use_code_viewdirs: bool = True,
         use_viewdirs: bool = False,
+        stop_encoder_grad: bool = False,
         latent_dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
@@ -83,6 +84,7 @@ class PixelNeRFNet(nn.Module):
         self.normalize_z = normalize_z
         self.use_code_viewdirs = use_code_viewdirs
         self.use_viewdirs = use_viewdirs
+        self.stop_encoder_grad = stop_encoder_grad
         self.latent_dtype = latent_dtype
 
     @property
@@ -101,21 +103,25 @@ class PixelNeRFNet(nn.Module):
             d_in += 3
         return d_in
 
-    def encode(self, images: torch.Tensor, poses: torch.Tensor, focal, c=None) -> SceneEncoding:
+    def encode(
+        self, images: torch.Tensor, poses: torch.Tensor, focal, c=None, train: bool = False
+    ) -> SceneEncoding:
         """Encode source views.
 
         :param images: (SB, NS, H, W, 3) in [-1, 1] (NHWC)
         :param poses: (SB, NS, 4, 4) camera-to-world
         :param focal: scalar, (SB,), or (SB, 2) [fx, fy]
         :param c: principal point, same formats; default = image center
+        :param train: the encoder's batch norms in training mode
         """
         SB, NS, H, W, _ = images.shape
         dev = images.device
         images_flat = images.reshape(SB * NS, H, W, 3)
         latent = None
         if self.use_encoder:
-            # bf16 storage halves the gather's traffic; the lerp is float32
-            latent = self.encoder(images_flat).to(self.latent_dtype).contiguous()
+            # bf16 storage halves the gather's traffic; the lerp is float32.
+            # The cast stays in the autograd graph when training.
+            latent = self.encoder(images_flat, train).to(self.latent_dtype).contiguous()
         w2c = invert_pose(poses.reshape(SB * NS, 4, 4).float())
         image_shape = torch.tensor([W, H], dtype=torch.float32, device=dev)
         focal = _normalize_intrinsic(focal, SB, "focal", NS, dev)
@@ -161,10 +167,15 @@ class PixelNeRFNet(nn.Module):
             uv = uv * focal[:, None, :] + cc[:, None, :]
         return z_feature, uv
 
-    def query_features(self, enc: SceneEncoding, xyz, viewdirs=None, use_kernels: bool = True):
+    def query_features(
+        self, enc: SceneEncoding, xyz, viewdirs=None, use_kernels: bool = True,
+        differentiable: bool = False,
+    ):
         """The per-point feature stage: camera transform, uv projection,
         pixel-aligned gather, positional code.
 
+        :param differentiable: gather through kernel C and its backward
+            (training) instead of kernel A (inference)
         :return: (latent or None, z_feature), each (SB*NS, B, D) in the
             MLP's compute dtype
         """
@@ -175,7 +186,10 @@ class PixelNeRFNet(nn.Module):
             latent = index_latent(
                 enc.latent, uv, enc.image_shape, self.encoder.index_interp,
                 self.encoder.index_padding, out_dtype=dt, use_kernels=use_kernels,
+                differentiable=differentiable,
             )
+            if self.stop_encoder_grad:
+                latent = latent.detach()
         return latent, z_feature.to(dt)
 
     def query_mlp(

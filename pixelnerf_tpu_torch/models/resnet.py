@@ -31,17 +31,38 @@ class Conv2d(nn.Conv2d):
 
 
 class BatchNorm2d(nn.BatchNorm2d):
-    """Inference batch norm (running statistics) in the input's dtype."""
+    """Batch norm with flax's semantics.
+
+    Inference (``train=False``): running statistics, in the input's dtype.
+    Training: flax's ``_compute_stats``/``_normalize``, which differ from
+    torch's ``F.batch_norm(training=True)``: the statistics are reduced in
+    float32 even for bf16 input, the variance is the biased
+    ``E[x^2] - E[x]^2`` clipped at 0, the running statistics are updated
+    as ``0.9 * running + 0.1 * batch`` with that biased variance (torch
+    would store the unbiased one), and the normalisation runs in float32
+    before the cast back to the input's dtype.
+    """
 
     def __init__(self, features: int):
         super().__init__(features, eps=BN_EPS, momentum=0.1)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         dt = x.dtype
-        return F.batch_norm(
-            x, self.running_mean.to(dt), self.running_var.to(dt),
-            self.weight.to(dt), self.bias.to(dt), False, 0.0, self.eps,
-        )
+        if not train:
+            return F.batch_norm(
+                x, self.running_mean.to(dt), self.running_var.to(dt),
+                self.weight.to(dt), self.bias.to(dt), False, 0.0, self.eps,
+            )
+        xf = x.float()
+        mean = xf.mean(dim=(0, 2, 3))
+        var = xf.square().mean(dim=(0, 2, 3)) - mean.square()
+        var = torch.maximum(var, var.new_zeros(()))       # jnp.maximum: ties split the gradient
+        with torch.no_grad():
+            self.running_mean.mul_(1.0 - self.momentum).add_(self.momentum * mean)
+            self.running_var.mul_(1.0 - self.momentum).add_(self.momentum * var)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (xf - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
+        return y.to(dt)
 
 
 def _conv(cin: int, cout: int, kernel: int, stride: int) -> Conv2d:
@@ -61,10 +82,13 @@ class BasicBlock(nn.Module):
         if stride != 1 or cin != features:
             self.downsample = nn.Sequential(_conv(cin, features, 1, stride), BatchNorm2d(features))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = torch.relu(self.bn1(self.conv1(x)))
-        y = self.bn2(self.conv2(y))
-        identity = x if self.downsample is None else self.downsample(x)
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        y = torch.relu(self.bn1(self.conv1(x), train))
+        y = self.bn2(self.conv2(y), train)
+        identity = x
+        if self.downsample is not None:
+            conv, bn = self.downsample
+            identity = bn(conv(x), train)
         return torch.relu(y + identity)
 
 
@@ -103,14 +127,17 @@ class ResNetFeatures(nn.Module):
             self.add_module(f"layer{k}", _stage(cin, STAGE_FEATURES[k - 1], sizes[k - 1], stride))
             cin = STAGE_FEATURES[k - 1]
 
-    def forward(self, x_nhwc: torch.Tensor) -> List[torch.Tensor]:
-        """:param x_nhwc: (B, H, W, 3) -> list of (B, h, w, c) float32 maps"""
+    def forward(self, x_nhwc: torch.Tensor, train: bool = False) -> List[torch.Tensor]:
+        """:param x_nhwc: (B, H, W, 3) -> list of (B, h, w, c) float32 maps
+        :param train: batch norms in training mode (batch statistics, running
+            statistics updated)"""
         x = x_nhwc.permute(0, 3, 1, 2).to(self.dtype)
-        x = torch.relu(self.bn1(self.conv1(x)))
+        x = torch.relu(self.bn1(self.conv1(x), train))
         latents = [x]
         for k in range(1, min(self.num_layers, 5)):
             if k == 1 and self.use_first_pool:
                 x = max_pool_3x3_s2(x)
-            x = getattr(self, f"layer{k}")(x)
+            for block in getattr(self, f"layer{k}"):
+                x = block(x, train)
             latents.append(x)
         return [lat.permute(0, 2, 3, 1).float() for lat in latents]

@@ -91,7 +91,7 @@ class ResnetFC(nn.Module):
         :param combine_inner_dims: (NS, B); the leading axis is reduced over
             NS at combine_layer (multi-view fusion)
         :param fast: allow the fused inference kernel (single-view, bf16).
-            Inference only.
+            Inference only: raises where autograd would record the call.
         :param use_kernels: with ``fast``, call the kernel's wrapper if True,
             else its plain version (a caller-side choice for comparing them)
         :return: (..., d_out) float32, with the NS axis folded away if NS > 1
@@ -108,6 +108,16 @@ class ResnetFC(nn.Module):
         ) or self.combine_layer >= self.n_blocks
 
         if fast and self._can_use_kernel(z, single_view):
+            if torch.is_grad_enabled() and (
+                z.requires_grad or x.requires_grad or any(p.requires_grad for p in self.parameters())
+            ):
+                # the fused kernel has no backward: its result would carry
+                # no graph, and the training step would silently lose the
+                # MLP's gradients
+                raise RuntimeError(
+                    "ResnetFC(fast=True) is inference-only; run it under torch.no_grad() "
+                    "or train with fast=False"
+                )
             run = fused_resnetfc_infer if use_kernels else fused_resnetfc_infer_plain
             lead = x.shape[:-1]
             out = run(

@@ -12,6 +12,9 @@ tree as nested dicts of numpy arrays. Layout transforms:
 - ``block{i}`` under ``layer{k}`` -> ``layer{k}.{i}``, elsewhere ``blocks.{i}``
 - ``downsample_conv`` / ``downsample_bn`` -> ``downsample.0`` / ``downsample.1``
 - ``lin_z_{i}``                -> ``lin_z.{i}``
+
+:func:`from_jax_opt_state` carries an optax Adam state's moments through
+the same map into a ``torch.optim.Adam`` state dict.
 """
 from __future__ import annotations
 
@@ -74,7 +77,7 @@ def from_jax_variables(variables: Dict[str, Dict]) -> Dict[str, torch.Tensor]:
             raise ValueError(f"unrecognized batch_stats leaf: {path}")
         out[f"{name}.{stat}"] = value
     return {
-        k: torch.from_numpy(np.ascontiguousarray(v, dtype=np.float32))
+        k: torch.from_numpy(np.array(v, dtype=np.float32))
         for k, v in out.items()
     }
 
@@ -88,3 +91,27 @@ def load_jax_variables(model: nn.Module, variables: Dict[str, Dict]) -> None:
         raise ValueError(
             f"weight bridge mismatch: missing {missing}, unexpected {result.unexpected_keys}"
         )
+
+
+def from_jax_opt_state(adam, model: nn.Module, optimizer: torch.optim.Optimizer) -> Dict:
+    """An optax Adam state (``ScaleByAdamState``: ``mu``, ``nu``, ``count``;
+    ``opt_state[0]`` of ``optax.adam``) as a ``torch.optim.Adam`` state dict
+    for ``optimizer`` over ``model``'s parameters: the moments go through
+    the same key map and layout transforms as the parameters, so a JAX
+    train state continues in the port. Pass the result to
+    ``optimizer.load_state_dict``."""
+    mu = from_jax_variables({"params": adam.mu})
+    nu = from_jax_variables({"params": adam.nu})
+    names = {id(p): n for n, p in model.named_parameters()}
+    sd = optimizer.state_dict()
+    step = torch.tensor(float(np.asarray(adam.count)))
+    state = {}
+    index = 0
+    for group in optimizer.param_groups:
+        for p in group["params"]:
+            name = names[id(p)]
+            if name not in mu:
+                raise ValueError(f"the optax state has no moments for {name}")
+            state[index] = {"step": step.clone(), "exp_avg": mu[name], "exp_avg_sq": nu[name]}
+            index += 1
+    return {"state": state, "param_groups": sd["param_groups"]}

@@ -6,8 +6,8 @@ torch, NHWC features. The view index is folded into the row index of ONE
 flat ``(N*H*W, C)`` table, as the JAX package does, so the gather kernel
 (``ops/gather.py``) takes the same inputs.
 
-This is the plain oracle of the gather kernel and the path for the modes
-the kernel does not cover (everything but bilinear/border).
+This is the plain oracle of the gather kernels and the path for the modes
+they do not cover (everything but bilinear/border).
 """
 from __future__ import annotations
 
@@ -28,18 +28,26 @@ def _reflect(coord: torch.Tensor, low: float, high: float) -> torch.Tensor:
     return low + torch.minimum(coord, 2.0 * span - coord)
 
 
+def _clip(x: torch.Tensor, low: float, high: float) -> torch.Tensor:
+    """``jnp.clip``: as ``torch.clamp``, but a value exactly at a bound
+    passes half its gradient (max/min split ties), as in JAX. The bounds
+    are filled on ``x``'s device (``new_tensor`` would copy from the host
+    and stall the stream)."""
+    return torch.minimum(torch.maximum(x, x.new_full((), low)), x.new_full((), high))
+
+
 def _compute_source_index(
     coord: torch.Tensor, size: int, padding_mode: str, align_corners: bool
 ) -> torch.Tensor:
     x = _unnormalize(coord, size, align_corners)
     if padding_mode == "border":
-        x = torch.clamp(x, 0.0, size - 1)
+        x = _clip(x, 0.0, size - 1)
     elif padding_mode == "reflection":
         if align_corners:
             x = _reflect(x, 0.0, size - 1)
         else:
             x = _reflect(x, -0.5, size - 0.5)
-        x = torch.clamp(x, 0.0, size - 1)
+        x = _clip(x, 0.0, size - 1)
     elif padding_mode != "zeros":
         raise ValueError(f"Unknown padding_mode {padding_mode!r}")
     return x
@@ -127,3 +135,28 @@ def bilinear_pair_bases(
     base = torch.stack([y0 * W + x0, y1 * W + x0], dim=-1)
     w = torch.stack([wx, wy], dim=-1)
     return base, w
+
+
+def bilinear_corners(
+    ix: torch.Tensor, iy: torch.Tensor, H: int, W: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Corner rows and weights of kernel C's inputs (counterpart of
+    ``bilinear_corners`` in ``ops/gather_pallas.py``). The weights are
+    differentiable in ``ix``/``iy`` (floor carries no gradient), so the
+    gather's weight gradient flows on to the sample positions.
+
+    :param ix, iy: (...,) pixel coords already border-clamped
+    :return: idx (..., 4) int32 rows [00, 01, 10, 11] into the (H*W, C)
+        table; w (..., 4) f32 weights [w00, w01, w10, w11]
+    """
+    ix0 = torch.floor(ix)
+    iy0 = torch.floor(iy)
+    wx = (ix - ix0).to(torch.float32)
+    wy = (iy - iy0).to(torch.float32)
+    x0 = torch.clamp(ix0.to(torch.int32), 0, W - 1)
+    y0 = torch.clamp(iy0.to(torch.int32), 0, H - 1)
+    x1 = torch.clamp(x0 + 1, max=W - 1)
+    y1 = torch.clamp(y0 + 1, max=H - 1)
+    idx = torch.stack([y0 * W + x0, y0 * W + x1, y1 * W + x0, y1 * W + x1], dim=-1)
+    w = torch.stack([(1 - wx) * (1 - wy), wx * (1 - wy), (1 - wx) * wy, wx * wy], dim=-1)
+    return idx, w

@@ -1,5 +1,6 @@
 from .renderer import (  # noqa: F401
     RenderConfig,
+    RenderSchedule,
     composite_outputs,
     draw_noise,
     render_rays,

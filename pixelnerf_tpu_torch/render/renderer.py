@@ -22,15 +22,24 @@ tests hand both sides the same numbers):
 - ``"fine_u"`` (SB, B, n_imp) uniform CDF positions of the importance samples
 - ``"fine_jitter"`` (SB, B, n_imp) uniform jitter of the importance samples
 - ``"depth"`` (SB, B, n_fine_depth) standard normals of the depth samples
+- ``"noise_c"`` (SB, B, n_coarse) and ``"noise_f"`` (SB, B, n_coarse +
+  n_fine) standard normals of the sigma noise, drawn only for training with
+  ``noise_std > 0``
 
 where ``n_imp = n_fine - n_fine_depth``.
+
+Training differentiates through all of it: the expected depth feeding the
+depth-jittered samples is not detached (the reference does not detach it),
+so the fine pass's gradients reach the coarse pass through the sample
+positions; only the importance weights are detached.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Union
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 
 @dataclasses.dataclass(frozen=True)
@@ -38,6 +47,7 @@ class RenderConfig:
     n_coarse: int = 128
     n_fine: int = 0
     n_fine_depth: int = 0
+    noise_std: float = 0.0
     depth_std: float = 0.01
     white_bkgd: bool = False
 
@@ -51,13 +61,44 @@ class RenderConfig:
             n_coarse=conf.get_int("n_coarse", 128),
             n_fine=conf.get_int("n_fine", 0),
             n_fine_depth=conf.get_int("n_fine_depth", 0),
+            noise_std=conf.get_float("noise_std", 0.0),
             depth_std=conf.get_float("depth_std", 0.01),
             white_bkgd=bool(conf.get_float("white_bkgd", white_bkgd)),
         )
 
 
-def draw_noise(rays: torch.Tensor, cfg: RenderConfig, generator: torch.Generator) -> Dict[str, torch.Tensor]:
-    """Draw every random number one ``render_rays`` call needs."""
+class RenderSchedule:
+    """Sample-count schedule (counterpart of ``RenderSchedule`` in
+    ``pixelnerf_tpu/render/renderer.py``).
+
+    ``sched = [iters, n_coarse, n_fine]``: once the training iteration
+    crosses ``iters[k]``, sampling switches to ``(n_coarse[k], n_fine[k])``.
+    """
+
+    def __init__(self, base: RenderConfig, sched):
+        self.base = base
+        self.sched = sched if sched else None
+
+    def at_step(self, iter_idx: int) -> RenderConfig:
+        if not self.sched:
+            return self.base
+        iters, n_coarse, n_fine = self.sched
+        cfg = self.base
+        for k in range(len(iters)):
+            if iter_idx >= iters[k]:
+                cfg = dataclasses.replace(self.base, n_coarse=int(n_coarse[k]), n_fine=int(n_fine[k]))
+        return cfg
+
+    @classmethod
+    def from_conf(cls, conf, base: RenderConfig) -> "RenderSchedule":
+        return cls(base, conf.get_list("sched", None))
+
+
+def draw_noise(
+    rays: torch.Tensor, cfg: RenderConfig, generator: torch.Generator, train: bool = False
+) -> Dict[str, torch.Tensor]:
+    """Draw every random number one ``render_rays`` call needs (the sigma
+    noise only for ``train``)."""
     lead = rays.shape[:-1]
     kw = dict(generator=generator, device=rays.device, dtype=rays.dtype)
     n_imp = cfg.n_fine - cfg.n_fine_depth
@@ -67,6 +108,10 @@ def draw_noise(rays: torch.Tensor, cfg: RenderConfig, generator: torch.Generator
         noise["fine_jitter"] = torch.rand(lead + (n_imp,), **kw)
     if cfg.using_fine and cfg.n_fine_depth > 0:
         noise["depth"] = torch.randn(lead + (cfg.n_fine_depth,), **kw)
+    if train and cfg.noise_std > 0.0:
+        noise["noise_c"] = torch.randn(lead + (cfg.n_coarse,), **kw)
+        if cfg.using_fine:
+            noise["noise_f"] = torch.randn(lead + (cfg.n_coarse + cfg.n_fine,), **kw)
     return noise
 
 
@@ -107,14 +152,21 @@ def sample_fine_depth(
 
 
 def composite_outputs(
-    out: torch.Tensor, rays: torch.Tensor, z_samp: torch.Tensor, cfg: RenderConfig
+    out: torch.Tensor, rays: torch.Tensor, z_samp: torch.Tensor, cfg: RenderConfig,
+    sigma_noise: Optional[torch.Tensor] = None,
 ) -> Dict[str, torch.Tensor]:
-    """Compositing on field outputs (SB, B, K, 4) aligned with sorted z."""
+    """Compositing on field outputs (SB, B, K, 4) aligned with sorted z.
+
+    :param sigma_noise: (SB, B, K) standard normals, scaled by
+        ``cfg.noise_std`` and added to sigma (training), or None
+    """
     deltas = z_samp[..., 1:] - z_samp[..., :-1]
     delta_inf = rays[..., 7:8] - z_samp[..., -1:]
     deltas = torch.cat([deltas, delta_inf], dim=-1)                    # (SB, B, K)
     rgbs = out[..., :3]
     sigmas = out[..., 3]
+    if sigma_noise is not None:
+        sigmas = sigmas + sigma_noise * cfg.noise_std
     alphas = 1.0 - torch.exp(-deltas * torch.relu(sigmas))
     alphas_shifted = torch.cat(
         [torch.ones_like(alphas[..., :1]), 1.0 - alphas + 1e-10], dim=-1
@@ -156,6 +208,7 @@ def render_rays(
     noise: Optional[Dict[str, torch.Tensor]] = None,
     want_weights: bool = False,
     use_viewdirs: bool = True,
+    train: bool = False,
 ) -> Dict[str, Dict[str, torch.Tensor]]:
     """Staged hierarchical render of a ray batch.
 
@@ -166,6 +219,7 @@ def render_rays(
     :param rays: (SB, B, 8) [origin, dir, near, far]
     :param noise: pre-drawn random numbers (see the module docstring);
         drawn from ``generator`` if None
+    :param train: add the sigma noise (``cfg.noise_std > 0``)
     :return: {'coarse': {rgb, depth[, weights]}[, 'fine': {...}]}
     """
     if rays.dim() != 3 or rays.shape[-1] != 8:
@@ -173,13 +227,16 @@ def render_rays(
     if noise is None:
         if generator is None:
             raise ValueError("pass a torch.Generator or pre-drawn noise")
-        noise = draw_noise(rays, cfg, generator)
+        noise = draw_noise(rays, cfg, generator, train)
     SB, B, _ = rays.shape
+    sigma_noise = train and cfg.noise_std > 0.0
 
     z_coarse = sample_coarse(rays, cfg, noise["coarse"])               # (SB, B, Kc)
     feats_c = _stage_features(features_fn, rays, z_coarse, use_viewdirs)
     out_c = mlp_fn(feats_c, True).reshape(SB, B, cfg.n_coarse, 4)
-    coarse_out = composite_outputs(out_c, rays, z_coarse, cfg)
+    coarse_out = composite_outputs(
+        out_c, rays, z_coarse, cfg, noise["noise_c"] if sigma_noise else None
+    )
     outputs = {"coarse": _format(coarse_out, want_weights)}
 
     if cfg.using_fine:
@@ -191,7 +248,7 @@ def render_rays(
         if cfg.n_fine_depth > 0:
             new_samps.append(sample_fine_depth(rays, coarse_out["depth"], cfg, noise["depth"]))
         out_fc = mlp_fn(feats_c, False).reshape(SB, B, cfg.n_coarse, 4)
-        del feats_c
+        del feats_c   # both MLP calls have taken it; autograd keeps what it saved
         if new_samps:
             z_new = torch.cat(new_samps, dim=-1)                        # (SB, B, Kn)
             feats_n = _stage_features(features_fn, rays, z_new, use_viewdirs)
@@ -203,7 +260,9 @@ def render_rays(
         # one stable sort keyed on z; the 4 output channels ride as payload
         z_sorted, order = torch.sort(z_all, dim=-1, stable=True)
         out_sorted = torch.gather(out_f, 2, order[..., None].expand(-1, -1, -1, 4))
-        fine_out = composite_outputs(out_sorted, rays, z_sorted, cfg)
+        fine_out = composite_outputs(
+            out_sorted, rays, z_sorted, cfg, noise["noise_f"] if sigma_noise else None
+        )
         outputs["fine"] = _format(fine_out, want_weights)
     return outputs
 
@@ -218,20 +277,50 @@ def render_rays_chunked(
     noise_chunks=None,
     want_weights: bool = False,
     use_viewdirs: bool = True,
+    train: bool = False,
+    remat: Union[bool, str] = False,
 ) -> Dict[str, Dict[str, torch.Tensor]]:
     """Memory-bounded render: a Python loop over ray chunks of (SB, B, 8),
     concatenated along B. ``noise_chunks`` is a list with one noise dict per
-    chunk, or None to draw from ``generator``."""
+    chunk, or None to draw each chunk's from ``generator`` before its render.
+
+    ``remat`` sets what the backward recomputes (``torch.utils.checkpoint``,
+    non-reentrant; the noise is drawn before the checkpointed call, so the
+    recompute sees the same numbers):
+
+    - ``False``: nothing; every chunk's activations are kept
+    - ``True``: the whole chunk render
+    - ``"features"``: only the two MLP calls; the feature stage (projection,
+      gather, positional code) runs outside the checkpoint and keeps its
+      outputs, the torch form of the JAX package's
+      ``save_only_these_names("gathered_features")``
+    - ``"dots"`` (the JAX package's GEMM-output policy) is not ported
+    """
+    if remat == "dots":
+        raise NotImplementedError('remat="dots" is not ported; use True, False or "features"')
+    if remat not in (False, True, "features"):
+        raise ValueError(f"unknown remat policy {remat!r}")
+    if remat == "features":
+        inner_mlp = mlp_fn
+
+        def mlp_fn(feats, coarse):
+            return checkpoint(inner_mlp, feats, coarse, use_reentrant=False)
+
     SB, B, _ = rays.shape
     outs = []
     for i, start in enumerate(range(0, B, ray_chunk)):
-        noise = None if noise_chunks is None else noise_chunks[i]
-        outs.append(
-            render_rays(
-                features_fn, mlp_fn, rays[:, start : start + ray_chunk], cfg,
-                generator, noise, want_weights, use_viewdirs,
-            )
-        )
+        chunk = rays[:, start : start + ray_chunk]
+        if noise_chunks is not None:
+            noise = noise_chunks[i]
+        elif generator is not None:
+            noise = draw_noise(chunk, cfg, generator, train)
+        else:
+            raise ValueError("pass a torch.Generator or pre-drawn noise")
+        args = (features_fn, mlp_fn, chunk, cfg, None, noise, want_weights, use_viewdirs, train)
+        if remat is True:
+            outs.append(checkpoint(render_rays, *args, use_reentrant=False))
+        else:
+            outs.append(render_rays(*args))
     return {
         branch: {k: torch.cat([o[branch][k] for o in outs], dim=1) for k in outs[0][branch]}
         for branch in outs[0]

@@ -13,6 +13,13 @@ import torch
 from pixelnerf_tpu_torch.ops import grid_sample as tgs
 from pixelnerf_tpu_torch.ops.fused_mlp import fused_resnetfc_infer, fused_resnetfc_infer_plain
 from pixelnerf_tpu_torch.ops.gather import gather_bilerp, gather_bilerp_plain
+from pixelnerf_tpu_torch.ops.gather_rows import (
+    GatherRowsLerp,
+    gather_rows_lerp,
+    gather_rows_lerp_bwd,
+    gather_rows_lerp_bwd_plain,
+    gather_rows_lerp_plain,
+)
 
 
 def _pair_inputs(hh=16, ww=16, c=128, p=300, seed=0):
@@ -121,6 +128,70 @@ def test_fused_mlp_wrapper_rejects_bad_inputs(case):
     assert fused_resnetfc_infer.launches == before
 
 
+def _rows_inputs(rows=64, c=16, n=50, seed=0, table_dtype=torch.float32):
+    g = torch.Generator().manual_seed(seed)
+    table = torch.randn((rows, c), generator=g).to(table_dtype)
+    idx = torch.randint(0, rows, (n, 4), generator=g, dtype=torch.int32)
+    w = torch.rand((n, 4), generator=g)
+    return table, idx, w
+
+
+def test_gather_rows_wrappers_on_cpu_run_plain_without_launch():
+    table, idx, w = _rows_inputs()
+    before = (gather_rows_lerp.launches, gather_rows_lerp_bwd.launches)
+    out = gather_rows_lerp(table, idx, w, torch.bfloat16)
+    assert out.dtype == torch.bfloat16
+    rows = table[idx.long()]                                          # (N, 4, C)
+    ref = (w[:, :, None] * rows).sum(1)
+    np.testing.assert_allclose(out.float().numpy(), ref.numpy(), atol=3e-2)
+    grad_out = torch.randn(out.shape)
+    gt, gw = gather_rows_lerp_bwd(table, idx, w, grad_out)
+    # the transposes written out: each tap's weighted grad_out scattered
+    # into its row, and each tap's row dotted with grad_out
+    ref_t = torch.zeros_like(table)
+    for n in range(idx.shape[0]):
+        for k in range(4):
+            ref_t[idx[n, k]] += w[n, k] * grad_out[n]
+    np.testing.assert_allclose(gt.numpy(), ref_t.numpy(), atol=1e-5)
+    np.testing.assert_allclose(gw.numpy(), (rows * grad_out[:, None]).sum(-1).numpy(), atol=1e-5)
+    assert (gather_rows_lerp.launches, gather_rows_lerp_bwd.launches) == before
+
+
+@pytest.mark.parametrize(
+    "case", ["table_int", "idx_int64", "w_f64", "idx_shape", "w_rows", "channels", "out_f16", "grad_shape"]
+)
+def test_gather_rows_wrappers_reject_bad_inputs(case):
+    table, idx, w = _rows_inputs(c=8, n=5)
+    out_dtype = torch.float32
+    grad_out = torch.zeros((5, 8))
+    if case == "table_int":
+        table = table.to(torch.int32)
+    elif case == "idx_int64":
+        idx = idx.long()
+    elif case == "w_f64":
+        w = w.double()
+    elif case == "idx_shape":
+        idx = idx[:, :2]
+    elif case == "w_rows":
+        w = w[:4]
+    elif case == "channels":
+        table = torch.zeros((64, 6))
+        grad_out = torch.zeros((5, 6))
+    elif case == "out_f16":
+        out_dtype = torch.float16
+        grad_out = torch.zeros((5, 8), dtype=torch.float16)
+    elif case == "grad_shape":
+        grad_out = torch.zeros((5, 16))
+    before = (gather_rows_lerp.launches, gather_rows_lerp_bwd.launches)
+    with pytest.raises((TypeError, ValueError)):
+        if case == "grad_shape":
+            gather_rows_lerp_bwd(table, idx, w, grad_out)
+        else:
+            gather_rows_lerp(table, idx, w, out_dtype)
+            gather_rows_lerp_bwd(table, idx, w, grad_out)
+    assert (gather_rows_lerp.launches, gather_rows_lerp_bwd.launches) == before
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -160,3 +231,55 @@ def test_fused_mlp_kernel_matches_plain_cuda(cuda_device):
     # both accumulate bf16 products in float32, in other orders; a rounding
     # flip of one bf16 intermediate moves an output by a few bf16 ulps
     torch.testing.assert_close(out, ref, atol=5e-2, rtol=5e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("table_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+def test_gather_rows_kernel_matches_plain_cuda(cuda_device, table_dtype, out_dtype):
+    table, idx, w = _rows_inputs(rows=2 * 16 * 16, c=512, n=1000, table_dtype=table_dtype)
+    args = [a.to(cuda_device) for a in (table, idx, w)]
+    out = gather_rows_lerp(*args, out_dtype)
+    torch.cuda.synchronize()
+    ref = gather_rows_lerp_plain(*args, out_dtype)
+    # no contracted multiply-adds in the kernel: bit-equal
+    torch.testing.assert_close(out, ref, atol=0, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("table_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+def test_gather_rows_bwd_kernel_matches_plain_cuda(cuda_device, table_dtype, out_dtype):
+    # few rows, many points: every row takes many atomic adds
+    table, idx, w = _rows_inputs(rows=64, c=512, n=4000, table_dtype=table_dtype)
+    grad_out = torch.randn((4000, 512), generator=torch.Generator().manual_seed(3)).to(out_dtype)
+    args = [a.to(cuda_device) for a in (table, idx, w, grad_out)]
+    gt, gw = gather_rows_lerp_bwd(*args)
+    torch.cuda.synchronize()
+    rt, rw = gather_rows_lerp_bwd_plain(*args)
+    # float32 sums in another order (atomics; a warp's shuffle tree): a few
+    # float32 ulps of the largest entry, plus half a bf16 ulp where the
+    # table gradient is stored in bf16
+    tol_t = (1e-5 if table_dtype == torch.float32 else 8e-3) * rt.float().abs().max().item()
+    assert (gt.float() - rt.float()).abs().max().item() <= tol_t
+    assert (gw - rw).abs().max().item() <= 1e-5 * rw.abs().max().item()
+    # one output alone
+    gt_only, none = gather_rows_lerp_bwd(*args, want_w=False)
+    assert none is None and (gt_only.float() - rt.float()).abs().max().item() <= tol_t
+
+
+@pytest.mark.cuda
+def test_gather_rows_autograd_launches_both_kernels_cuda(cuda_device):
+    table, idx, w = _rows_inputs(rows=256, c=64, n=300)
+    table = table.to(cuda_device).requires_grad_()
+    w = w.to(cuda_device).requires_grad_()
+    idx = idx.to(cuda_device)
+    before = (gather_rows_lerp.launches, gather_rows_lerp_bwd.launches)
+    out = GatherRowsLerp.apply(table, idx, w, torch.float32, True)
+    gt, gw = torch.autograd.grad(out.square().sum(), (table, w))
+    assert (gather_rows_lerp.launches, gather_rows_lerp_bwd.launches) == (before[0] + 1, before[1] + 1)
+    out_p = GatherRowsLerp.apply(table, idx, w, torch.float32, False)
+    pt, pw = torch.autograd.grad(out_p.square().sum(), (table, w))
+    torch.testing.assert_close(out, out_p, atol=0, rtol=0)
+    torch.testing.assert_close(gt, pt, atol=1e-5 * pt.abs().max().item(), rtol=0)
+    torch.testing.assert_close(gw, pw, atol=1e-5 * pw.abs().max().item(), rtol=0)

@@ -238,10 +238,12 @@ def _imported_roots(path):
 
 def test_port_imports_nothing_of_jax():
     """Every module of the port, chip_smoke.py and the port's profiling
-    script: no import of jax, flax,
+    scripts: no import of jax, flax,
     optax or the top-level package pixelnerf_tpu (matched by exact name:
     pixelnerf_tpu_torch shares its prefix)."""
-    files = [os.path.join(REPO, "chip_smoke.py"), os.path.join(REPO, "scripts", "profile_torch_render.py")]
+    files = [os.path.join(REPO, "chip_smoke.py")] + [
+        os.path.join(REPO, "scripts", f"profile_torch_{name}.py") for name in ("render", "train")
+    ]
     for root, _, names in os.walk(os.path.join(REPO, "pixelnerf_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     assert len(files) > 15

@@ -108,10 +108,11 @@ def build_pair(d_hidden=64, num_layers=2, dtype=None, seed=0, SB=1):
     return jnet, variables, tnet, jconf, tconf
 
 
-def jax_draws(key, SB, B, cfg):
+def jax_draws(key, SB, B, cfg, train=False):
     """The random numbers JAX's ``render_rays`` draws from ``key``, as the
-    port's noise dict (numpy -> torch)."""
-    k_coarse, k_fine, k_depth, _, _ = jax.random.split(key, 5)
+    port's noise dict (numpy -> torch); with ``train`` and
+    ``cfg.noise_std > 0`` also the sigma noise of both passes."""
+    k_coarse, k_fine, k_depth, k_noise_c, k_noise_f = jax.random.split(key, 5)
     noise = {"coarse": jax.random.uniform(k_coarse, (SB, B, cfg.n_coarse))}
     n_imp = cfg.n_fine - cfg.n_fine_depth
     if cfg.n_fine > 0 and n_imp > 0:
@@ -120,7 +121,21 @@ def jax_draws(key, SB, B, cfg):
         noise["fine_jitter"] = jax.random.uniform(r2, (SB, B, n_imp))
     if cfg.n_fine > 0 and cfg.n_fine_depth > 0:
         noise["depth"] = jax.random.normal(k_depth, (SB, B, cfg.n_fine_depth))
+    if train and cfg.noise_std > 0:
+        noise["noise_c"] = jax.random.normal(k_noise_c, (SB, B, cfg.n_coarse))
+        if cfg.n_fine > 0:
+            noise["noise_f"] = jax.random.normal(k_noise_f, (SB, B, cfg.n_coarse + cfg.n_fine))
     return {k: torch.from_numpy(np.array(v, np.float32)) for k, v in noise.items()}
+
+
+def jax_chunk_draws(key, SB, B, cfg, ray_chunk=None, train=True):
+    """The draws of JAX's train render, one noise dict per ray chunk: the
+    step's key directly when it does not chunk, else one key per chunk
+    from ``jax.random.split(key, n_chunks)`` (``render_rays_chunked``)."""
+    if ray_chunk is None or B <= ray_chunk:
+        return [jax_draws(key, SB, B, cfg, train)]
+    keys = jax.random.split(key, B // ray_chunk)
+    return [jax_draws(k, SB, ray_chunk, cfg, train) for k in keys]
 
 
 def t(x, dtype=torch.float32):
