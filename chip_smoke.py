@@ -1,13 +1,19 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's main paths on one NVIDIA GPU and check them.
 
-Two paths at the full width of the SRN model (``conf/exp/srn.conf``:
-ResNet34 to a 512-channel latent, ResnetFC 512 x 5 blocks, 64 coarse + 32
-fine samples), weights random from a seed:
+Four paths at the full width and depth of the SRN model
+(``conf/exp/srn.conf``: ResNet34 to a 512-channel latent, ResnetFC 512 x 5
+blocks, 64 coarse + 32 fine samples), weights random from a seed:
 
 - inference, in bf16: ``make_model`` -> ``encode`` of one 128^2 source
   view -> ``FullRenderer(fast=True).render_image`` of three 128x128 novel
-  views (three requests);
+  views (three requests), staged: kernel A's gather, kernel B's MLP;
+- the fused field path: ``pack_encoding`` -> the unstaged renderer on
+  ``PixelNeRFNet.query_fused`` (kernel D: gather and MLP in one launch),
+  three requests;
+- the baked field path: ``bake_encoding`` -> ``FullRenderer(fast=True)``,
+  which renders a baked encoding unstaged (kernel A on the 1536-wide
+  injection maps, kernel B with ``z_is_tz``), three requests;
 - training: ``make_train_step`` steps on batches of the port's synthetic
   scenes at SRN geometry (128^2, focal 131.25, near 0.8, far 1.8), at the
   reference config (f32, 4 objects x 128 rays, unchunked, 20 steps on one
@@ -18,11 +24,11 @@ fine samples), weights random from a seed:
 Phases, one JSON line each:
 
 1. device: ``nvidia-smi`` name and power limit, torch and CUDA versions
-2. build: the three CUDA sources of ``pixelnerf_tpu_torch/csrc`` for
+2. build: the five CUDA sources of ``pixelnerf_tpu_torch/csrc`` for
    sm_90a, one nvcc each, in parallel
 3. kernel A (gather) and 4. kernel B (fused MLP) against their plain
    PyTorch versions at the inference path's shapes, with times, the bound
-   and a library call's time
+   and a library call's time; A also on the baked path's 1536-wide rows
 5. main_path: the inference path, with A's and B's launch counts read
    around it
 6. kernel_vs_plain_e2e: a 2048-ray crop rendered through the kernels and
@@ -36,6 +42,17 @@ Phases, one JSON line each:
 11. train_kernel_vs_plain: one step of the reference config (a) at its
     full shape through the kernels and through their plain versions, from
     one state, batch and noise
+12. kernel_b_tz: kernel B's ``z_is_tz`` variant and 13. kernel_d: the fused
+    gather+MLP kernel, against their plain versions (D also against kernel
+    B fed by kernel A, bit for bit), with the time of D's gather prologue
+14. kernel_f and 15. kernel_e: the four formulations of the gather study
+    through ``scripts/probe_gather_kernels_torch.py`` (small shapes,
+    registers and spills) and ``scripts/bench_gather_torch.py`` (full
+    scale, timed), float32 and bf16 tables
+16. fused_path and 17. baked_path, with the launch counts of A, B and D
+    read around each
+18. fused_vs_staged_e2e: the 2048-ray crop through the fused, staged,
+    plain and baked renders on the same noise
 
 then the ``kernels`` line, the card's name and power limit, and
 ``{"ok": true, ...}`` as the last line. Any failure raises and exits
@@ -55,9 +72,10 @@ import torch
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
-# published H100 SXM peaks (NVIDIA data sheet): dense bf16 tensor-core rate
-# and HBM3 bandwidth
+# published H100 SXM peaks (NVIDIA data sheet): dense bf16 tensor-core rate,
+# float32 rate off the tensor cores and HBM3 bandwidth
 PEAK_BF16_FLOPS = 989e12
+PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 
 # SRN geometry (the SRN dataset's cameras, conf/exp/srn.conf renderer)
@@ -65,8 +83,6 @@ IMAGE = 128
 FOCAL = 131.25
 NEAR, FAR = 0.8, 1.8
 RAY_CHUNK = IMAGE * IMAGE   # one image per chunk
-N_REQUESTS = 3
-PEAK_F32_FLOPS = 67e12      # off the tensor cores
 
 # training configs (bench.py's reference and chip-filling train configs)
 TRAIN_SB = 4
@@ -145,7 +161,7 @@ def check_kernel_a(dev, g):
         reps=10,
     )
     bytes_moved = n * c * 2 + n * (8 + 8) + table.numel() * 2
-    bound_ms, bound_by = bound(bytes_moved, 6 * n * c, 67e12)   # f32 lerp off the tensor cores
+    bound_ms, bound_by = bound(bytes_moved, 6 * n * c, PEAK_F32_FLOPS)
     res = {
         "name": "gather_bilerp", "route": "cuda",
         "source": "pixelnerf_tpu_torch/csrc/gather.cu",
@@ -154,6 +170,22 @@ def check_kernel_a(dev, g):
         "max_abs_err": err, "tolerance": tol,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": library_ms, "library_call": "F.grid_sample(NCHW bf16, bilinear, border)",
+    }
+    # the baked path's shape: rows of a 1536-wide injection map. The plain
+    # version holds several float32 copies of its output, so it is compared
+    # on the first 131,072 points; the kernel is timed on all of them
+    wide = torch.randn((hl * wl, 1536), generator=g).to(torch.bfloat16).to(dev)
+    m = 131072
+    out_w = gather_bilerp(wide, base, w, wl, torch.bfloat16)
+    torch.cuda.synchronize()
+    err_w = (out_w[:m].float() - gather_bilerp_plain(wide, base[:m], w[:m], wl, torch.bfloat16).float()).abs().max().item()
+    del out_w
+    if not err_w <= tol:
+        raise AssertionError(f"kernel A disagrees with its plain version on 1536-wide rows: {err_w} > {tol}")
+    bound_w, _ = bound(n * 1536 * 2 + n * (8 + 8) + wide.numel() * 2, 6 * n * 1536, PEAK_F32_FLOPS)
+    res["wide_rows"] = {
+        "table": [hl * wl, 1536], "points": n, "max_abs_err": err_w, "points_compared": m,
+        "ms": time_ms(lambda: gather_bilerp(wide, base, w, wl, torch.bfloat16), reps=10), "bound_ms": bound_w,
     }
     emit({"phase": "kernel_a", **res})
     return res
@@ -173,16 +205,7 @@ def check_kernel_b(dev, g, mlp):
     out = fused_resnetfc_infer(z, x, weights, mlp.n_blocks, mlp.combine_layer)
     torch.cuda.synchronize()
     ref = fused_resnetfc_infer_plain(z, x, weights, mlp.n_blocks, mlp.combine_layer)
-    diff = (out - ref).abs()
-    err = diff.max().item()
-    # both accumulate bf16 products in float32, in other orders: one
-    # flipped bf16 rounding is carried by the later layers (the tolerance
-    # of tests/test_fused_mlp.py), and nearly all entries agree closely
-    atol = rtol = 5e-2
-    bad = (diff > atol + rtol * ref.abs()).sum().item()
-    close = (diff < 1e-2).float().mean().item()
-    if bad or close < 0.95 or not torch.isfinite(out).all():
-        raise AssertionError(f"kernel B disagrees with its plain version: max {err}, {bad} outside, {close} close")
+    err, tol, close = assert_mlp_close(out, ref, "kernel B")
     ms = time_ms(lambda: fused_resnetfc_infer(z, x, weights, mlp.n_blocks, mlp.combine_layer), reps=5)
     plain_ms = time_ms(
         lambda: fused_resnetfc_infer_plain(z, x, weights, mlp.n_blocks, mlp.combine_layer), reps=2, warmup=1
@@ -190,10 +213,8 @@ def check_kernel_b(dev, g, mlp):
     # yardstick: the same chain as bf16 torch.matmul calls (cuBLAS), the
     # dense path of ResnetFC outside the kernel's gate
     library_ms = time_ms(lambda: mlp((z, x), combine_inner_dims=(1, n), fast=False), reps=3, warmup=1)
-    dh, d_in_pad = weights[0].shape
-    n_lin_z = min(mlp.combine_layer, mlp.n_blocks)
-    # operations padded as fused_mlp.py:130-134 counts them
-    flops = 2 * n * dh * (d_in_pad + n_lin_z * dh + 2 * mlp.n_blocks * dh + 128)
+    dh, n_lin_z = mlp.d_hidden, mlp.n_lin_z
+    flops = mlp_flops(n, weights, mlp)
     bytes_moved = n * (mlp.d_in + mlp.d_latent) * 2 + n * 4 * 4 + sum(w.numel() * 2 for w in weights)
     bound_ms, bound_by = bound(bytes_moved, flops, PEAK_BF16_FLOPS)
     res = {
@@ -202,13 +223,203 @@ def check_kernel_b(dev, g, mlp):
         "replaces": "pixelnerf_tpu/ops/fused_mlp.py:68",
         "shape": {"rows": n, "d_hidden": dh, "d_latent": mlp.d_latent, "d_in": mlp.d_in,
                   "n_blocks": mlp.n_blocks, "n_lin_z": n_lin_z},
-        "max_abs_err": err, "tolerance": {"atol": atol, "rtol": rtol}, "frac_within_1e-2": close,
+        "max_abs_err": err, "tolerance": tol, "frac_within_1e-2": close,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": library_ms, "library_call": "bf16 torch.matmul chain (ResnetFC fast=False)",
         "tflops": flops / ms / 1e9,
     }
     emit({"phase": "kernel_b", **res})
     return res
+
+
+def mlp_flops(n, weights, mlp, with_wz=True):
+    """Operations of the fused MLP on n rows, padded as
+    pixelnerf_tpu/ops/fused_mlp.py:130-134 counts them."""
+    dh, d_in_pad = weights[0].shape
+    n_lin_z = min(mlp.combine_layer, mlp.n_blocks) if with_wz else 0
+    return 2 * n * dh * (d_in_pad + n_lin_z * dh + 2 * mlp.n_blocks * dh + 128)
+
+
+def assert_mlp_close(out, ref, what):
+    """Kernel B's tolerance: both sides accumulate bf16 products in float32,
+    in other orders; one flipped bf16 rounding is carried by the later
+    layers (the tolerance of tests/test_fused_mlp.py), and nearly all
+    entries agree closely. Returns (max abs err, tolerance, share < 1e-2)."""
+    diff = (out - ref).abs()
+    err = diff.max().item()
+    atol = rtol = 5e-2
+    bad = (diff > atol + rtol * ref.abs()).sum().item()
+    close = (diff < 1e-2).float().mean().item()
+    if bad or close < 0.95 or not torch.isfinite(out).all():
+        raise AssertionError(f"{what} disagrees with its plain version: max {err}, {bad} outside, {close} close")
+    return err, {"atol": atol, "rtol": rtol}, close
+
+
+def check_kernel_b_tz(dev, g, mlp):
+    """Kernel B with z_is_tz at the baked path's coarse shape: 16384 x 64
+    samples, the injections 3 x 512 wide, the SRN fine MLP's weights."""
+    from pixelnerf_tpu_torch.ops.fused_mlp import (
+        fused_resnetfc_infer, fused_resnetfc_infer_plain, pack_weights,
+    )
+
+    n = RAY_CHUNK * 64
+    d_tz = mlp.n_lin_z * mlp.d_hidden
+    tz = torch.randn((n, d_tz), generator=g).to(torch.bfloat16).to(dev)
+    x = torch.randn((n, mlp.d_in), generator=g).to(torch.bfloat16).to(dev)
+    weights = pack_weights(mlp, with_wz=False)
+    args = (tz, x, weights, mlp.n_blocks, mlp.combine_layer, True)
+    out = fused_resnetfc_infer(*args)
+    torch.cuda.synchronize()
+    err, tol, close = assert_mlp_close(out, fused_resnetfc_infer_plain(*args), "kernel B (z_is_tz)")
+    ms = time_ms(lambda: fused_resnetfc_infer(*args), reps=5)
+    plain_ms = time_ms(lambda: fused_resnetfc_infer_plain(*args), reps=2, warmup=1)
+    # yardstick: the bf16 torch.matmul chain without the wz product
+    library_ms = time_ms(
+        lambda: mlp((tz, x), combine_inner_dims=(1, n), fast=False, z_pretransformed=True), reps=3, warmup=1)
+    flops = mlp_flops(n, weights, mlp, with_wz=False)
+    bytes_moved = n * (mlp.d_in + d_tz) * 2 + n * 4 * 4 + sum(w.numel() * 2 for w in weights if w is not None)
+    bound_ms, bound_by = bound(bytes_moved, flops, PEAK_BF16_FLOPS)
+    res = {
+        "name": "fused_resnetfc_infer[z_is_tz]", "route": "cuda",
+        "source": "pixelnerf_tpu_torch/csrc/fused_mlp.cu",
+        "replaces": "pixelnerf_tpu/ops/fused_mlp.py:68 (z_is_tz, :52)",
+        "shape": {"rows": n, "d_hidden": mlp.d_hidden, "d_tz": d_tz, "d_in": mlp.d_in, "n_blocks": mlp.n_blocks},
+        "max_abs_err": err, "tolerance": tol, "frac_within_1e-2": close,
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": library_ms,
+        "library_call": "bf16 torch.matmul chain without the wz product (ResnetFC fast=False, z_pretransformed)",
+        "tflops": flops / ms / 1e9,
+    }
+    emit({"phase": "kernel_b_tz", **res})
+    return res
+
+
+def check_kernel_d(dev, g, mlp):
+    """Kernel D at the fused path's coarse shape: 16384 x 64 points gathered
+    from a 64x64x512 bf16 map inside the SRN fine MLP's kernel."""
+    import torch.nn.functional as F
+
+    from pixelnerf_tpu_torch.ops.fused_field import (
+        fused_gather_resnetfc_infer, fused_gather_resnetfc_infer_plain, gather_prologue_probe,
+    )
+    from pixelnerf_tpu_torch.ops.fused_mlp import fused_resnetfc_infer, pack_weights
+    from pixelnerf_tpu_torch.ops.gather import gather_bilerp
+    from pixelnerf_tpu_torch.ops.grid_sample import bilinear_pair_bases
+
+    hl = wl = 64
+    c = mlp.d_latent
+    n = RAY_CHUNK * 64
+    table = torch.randn((hl * wl, c), generator=g).to(torch.bfloat16).to(dev)
+    ix = (torch.rand(n, generator=g) * (wl - 1)).to(dev)
+    iy = (torch.rand(n, generator=g) * (hl - 1)).to(dev)
+    ix[:1000], iy[500:1500] = wl - 1, hl - 1       # the right and bottom borders, the last pixel
+    base, wg = bilinear_pair_bases(ix, iy, hl, wl)
+    x = torch.randn((n, mlp.d_in), generator=g).to(torch.bfloat16).to(dev)
+    weights = pack_weights(mlp)
+    args = (table, base, wg, x, weights, mlp.n_blocks, mlp.combine_layer, wl)
+
+    def composition():
+        z = gather_bilerp(table, base, wg, wl, torch.bfloat16)
+        return fused_resnetfc_infer(z, x, weights, mlp.n_blocks, mlp.combine_layer)
+
+    out = fused_gather_resnetfc_infer(*args)
+    torch.cuda.synchronize()
+    # one lerp and one MLP chain shared by the three kernels: bit-equal
+    err_comp = (out - composition()).abs().max().item()
+    if err_comp != 0.0:
+        raise AssertionError(f"kernel D differs from kernel B fed by kernel A: {err_comp}")
+    err, tol, close = assert_mlp_close(out, fused_gather_resnetfc_infer_plain(*args), "kernel D")
+    ms = time_ms(lambda: fused_gather_resnetfc_infer(*args), reps=5)
+    composition_ms = time_ms(composition, reps=5)
+    prologue_ms = time_ms(lambda: gather_prologue_probe(*args), reps=10)
+    plain_ms = time_ms(lambda: fused_gather_resnetfc_infer_plain(*args), reps=2, warmup=1)
+    # yardstick: F.grid_sample on the NCHW map, then the bf16 torch.matmul chain
+    fmap = table.reshape(1, hl, wl, c).permute(0, 3, 1, 2).contiguous()
+    grid = torch.stack([ix / (wl - 1) * 2 - 1, iy / (hl - 1) * 2 - 1], dim=-1).reshape(1, 1, n, 2)
+    grid = grid.to(torch.bfloat16)
+
+    def library():
+        z = F.grid_sample(fmap, grid, mode="bilinear", padding_mode="border", align_corners=True)
+        return mlp((z[0, :, 0].t(), x), combine_inner_dims=(1, n), fast=False)
+
+    library_ms = time_ms(library, reps=3, warmup=1)
+    flops = mlp_flops(n, weights, mlp)
+    bytes_moved = n * (8 + 8 + mlp.d_in * 2) + n * 4 * 4 + table.numel() * 2 + sum(w.numel() * 2 for w in weights)
+    bound_ms, bound_by = bound(bytes_moved, flops, PEAK_BF16_FLOPS)
+    res = {
+        "name": "fused_gather_resnetfc_infer", "route": "cuda",
+        "source": "pixelnerf_tpu_torch/csrc/fused_field.cu",
+        "replaces": "pixelnerf_tpu/ops/fused_field.py:131",
+        "shape": {"table": [hl * wl, c], "points": n, "d_hidden": mlp.d_hidden, "d_in": mlp.d_in,
+                  "n_blocks": mlp.n_blocks, "n_lin_z": mlp.n_lin_z},
+        "max_abs_err": err, "tolerance": tol, "frac_within_1e-2": close,
+        "max_abs_err_vs_b_fed_by_a": err_comp,
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": library_ms, "library_call": "F.grid_sample(NCHW bf16) + bf16 torch.matmul chain",
+        "b_fed_by_a_ms": composition_ms, "gather_prologue_ms": prologue_ms,
+        "gather_prologue_share": prologue_ms / ms, "tflops": flops / ms / 1e9,
+    }
+    emit({"phase": "kernel_d", **res})
+    return res
+
+
+def check_gather_study(dev):
+    """Kernels E and F: the four formulations through the two study
+    scripts. The probe (small shapes; registers and spills) must pass for
+    every formulation; the bench (full scale) must be bit-equal to the
+    plain version on the same table, and its launches are the count of the
+    study's path. Returns one kernels-line entry per formulation, timed
+    from the bf16 table, the dtype the port's latents have."""
+    sys.path.insert(0, os.path.join(REPO, "scripts"))
+    import bench_gather_torch as bench
+    import probe_gather_kernels_torch as probe
+
+    from pixelnerf_tpu_torch.ops.gather_study import FORMULATIONS, gather_study
+
+    probed = probe.run(dev)
+    emit({"phase": "kernel_f", "shape": {"table": [probe.R, probe.C], "points": probe.N, "tile": probe.TILE},
+          "probes": probed})
+    failed = [r for r in probed if not r["ok"]]
+    if failed:
+        raise AssertionError(f"gather study probe failed: {failed}")
+    for name in gather_study.launches:
+        gather_study.launches[name] = 0
+    timed = bench.run(dev)
+    launches = dict(gather_study.launches)
+    n, c = bench.P, bench.C
+    by = {(r["name"], r["table"]): r for r in timed}
+    bounds = {}
+    for dtn, size in (("f32", 4), ("bf16", 2)):
+        bounds[dtn] = bound(n * (32 + c * 4) + bench.H * bench.W * c * size, 7 * n * c, PEAK_F32_FLOPS)
+    emit({"phase": "kernel_e", "shape": {"table": [bench.H * bench.W, c], "points": n, "tile": bench.TILE,
+                                         "out_dtype": "float32"},
+          "bound_ms": {k: v[0] for k, v in bounds.items()}, "bound_by": bounds["bf16"][1],
+          "launches": launches, "timings": timed})
+    # the kernels are bit-equal to the plain version (no contracted
+    # multiply-adds); a library call sums in its own order, within float32
+    # rounding of a 4-term sum
+    failed = [r for r in timed if "error" in r
+              or r.get("max_abs_err", 0.0) > (1e-5 if r["name"].startswith("F.") else 0.0)]
+    if failed:
+        raise AssertionError(f"gather study bench failed or is not bit-equal to its plain version: {failed}")
+    entries = []
+    for name in FORMULATIONS:
+        if launches[name] == 0:
+            raise AssertionError(f"the gather study's bench did not launch {name}")
+        r = by[(name, "bf16")]
+        e_kernel = name == "block_stage"
+        entries.append({
+            "name": f"gather_study[{name}]", "route": "cuda",
+            "source": "pixelnerf_tpu_torch/csrc/gather_study.cu",
+            "replaces": "scripts/bench_gather_pallas.py:48" if e_kernel else "scripts/probe_gather_kernels.py:25",
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"], "ms_f32_table": by[(name, "f32")]["ms"],
+            "plain_ms": by[("plain version", "bf16")]["ms"],
+            "bound_ms": bounds["bf16"][0], "bound_by": bounds["bf16"][1],
+            "library_ms": by[("F.grid_sample (NCHW)", "bf16")]["ms"],
+            "library_call": "F.grid_sample(NCHW bf16, bilinear, border)",
+            "launches": launches[name],
+        })
+    return entries
 
 
 def make_srn_model(dev, g):
@@ -570,67 +781,57 @@ def train_kernel_vs_plain(dev):
     return res
 
 
-def main():
-    if not torch.cuda.is_available():
-        print("chip_smoke: torch.cuda.is_available() is false; this needs an NVIDIA GPU", file=sys.stderr)
-        return 2
-    sys.path.insert(0, REPO)
+def make_request(path, net, cfg, enc):
+    """The render of one image through ``path`` as ``render(rays (H, W, 8),
+    generator=None, noise=None) -> (rgb (H, W, 3), depth (H, W))``:
+
+    - "staged": ``FullRenderer(fast=True)`` on the plain encoding (kernel A,
+      kernel B), or with ``use_kernels=False`` for "plain";
+    - "baked": the same on a ``bake_encoding``'d ``enc``, which it renders
+      unstaged (kernel A on the injection maps, kernel B with z_is_tz);
+    - "fused": the unstaged renderer on ``query_fused`` of a
+      ``pack_encoding``'d ``enc`` (kernel D).
+    """
     from pixelnerf_tpu_torch.eval import FullRenderer
-    from pixelnerf_tpu_torch.ops import _build
-    from pixelnerf_tpu_torch.ops.fused_mlp import fused_resnetfc_infer
-    from pixelnerf_tpu_torch.ops.gather import gather_bilerp
-    from pixelnerf_tpu_torch.render import draw_noise
+    from pixelnerf_tpu_torch.render import NeRFRenderer
+
+    if path in ("staged", "baked", "plain"):
+        fr = FullRenderer(net, cfg, ray_chunk=RAY_CHUNK, fast=True, use_kernels=path != "plain")
+        return lambda rays, generator=None, noise=None: fr.render_image(enc, rays, generator, noise)
+    if path != "fused":
+        raise ValueError(f"unknown path {path!r}")
+    renderer = NeRFRenderer(cfg)
+
+    def query_fn(xyz, viewdirs, coarse):
+        return net.query_fused(enc, xyz, viewdirs, coarse=coarse)
+
+    def render(rays, generator=None, noise=None):
+        h, w, _ = rays.shape
+        out = renderer(query_fn, rays.reshape(1, h * w, 8), generator, noise,
+                       use_viewdirs=net.use_viewdirs, ray_chunk=RAY_CHUNK)
+        return out["fine"]["rgb"].reshape(h, w, 3), out["fine"]["depth"].reshape(h, w)
+
+    return render
+
+
+def run_requests(render, targets, dev, rgen):
+    """One 128x128 request per target pose: (ms of each, host clock around
+    work ending in a synchronize; the renders)."""
     from pixelnerf_tpu_torch.utils import geometry
 
-    t_start = time.time()
-    dev = torch.device("cuda")
-    smi = nvidia_smi_line()
-    card = {"name": torch.cuda.get_device_name(0), "nvidia_smi": smi}
-    emit({"phase": "device", **card, "torch": torch.__version__, "cuda": torch.version.cuda,
-          "count": torch.cuda.device_count()})
-    # state the float32 settings the plain versions run under
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-
-    t0 = time.time()
-    logs = _build.build(["gather", "fused_mlp", "gather_rows"])
-    emit({"phase": "build", "seconds": time.time() - t0,
-          "ptxas": {k: [l.strip() for l in v.splitlines() if "registers" in l or "spill" in l]
-                    for k, v in logs.items()}})
-
-    g = torch.Generator().manual_seed(0)
-    net, cfg = make_srn_model(dev, g)
-
+    request_ms, renders = [], []
     with torch.inference_mode():
-        res_a = check_kernel_a(dev, g)
-        res_b = check_kernel_b(dev, g, net.mlp_fine)
-
-    # the main path: encode one source view, answer three render requests
-    images, src_pose = source_view(g, dev)
-    targets = target_poses()
-    renderer = FullRenderer(net, cfg, ray_chunk=RAY_CHUNK, fast=True)
-    rgen = torch.Generator(device=dev).manual_seed(1)
-    gather_bilerp.launches = 0
-    fused_resnetfc_infer.launches = 0
-    torch.cuda.synchronize()
-    t0 = time.time()
-    with torch.inference_mode():
-        enc = net.encode(images, src_pose, FOCAL)
-        torch.cuda.synchronize()
-        encode_ms = (time.time() - t0) * 1e3
-        request_ms, renders = [], []
         for pose in targets:
             t1 = time.time()
             rays = geometry.gen_rays(pose[None], IMAGE, IMAGE, FOCAL, NEAR, FAR, device=dev)[0]
-            rgb, depth = renderer.render_image(enc, rays, generator=rgen)
+            rgb, depth = render(rays, generator=rgen)
             torch.cuda.synchronize()
             request_ms.append((time.time() - t1) * 1e3)
             renders.append((rgb, depth))
-    launches = {"gather_bilerp": gather_bilerp.launches, "fused_resnetfc_infer": fused_resnetfc_infer.launches}
-    chunks = -(-IMAGE * IMAGE // RAY_CHUNK) * N_REQUESTS
-    expect = {"gather_bilerp": 2 * chunks, "fused_resnetfc_infer": 3 * chunks}
-    if launches != expect:
-        raise AssertionError(f"launch counts {launches} != expected {expect}")
+    return request_ms, renders
+
+
+def check_renders(renders):
     for rgb, depth in renders:
         if not (torch.isfinite(rgb).all() and torch.isfinite(depth).all()):
             raise AssertionError("non-finite render")
@@ -645,25 +846,103 @@ def main():
             raise AssertionError(f"depth outside [near, far]: {depth.min().item()}, {depth.max().item()}")
         if rgb.float().std() <= 1e-3:
             raise AssertionError("degenerate (constant) render")
+
+
+def inference_kernels():
+    """The launch counters of the inference kernels, by kernel name."""
+    from pixelnerf_tpu_torch.ops.fused_field import fused_gather_resnetfc_infer
+    from pixelnerf_tpu_torch.ops.fused_mlp import fused_resnetfc_infer
+    from pixelnerf_tpu_torch.ops.gather import gather_bilerp
+
+    return {"gather_bilerp": gather_bilerp, "fused_resnetfc_infer": fused_resnetfc_infer,
+            "fused_gather_resnetfc_infer": fused_gather_resnetfc_infer}
+
+
+def run_path(phase, render, targets, dev, rgen, per_request, extra):
+    """Drive one inference path for one request per target, with every
+    inference kernel's count set to 0 just before and read just after, and
+    hold the counts to ``per_request`` launches per request and the
+    renders to the render checks. Returns the phase's record."""
+    kernels = inference_kernels()
+    for fn in kernels.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    request_ms, renders = run_requests(render, targets, dev, rgen)
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    chunks = -(-IMAGE * IMAGE // RAY_CHUNK) * len(targets)
+    expect = {name: per_request.get(name, 0) * chunks for name in kernels}
+    if launches != expect:
+        raise AssertionError(f"{phase}: launch counts {launches} != expected {expect}")
+    check_renders(renders)
     steady = request_ms[1:]
-    emit({
-        "phase": "main_path", "config": "conf/exp/srn.conf, bf16, 128x128, 64+32 samples",
-        "requests": N_REQUESTS, "ray_chunk": RAY_CHUNK, "encode_ms": encode_ms,
+    res = {
+        "phase": phase, "config": "conf/exp/srn.conf, bf16, 128x128, 64+32 samples",
+        "requests": len(targets), "ray_chunk": RAY_CHUNK, **extra,
         "request_ms": request_ms,
         "rays_per_s_steady": IMAGE * IMAGE * len(steady) / (sum(steady) / 1e3),
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
         "launches": launches, "expected_launches": expect,
         "rgb_std": [r.float().std().item() for r, _ in renders],
         "depth_range": [min(d.min().item() for _, d in renders), max(d.max().item() for _, d in renders)],
-        "card": smi,
-    })
+    }
+    emit(res)
+    return res
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; this needs an NVIDIA GPU", file=sys.stderr)
+        return 2
+    sys.path.insert(0, REPO)
+    from pixelnerf_tpu_torch.models import bake_encoding, pack_encoding
+    from pixelnerf_tpu_torch.ops import _build
+    from pixelnerf_tpu_torch.render import draw_noise
+    from pixelnerf_tpu_torch.utils import geometry
+
+    t_start = time.time()
+    dev = torch.device("cuda")
+    smi = nvidia_smi_line()
+    card = {"name": torch.cuda.get_device_name(0), "nvidia_smi": smi}
+    emit({"phase": "device", **card, "torch": torch.__version__, "cuda": torch.version.cuda,
+          "count": torch.cuda.device_count()})
+    # state the float32 settings the plain versions run under
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    t0 = time.time()
+    logs = _build.build(["gather", "fused_mlp", "gather_rows", "fused_field", "gather_study"])
+    emit({"phase": "build", "seconds": time.time() - t0,
+          "ptxas": {k: [l.strip() for l in v.splitlines() if "registers" in l or "spill" in l]
+                    for k, v in logs.items()}})
+
+    g = torch.Generator().manual_seed(0)
+    net, cfg = make_srn_model(dev, g)
+
+    with torch.inference_mode():
+        res_a = check_kernel_a(dev, g)
+        res_b = check_kernel_b(dev, g, net.mlp_fine)
+
+    # the main path: encode one source view, answer three render requests
+    images, src_pose = source_view(g, dev)
+    targets = target_poses()
+    rgen = torch.Generator(device=dev).manual_seed(1)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    with torch.inference_mode():
+        enc = net.encode(images, src_pose, FOCAL)
+    torch.cuda.synchronize()
+    encode_ms = (time.time() - t0) * 1e3
+    main_res = run_path("main_path", make_request("staged", net, cfg, enc), targets, dev, rgen,
+                        {"gather_bilerp": 2, "fused_resnetfc_infer": 3}, {"encode_ms": encode_ms, "card": smi})
+    launches = dict(main_res["launches"])
 
     # kernels vs their plain versions, end to end, on the same noise
     crop = geometry.gen_rays(targets[0][None], IMAGE, IMAGE, FOCAL, NEAR, FAR, device=dev)[0, 48:64]
     noise = [draw_noise(crop.reshape(1, -1, 8), cfg, torch.Generator(device=dev).manual_seed(2))]
     with torch.inference_mode():
-        rgb_k, depth_k = FullRenderer(net, cfg, ray_chunk=2048, fast=True).render_image(enc, crop, noise=noise)
-        rgb_p, depth_p = FullRenderer(net, cfg, ray_chunk=2048, fast=True, use_kernels=False).render_image(
-            enc, crop, noise=noise)
+        rgb_k, depth_k = make_request("staged", net, cfg, enc)(crop, noise=noise)
+        rgb_p, depth_p = make_request("plain", net, cfg, enc)(crop, noise=noise)
     e2e = {"rgb": (rgb_k - rgb_p).abs().max().item(), "depth": (depth_k - depth_p).abs().max().item()}
     # the fused MLP's bf16 roundings may flip against the plain version's
     # (kernel B's tolerance); composited along 96 samples per ray
@@ -684,14 +963,63 @@ def main():
             train_launches[k] += res["launches"][k]
     train_kernel_vs_plain(dev)
 
+    # the fused and baked field paths: their kernels at the paths' shapes
+    with torch.inference_mode():
+        res_b_tz = check_kernel_b_tz(dev, g, net.mlp_fine)
+        res_d = check_kernel_d(dev, g, net.mlp_fine)
+        study = check_gather_study(dev)
+
+    with torch.inference_mode():
+        penc = pack_encoding(net, enc)
+    fused_res = run_path("fused_path", make_request("fused", net, cfg, penc), targets, dev, rgen,
+                         {"fused_gather_resnetfc_infer": 2}, {"card": smi})
+    torch.cuda.synchronize()
+    t0 = time.time()
+    with torch.inference_mode():
+        baked = bake_encoding(net, enc)
+    torch.cuda.synchronize()
+    bake_ms = (time.time() - t0) * 1e3
+    baked_res = run_path("baked_path", make_request("baked", net, cfg, baked), targets, dev, rgen,
+                         {"gather_bilerp": 2, "fused_resnetfc_infer": 2},
+                         {"bake_encoding_ms": bake_ms, "tz_map_shape": list(baked.tz_coarse.shape), "card": smi})
+
+    # the crop again: fused against staged and plain, baked against unbaked
+    with torch.inference_mode():
+        rgb_f, depth_f = make_request("fused", net, cfg, penc)(crop, noise=noise)
+        rgb_b, depth_b = make_request("baked", net, cfg, baked)(crop, noise=noise)
+    pairs = {"fused_vs_staged": ((rgb_f, depth_f), (rgb_k, depth_k)),
+             "fused_vs_plain": ((rgb_f, depth_f), (rgb_p, depth_p)),
+             "baked_vs_unbaked": ((rgb_b, depth_b), (rgb_k, depth_k))}
+    errs = {name: {"rgb": (a[0] - b[0]).abs().max().item(), "depth": (a[1] - b[1]).abs().max().item()}
+            for name, (a, b) in pairs.items()}
+    # fused against staged: kernel D is bit-equal to B fed by A, and a
+    # sample's value does not depend on its place in the batch, so only the
+    # order of equal depths could differ; against plain, kernel B's
+    # tolerance as above; baked against unbaked, the injections are rounded
+    # to bf16 once more (~1 bf16 ulp of each), carried through the MLP and
+    # composited along 96 samples
+    tols = {"fused_vs_staged": 1e-5, "fused_vs_plain": e2e_tol, "baked_vs_unbaked": 3e-2}
+    emit({"phase": "fused_vs_staged_e2e", "rays": crop.shape[0] * crop.shape[1], "max_abs_err": errs,
+          "tolerance": tols})
+    for name, err in errs.items():
+        if max(err.values()) > tols[name]:
+            raise AssertionError(f"{name}: renders disagree: {err} > {tols[name]}")
+
     keys = ("name", "route", "source", "replaces", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")
-    # launches: A and B over the inference path, C and C-bwd over both
-    # training configs and the train app
+    # launches: A and B over the staged inference path, B's z_is_tz variant
+    # over the baked path, D over the fused path, C and C-bwd over both
+    # training configs and the train app, the study's formulations over
+    # its bench script
     launches.update(train_launches)
-    emit({"kernels": [{**{k: r[k] for k in keys}, "launches": launches[r["name"]]}
-                      for r in (res_a, res_b, res_c, res_c_bwd)],
-          "card": smi, "seconds": time.time() - t_start})
+    launches["fused_resnetfc_infer[z_is_tz]"] = baked_res["launches"]["fused_resnetfc_infer"]
+    launches["fused_gather_resnetfc_infer"] = fused_res["launches"]["fused_gather_resnetfc_infer"]
+    ported = [{**{k: r[k] for k in keys}, "launches": launches[r["name"]]}
+              for r in (res_a, res_b, res_b_tz, res_c, res_c_bwd, res_d)]
+    ported += [{**{k: r[k] for k in keys}, "launches": r["launches"]} for r in study]
+    if any(k["launches"] < 1 for k in ported):
+        raise AssertionError(f"a kernel was not launched on its path: {ported}")
+    emit({"kernels": ported, "card": smi, "seconds": time.time() - t_start})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -18,50 +18,14 @@
 // point; each lane moves 16-byte vectors, and neighbouring lanes touch
 // neighbouring 16-byte chunks of a row, so every row load and output store
 // is one coalesced 512-byte (bf16) transaction per warp instruction. The
-// lerp uses __fadd_rn/__fmul_rn so that no multiply-add is contracted: the
-// result is bit-equal to the plain PyTorch version.
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
+// lerp (gather_common.cuh, shared with the fused gather+MLP kernel) uses
+// __fadd_rn/__fmul_rn so that no multiply-add is contracted: the result is
+// bit-equal to the plain PyTorch version.
+#include "gather_common.cuh"
 
 namespace {
 
 constexpr int WARPS_PER_BLOCK = 8;
-
-__device__ __forceinline__ float lerp_rn(float a, float b, float t) {
-  return __fadd_rn(a, __fmul_rn(t, __fsub_rn(b, a)));
-}
-
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float v[8]) {
-  uint4 raw = __ldg(reinterpret_cast<const uint4*>(p));
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    float2 f = __bfloat1622float2(h[i]);
-    v[2 * i] = f.x;
-    v[2 * i + 1] = f.y;
-  }
-}
-
-__device__ __forceinline__ void load8(const float* p, float v[8]) {
-  float4 a = __ldg(reinterpret_cast<const float4*>(p));
-  float4 b = __ldg(reinterpret_cast<const float4*>(p) + 1);
-  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
-}
-
-__device__ __forceinline__ void store8(__nv_bfloat16* p, const float v[8]) {
-  uint4 raw;
-  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
-  *reinterpret_cast<uint4*>(p) = raw;
-}
-
-__device__ __forceinline__ void store8(float* p, const float v[8]) {
-  reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
-  reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
-}
 
 // One warp per point; each lane handles chunks of 8 channels, strided by
 // 32 chunks, so C must be a multiple of 8.
@@ -77,24 +41,11 @@ gather_bilerp_kernel(const TIn* __restrict__ table, const int32_t* __restrict__ 
   const int32_t b1 = __ldg(base + 2 * p + 1);
   const float wx = __ldg(w + 2 * p);
   const float wy = __ldg(w + 2 * p + 1);
-  const int32_t dx = (b0 % width) < width - 1 ? 1 : 0;  // right = min(x0+1, W-1)
-  const TIn* l0p = table + (int64_t)b0 * c;
-  const TIn* r0p = table + (int64_t)(b0 + dx) * c;
-  const TIn* l1p = table + (int64_t)b1 * c;
-  const TIn* r1p = table + (int64_t)(b1 + dx) * c;
+  const Corners<TIn> k = corners_of(table, b0, b1, c, width);
   TOut* op = out + p * c;
   for (int ch = lane * 8; ch < c; ch += 32 * 8) {
-    float l0[8], r0[8], l1[8], r1[8], o[8];
-    load8(l0p + ch, l0);
-    load8(r0p + ch, r0);
-    load8(l1p + ch, l1);
-    load8(r1p + ch, r1);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const float top = lerp_rn(l0[i], r0[i], wx);
-      const float bot = lerp_rn(l1[i], r1[i], wx);
-      o[i] = lerp_rn(top, bot, wy);
-    }
+    float o[8];
+    bilerp8(k, ch, wx, wy, o);
     store8(op + ch, o);
   }
 }

@@ -28,44 +28,11 @@
 // access is coalesced. The forward uses __fadd_rn/__fmul_rn so that no
 // multiply-add is contracted: it is bit-equal to the plain PyTorch version.
 // The atomics make the backward's summation order vary from run to run.
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
+#include "gather_common.cuh"
 
 namespace {
 
 constexpr int WARPS_PER_BLOCK = 8;
-
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float v[8]) {
-  uint4 raw = __ldg(reinterpret_cast<const uint4*>(p));
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    float2 f = __bfloat1622float2(h[i]);
-    v[2 * i] = f.x;
-    v[2 * i + 1] = f.y;
-  }
-}
-
-__device__ __forceinline__ void load8(const float* p, float v[8]) {
-  float4 a = __ldg(reinterpret_cast<const float4*>(p));
-  float4 b = __ldg(reinterpret_cast<const float4*>(p) + 1);
-  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
-}
-
-__device__ __forceinline__ void store8(__nv_bfloat16* p, const float v[8]) {
-  uint4 raw;
-  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
-  *reinterpret_cast<uint4*>(p) = raw;
-}
-
-__device__ __forceinline__ void store8(float* p, const float v[8]) {
-  reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
-  reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
-}
 
 // One warp per point; each lane handles chunks of 8 channels, strided by
 // 32 chunks, so C must be a multiple of 8.

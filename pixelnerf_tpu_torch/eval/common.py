@@ -2,7 +2,7 @@
 ``pixelnerf_tpu/eval/common.py`` ``FullRenderer``).
 
 The eval and serving paths render NV*H*W rays per object in fixed-size
-chunks; here each chunk is one staged ``render_rays`` call in a Python loop
+chunks; here each chunk is one ``render_rays`` call in a Python loop
 (PyTorch runs eagerly, so no chunk is padded).
 """
 from __future__ import annotations
@@ -15,10 +15,15 @@ from ..render.renderer import RenderConfig, render_rays_chunked
 
 
 class FullRenderer:
-    """Render an arbitrary number of rays through the staged renderer.
+    """Render an arbitrary number of rays, chunk by chunk.
 
     :param net: a port ``PixelNeRFNet``
     :param fast: let the field MLPs take the fused kernel (bf16, single view)
+    :param staged: render through the staged pair (the fine pass reuses the
+        coarse samples' features) instead of ``net.query``. A baked encoding
+        (``bake_encoding``) of a model with a separate fine MLP is rendered
+        unstaged whatever this says: its maps are per MLP, and the staged
+        pair would feed the fine MLP the coarse MLP's injections
     :param use_kernels: route the gather and the fused MLP through their
         CUDA kernels (True) or their plain PyTorch versions (False), for
         comparing the two on the card
@@ -32,6 +37,7 @@ class FullRenderer:
         want_weights: bool = False,
         fast: bool = False,
         use_kernels: bool = True,
+        staged: bool = True,
     ):
         self.net = net
         self.cfg = cfg
@@ -39,6 +45,7 @@ class FullRenderer:
         self.want_weights = want_weights
         self.fast = fast
         self.use_kernels = use_kernels
+        self.staged = staged
 
     @torch.inference_mode()
     def render_batch(
@@ -64,9 +71,15 @@ class FullRenderer:
                 enc, feats, coarse=coarse, fast=self.fast, use_kernels=self.use_kernels
             )
 
+        def query_fn(xyz, viewdirs, coarse):
+            return net.query(
+                enc, xyz, viewdirs, coarse=coarse, fast=self.fast, use_kernels=self.use_kernels
+            )
+
+        baked_per_mlp = enc.tz_coarse is not None and net.mlp_fine is not None
+        q = (features_fn, mlp_fn) if (self.staged and not baked_per_mlp) else query_fn
         return render_rays_chunked(
-            features_fn, mlp_fn, rays, self.cfg, self.ray_chunk, generator, noise,
-            self.want_weights, net.use_viewdirs,
+            q, rays, self.cfg, self.ray_chunk, generator, noise, self.want_weights, net.use_viewdirs,
         )
 
     def __call__(self, enc, rays: torch.Tensor, generator=None, noise=None) -> dict:

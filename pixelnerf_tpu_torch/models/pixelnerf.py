@@ -5,7 +5,14 @@
 feature maps, the inverted world->camera poses and the normalized
 intrinsics; ``query_features`` (camera transform, uv projection,
 pixel-aligned gather, positional code) and ``query_mlp`` (the conditioned
-MLP and its output heads) are the two stages the staged renderer calls.
+MLP and its output heads) are the two stages the staged renderer calls, and
+``query`` is the two in a row, what the unstaged renderer calls.
+
+Two inference-time variants of the encoding: :func:`bake_encoding` folds the
+MLPs' latent injections into per-MLP maps that ``query`` then gathers from
+(``tz_coarse``/``tz_fine``), and :func:`pack_encoding` prepares the bf16 map
+that ``query_fused`` gathers from inside the fused gather+MLP kernel
+(``ops/fused_field.py``).
 
 Conventions kept for checkpoint parity: fy negated at encode, projection
 ``uv = -xy/z * f + c``, the canonical-frame xyz feature from the
@@ -14,15 +21,17 @@ rotation-only transform, multi-view fusion through the MLP's
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Optional
 
 import torch
 import torch.nn as nn
 
+from ..ops.grid_sample import _compute_source_index, bilinear_pair_bases
 from ..utils.geometry import invert_pose, repeat_interleave
 from .code import PositionalEncoding
-from .encoder import SpatialEncoder, index_latent
+from .encoder import SpatialEncoder, index_latent, latent_scaling
 
 
 @dataclasses.dataclass
@@ -35,6 +44,13 @@ class SceneEncoding:
     c: torch.Tensor                  # (SB, 2) or (SB*NS, 2) principal point
     image_shape: torch.Tensor        # (2,) [W, H] of the encoded images
     num_views: int = 1
+    # Baked latent injections (bake_encoding): each MLP's lin_z product
+    # applied to the feature map at encode time, (SB*NS, Hl, Wl, n_lin_z*dh).
+    tz_coarse: Optional[torch.Tensor] = None
+    tz_fine: Optional[torch.Tensor] = None
+    # The bf16 feature rows (SB*NS, Hl*Wl, C) that the fused gather+MLP
+    # kernel reads (pack_encoding).
+    latent_packed: Optional[torch.Tensor] = None
 
 
 def _normalize_intrinsic(v, batch: int, name: str, num_views: int = 1, device=None) -> torch.Tensor:
@@ -132,6 +148,20 @@ class PixelNeRFNet(nn.Module):
             c = _normalize_intrinsic(c, SB, "c", NS, dev)
         return SceneEncoding(latent, w2c, focal, c, image_shape, NS)
 
+    def query(
+        self, enc: SceneEncoding, xyz, viewdirs=None, coarse: bool = True, fast: bool = False,
+        use_kernels: bool = True,
+    ) -> torch.Tensor:
+        """Predict (r, g, b, sigma) at world points: ``query_features`` then
+        ``query_mlp``.
+
+        :param xyz: (SB, B, 3) world-space query points
+        :param viewdirs: (SB, B, 3) world-space view directions
+        :return: (SB, B, 4): sigmoid(rgb), relu(sigma)
+        """
+        feats = self.query_features(enc, xyz, viewdirs, use_kernels=use_kernels, coarse=coarse)
+        return self.query_mlp(enc, feats, coarse=coarse, fast=fast, use_kernels=use_kernels)
+
     def _point_inputs(self, enc: SceneEncoding, xyz: torch.Tensor, viewdirs):
         """Camera transform + spatial code + uv projection.
 
@@ -169,22 +199,29 @@ class PixelNeRFNet(nn.Module):
 
     def query_features(
         self, enc: SceneEncoding, xyz, viewdirs=None, use_kernels: bool = True,
-        differentiable: bool = False,
+        differentiable: bool = False, coarse: bool = True,
     ):
         """The per-point feature stage: camera transform, uv projection,
         pixel-aligned gather, positional code.
 
         :param differentiable: gather through kernel C and its backward
             (training) instead of kernel A (inference)
+        :param coarse: only matters for baked encodings, whose maps are per
+            MLP: gather the coarse MLP's injections or the fine MLP's
         :return: (latent or None, z_feature), each (SB*NS, B, D) in the
-            MLP's compute dtype
+            MLP's compute dtype; for a baked encoding the latent is the
+            gathered injections, (SB*NS, B, n_lin_z*d_hidden)
         """
         z_feature, uv = self._point_inputs(enc, xyz, viewdirs)
         dt = self.mlp_coarse.dtype
         latent = None
         if self.use_encoder:
+            source = enc.latent
+            if enc.tz_coarse is not None:
+                # baked: the gather returns the latent injections directly
+                source = enc.tz_coarse if (coarse or self.mlp_fine is None) else enc.tz_fine
             latent = index_latent(
-                enc.latent, uv, enc.image_shape, self.encoder.index_interp,
+                source, uv, enc.image_shape, self.encoder.index_interp,
                 self.encoder.index_padding, out_dtype=dt, use_kernels=use_kernels,
                 differentiable=differentiable,
             )
@@ -203,6 +240,127 @@ class PixelNeRFNet(nn.Module):
         B = z_feature.shape[1]
         SB = z_feature.shape[0] // NS
         mlp = self.mlp_coarse if (coarse or self.mlp_fine is None) else self.mlp_fine
-        out = mlp((latent, z_feature), combine_inner_dims=(NS, B), fast=fast, use_kernels=use_kernels)
-        out = out.reshape(SB, B, 4)
-        return torch.cat([torch.sigmoid(out[..., :3]), torch.relu(out[..., 3:4])], dim=-1)
+        # baked maps make the gathered latent pre-transformed (z @ Wz + b)
+        z_pre = latent is not None and enc.tz_coarse is not None
+        out = mlp(
+            (latent, z_feature), combine_inner_dims=(NS, B), fast=fast, use_kernels=use_kernels,
+            z_pretransformed=z_pre,
+        )
+        return _heads(out.reshape(SB, B, 4))
+
+    def query_fused(
+        self, enc: SceneEncoding, xyz, viewdirs=None, coarse: bool = True, use_kernels: bool = True,
+    ) -> torch.Tensor:
+        """``query`` through the single-kernel gather+MLP path
+        (``ops/fused_field.py``): the pixel-aligned gather runs inside the
+        conditioned MLP's kernel. Same function as ``query(fast=True)``.
+
+        Requires a :func:`pack_encoding`'d single-scene single-view encoding
+        (``SB*NS == 1``), the spatial encoder, bilinear/border indexing and
+        an unbaked ResnetFC in bf16, and raises otherwise. Inference only.
+        """
+        if enc.latent_packed is None:
+            raise ValueError("pack_encoding() the encoding first")
+        if enc.latent_packed.shape[0] != 1 or enc.num_views != 1:
+            raise ValueError("the fused gather path is single-scene single-view")
+        if not self.use_encoder:
+            raise ValueError("the fused gather path needs the spatial encoder")
+        if self.encoder.index_interp != "bilinear":
+            raise ValueError("the fused gather path needs bilinear indexing")
+        if self.encoder.index_padding != "border":
+            raise ValueError("the fused gather path needs border padding")
+        if enc.tz_coarse is not None:
+            raise ValueError("the fused gather path is incompatible with baked injections")
+        SB, B, _ = xyz.shape
+        z_feature, uv = self._point_inputs(enc, xyz, viewdirs)
+        Hl, Wl = enc.latent.shape[1:3]
+        uvn = uv * (latent_scaling(Hl, Wl, uv.device) / enc.image_shape) - 1.0
+        px = _compute_source_index(uvn[..., 0], Wl, "border", True)
+        py = _compute_source_index(uvn[..., 1], Hl, "border", True)
+        base, wg = bilinear_pair_bases(px, py, Hl, Wl)
+        mlp = self.mlp_coarse if (coarse or self.mlp_fine is None) else self.mlp_fine
+        out = mlp(
+            (None, z_feature), combine_inner_dims=(1, B), fast=True, use_kernels=use_kernels,
+            gather=(enc.latent_packed[0], base[0], wg[0], Wl),
+        )
+        return _heads(out.reshape(SB, B, 4))
+
+
+def _heads(out: torch.Tensor) -> torch.Tensor:
+    """The output heads: sigmoid(rgb), relu(sigma)."""
+    return torch.cat([torch.sigmoid(out[..., :3]), torch.relu(out[..., 3:4])], dim=-1)
+
+
+def pack_encoding(net: PixelNeRFNet, enc: SceneEncoding) -> SceneEncoding:
+    """Prepare the feature rows read by the fused gather+MLP kernel
+    (:meth:`PixelNeRFNet.query_fused`): the latent map rounded to bf16,
+    exactly like the default bf16 gather path, as contiguous rows
+    (SB*NS, Hl*Wl, C). Where the JAX package packs each pixel with its
+    right-hand neighbour into int32 lanes, the kernel here reads the plain
+    map and clamps the neighbour itself."""
+    if not net.use_encoder or enc.latent is None:
+        raise ValueError("pack_encoding needs an encoded latent")
+    n, hl, wl, c = enc.latent.shape
+    packed = enc.latent.detach().to(torch.bfloat16).reshape(n, hl * wl, c).contiguous()
+    return dataclasses.replace(enc, latent_packed=packed)
+
+
+@contextlib.contextmanager
+def _full_float32_matmul():
+    """Float32 matrix products in full float32 (no TF32) inside the block."""
+    before = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = before
+
+
+@torch.no_grad()
+def bake_encoding(net: PixelNeRFNet, enc: SceneEncoding) -> SceneEncoding:
+    """Fold the MLPs' latent-injection products into the feature map
+    (inference).
+
+    The pixel-aligned latent enters ResnetFC only through the ``lin_z``
+    layers, and bilinear interpolation commutes with linear maps, so
+    ``lerp(corners) @ Wz + bz == lerp(corners @ Wz + bz)`` exactly (the lerp
+    weights sum to 1, so the bias bakes in too; valid for 'border' padding,
+    where every fetched row is a real map row). Baking removes the
+    d_latent x (n_lin_z*d_hidden) product from the per-sample loop and pays
+    it once per encode over Hl*Wl pixels; the gathered rows grow from
+    d_latent to n_lin_z*d_hidden wide.
+
+    Returns a new :class:`SceneEncoding` with ``tz_coarse``/``tz_fine`` set
+    (one map per MLP, float32 product, then one cast to the latent's dtype);
+    ``query`` uses them automatically. Exact in float32; under bf16 storage
+    the rounding differs from the unbaked path by ~1 ulp of the injections.
+    """
+    if not net.use_encoder or enc.latent is None:
+        raise ValueError("baking requires the spatial encoder as the only latent source")
+    if net.encoder.index_padding != "border":
+        raise ValueError("zeros-padding would zero the baked bias for out-of-bounds points")
+    lat = enc.latent
+    n, hl, wl, c = lat.shape
+    flat = lat.reshape(-1, c).float()
+
+    def bake_one(mlp):
+        # guard on what is used below: a field without lin_z layers (or one
+        # that consumes z differently) cannot be baked
+        if not hasattr(mlp, "n_blocks") or getattr(mlp, "use_spade", False):
+            return None
+        n_lin_z = min(mlp.combine_layer, mlp.n_blocks)
+        if mlp.d_latent <= 0 or n_lin_z <= 0:
+            return None
+        K = torch.cat([lin.weight for lin in mlp.lin_z], dim=0).float()
+        b = torch.cat([lin.bias for lin in mlp.lin_z]).float()
+        with _full_float32_matmul():
+            tz = torch.matmul(flat, K.t()) + b
+        return tz.reshape(n, hl, wl, -1).to(lat.dtype).contiguous()
+
+    tz_coarse = bake_one(net.mlp_coarse)
+    tz_fine = bake_one(net.mlp_fine) if net.mlp_fine is not None else None
+    # all-or-nothing: query_mlp derives z_pretransformed from tz_coarse
+    # alone, so a half-baked pair would feed one MLP raw latents as tz
+    if net.mlp_fine is not None and (tz_coarse is None or tz_fine is None):
+        tz_coarse = tz_fine = None
+    return dataclasses.replace(enc, tz_coarse=tz_coarse, tz_fine=tz_fine)

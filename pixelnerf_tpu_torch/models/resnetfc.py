@@ -12,15 +12,18 @@ rounded to ``dtype`` before the ``dtype`` bias add, as ``nn.Dense(dtype=...)``
 does. With ``fast=True`` and the kernel's gate met (bf16, single view,
 a latent) the whole MLP is one launch of the
 fused kernel (``ops/fused_mlp.py``); otherwise the dense chain below runs,
-as the JAX package leaves that case to XLA.
+as the JAX package leaves that case to XLA. With ``z_pretransformed`` the
+latent already holds the injections (a baked encoding), and with ``gather=``
+the latents are gathered inside the kernel (``ops/fused_field.py``).
 """
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 import torch.nn as nn
 
+from ..ops.fused_field import fused_gather_resnetfc_infer, fused_gather_resnetfc_infer_plain
 from ..ops.fused_mlp import fused_resnetfc_infer, fused_resnetfc_infer_plain, pack_weights
 from ..utils.geometry import combine_interleaved
 
@@ -67,17 +70,32 @@ class ResnetFC(nn.Module):
     def n_lin_z(self) -> int:
         return min(self.combine_layer, self.n_blocks) if self.d_latent > 0 else 0
 
-    def _can_use_kernel(self, z, single_view: bool) -> bool:
-        return (
-            self.d_latent > 0
-            and z is not None
-            and single_view
-            and self.dtype == torch.bfloat16
-        )
+    def _can_use_kernel(self, single_view: bool) -> bool:
+        return self.d_latent > 0 and single_view and self.dtype == torch.bfloat16
 
     def _dense(self, a: torch.Tensor, lin: nn.Linear) -> torch.Tensor:
         dt = self.dtype
         return torch.matmul(a, lin.weight.to(dt).t()) + lin.bias.to(dt)
+
+    def _refuse_autograd(self, *inputs) -> None:
+        """The fused kernels have no backward: their result would carry no
+        graph, and a training step would silently lose the MLP's gradients."""
+        if torch.is_grad_enabled() and (
+            any(t is not None and t.requires_grad for t in inputs)
+            or any(p.requires_grad for p in self.parameters())
+        ):
+            raise RuntimeError(
+                "ResnetFC(fast=True) is inference-only; run it under torch.no_grad() "
+                "or train with fast=False"
+            )
+
+    def _shape_out(self, out, lead, combine_inner_dims) -> torch.Tensor:
+        out = out[..., : self.d_out]
+        if self.combine_layer < self.n_blocks and len(combine_inner_dims) > 1:
+            # the dense chain folds to (SB, B, d) at the combine layer
+            # even for NS=1; mirror that output shape
+            return out.reshape(-1, combine_inner_dims[-1], self.d_out)
+        return out.reshape(*lead, self.d_out)
 
     def forward(
         self,
@@ -85,6 +103,8 @@ class ResnetFC(nn.Module):
         combine_inner_dims: Sequence[int] = (1,),
         fast: bool = False,
         use_kernels: bool = True,
+        z_pretransformed: bool = False,
+        gather: Optional[tuple] = None,
     ) -> torch.Tensor:
         """:param zx: a tuple ``(z, x)`` of (..., d_latent) (None without a
             latent) and (..., d_in), kept unconcatenated
@@ -94,51 +114,77 @@ class ResnetFC(nn.Module):
             Inference only: raises where autograd would record the call.
         :param use_kernels: with ``fast``, call the kernel's wrapper if True,
             else its plain version (a caller-side choice for comparing them)
+        :param z_pretransformed: ``z`` already holds the latent injections
+            ``z_raw @ cat(lin_z weights).T + cat(lin_z biases)``, of width
+            ``n_lin_z * d_hidden`` (``models.pixelnerf.bake_encoding``); the
+            injection product is skipped
+        :param gather: ``(table, base, wg, width)``: gather the latents inside
+            the fused gather+MLP kernel (``ops/fused_field.py``) from the
+            (R, d_latent) bf16 ``table`` of views ``width`` pixels wide, at
+            row bases ``base`` (..., 2) with weights ``wg`` (..., 2). Needs
+            ``fast``, ``z`` None, bf16, a latent, a single view: raises
+            otherwise, never falls back
         :return: (..., d_out) float32, with the NS axis folded away if NS > 1
         """
         dt = self.dtype
         z, x = zx
         z = z.to(dt) if z is not None else None
         x = x.to(dt)
-        if (0 if z is None else z.shape[-1]) != self.d_latent or x.shape[-1] != self.d_in:
-            raise ValueError("z/x widths do not match d_latent/d_in")
+        expect_z = self.n_lin_z * self.d_hidden if z_pretransformed else self.d_latent
+        if gather is None and (0 if z is None else z.shape[-1]) != expect_z:
+            raise ValueError(f"z width does not match the expected {expect_z}")
+        if x.shape[-1] != self.d_in:
+            raise ValueError("x width does not match d_in")
 
         single_view = (
             len(combine_inner_dims) == 1 or combine_inner_dims[0] == 1
         ) or self.combine_layer >= self.n_blocks
+        lead = x.shape[:-1]
 
-        if fast and self._can_use_kernel(z, single_view):
-            if torch.is_grad_enabled() and (
-                z.requires_grad or x.requires_grad or any(p.requires_grad for p in self.parameters())
-            ):
-                # the fused kernel has no backward: its result would carry
-                # no graph, and the training step would silently lose the
-                # MLP's gradients
-                raise RuntimeError(
-                    "ResnetFC(fast=True) is inference-only; run it under torch.no_grad() "
-                    "or train with fast=False"
-                )
-            run = fused_resnetfc_infer if use_kernels else fused_resnetfc_infer_plain
-            lead = x.shape[:-1]
+        if gather is not None:
+            # a deliberate opt-in (PixelNeRFNet.query_fused): raise, do not
+            # silently fall back
+            if not fast or z is not None or z_pretransformed:
+                raise ValueError("gather= needs fast=True, z=None and an unbaked latent")
+            if not self._can_use_kernel(single_view):
+                raise ValueError("the fused gather path requires bf16, d_latent > 0 and a single view")
+            table, base, wg, width = gather
+            self._refuse_autograd(x, table, wg)
+            run = fused_gather_resnetfc_infer if use_kernels else fused_gather_resnetfc_infer_plain
             out = run(
-                z.reshape(-1, self.d_latent).contiguous(),
+                table,
+                base.reshape(-1, 2).contiguous(),
+                wg.reshape(-1, 2).contiguous(),
                 x.reshape(-1, self.d_in).contiguous(),
                 pack_weights(self),
                 self.n_blocks,
                 self.combine_layer,
-            )[..., : self.d_out]
-            if self.combine_layer < self.n_blocks and len(combine_inner_dims) > 1:
-                # the dense chain folds to (SB, B, d) at the combine layer
-                # even for NS=1; mirror that output shape
-                return out.reshape(-1, combine_inner_dims[-1], self.d_out)
-            return out.reshape(*lead, self.d_out)
+                width,
+            )
+            return self._shape_out(out, lead, combine_inner_dims)
+
+        if fast and z is not None and self._can_use_kernel(single_view):
+            self._refuse_autograd(z, x)
+            run = fused_resnetfc_infer if use_kernels else fused_resnetfc_infer_plain
+            out = run(
+                z.reshape(-1, expect_z).contiguous(),
+                x.reshape(-1, self.d_in).contiguous(),
+                pack_weights(self, with_wz=not z_pretransformed),
+                self.n_blocks,
+                self.combine_layer,
+                z_pretransformed,
+            )
+            return self._shape_out(out, lead, combine_inner_dims)
 
         tz_list = None
         if z is not None and self.d_latent > 0:
-            # all latent injections as ONE product: reads z once
-            K = torch.cat([lin.weight for lin in self.lin_z], dim=0).to(dt)
-            B = torch.cat([lin.bias for lin in self.lin_z]).to(dt)
-            tz_all = torch.matmul(z, K.t()) + B
+            if z_pretransformed:
+                tz_all = z
+            else:
+                # all latent injections as ONE product: reads z once
+                K = torch.cat([lin.weight for lin in self.lin_z], dim=0).to(dt)
+                B = torch.cat([lin.bias for lin in self.lin_z]).to(dt)
+                tz_all = torch.matmul(z, K.t()) + B
             dh = self.d_hidden
             tz_list = [tz_all[..., i * dh : (i + 1) * dh] for i in range(self.n_lin_z)]
 

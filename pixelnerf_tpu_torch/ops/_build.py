@@ -2,10 +2,12 @@
 
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its own
 shared library with a plain C interface, under ``build/kernels/`` at the root
-of the checkout, at first use. The file name carries a hash of the source
-and the flags, so an edited source builds anew and an unchanged one loads
-the library already built. The library is loaded with ``ctypes``; callers
-declare ``argtypes`` with ``c_void_p`` for every pointer and the stream.
+of the checkout, at first use. The file name carries a hash of the source,
+of every header under ``csrc/`` it includes (directly or through another
+header) and of the flags, so an edited source or header builds anew and an
+unchanged one loads the library already built. The library is loaded with
+``ctypes``; callers declare ``argtypes`` with ``c_void_p`` for every pointer
+and the stream.
 
 Nothing here runs at import: the CPU tests import every module.
 """
@@ -14,12 +16,13 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
 import threading
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, List
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -44,9 +47,28 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def sources_of(name: str) -> List[Path]:
+    """``csrc/<name>.cu`` and the headers it includes with quotes, followed
+    through the headers, in the order met."""
+    found: List[Path] = []
+    todo = [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path in found:
+            continue
+        found.append(path)
+        todo += [path.parent / inc for inc in _INCLUDE.findall(path.read_text())]
+    return found
+
+
 def _target(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    h = hashlib.sha256(src.read_bytes())
+    h = hashlib.sha256()
+    for path in sources_of(name):
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
@@ -108,6 +130,40 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(target))
             _LOADED[name] = lib
         return lib
+
+
+def ptxas_log(name: str) -> str:
+    """The compiler output kept from the build of ``csrc/<name>.cu``
+    (``-Xptxas -v``), building it first if needed."""
+    load(name)
+    log = BUILD_DIR / f"{_target(name).stem}.log"
+    return log.read_text() if log.exists() else ""
+
+
+_ENTRY = re.compile(r"Compiling entry function '([^']+)'")
+_SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
+_REGS = re.compile(r"Used (\d+) registers")
+
+
+def ptxas_entries(log: str) -> Dict[str, Dict[str, int]]:
+    """Registers and spill bytes of each kernel in a ``-Xptxas -v`` log,
+    keyed by the kernel's mangled name."""
+    entries: Dict[str, Dict[str, int]] = {}
+    current = None
+    for line in log.splitlines():
+        m = _ENTRY.search(line)
+        if m:
+            current = entries.setdefault(m.group(1), {})
+            continue
+        if current is None:
+            continue
+        m = _SPILL.search(line)
+        if m:
+            current["spill_stores"], current["spill_loads"] = int(m.group(1)), int(m.group(2))
+        m = _REGS.search(line)
+        if m:
+            current["registers"] = int(m.group(1))
+    return entries
 
 
 def check(err: int, what: str) -> None:

@@ -1,0 +1,134 @@
+"""Fused pixel-aligned gather + conditioned ResnetFC MLP (kernel D): the
+CUDA kernel ``csrc/fused_field.cu`` and its plain PyTorch version.
+
+Counterpart of ``fused_gather_resnetfc_infer``
+(``pixelnerf_tpu/ops/fused_field.py``): the bilinear gather of kernel A
+(``ops/gather.py``), rounded to bf16, then the MLP of kernel B
+(``ops/fused_mlp.py``) in one launch, so the gathered latents never reach
+global memory. On the card it equals kernel B fed by kernel A bit for bit:
+the three kernels share one lerp and one MLP chain (``csrc/*.cuh``).
+
+Where the TPU kernel reads an LR-packed int32 table that holds each pixel's
+right-hand neighbour in the same lane, this one reads the plain bf16 map and
+clamps the neighbour itself, so it takes the map's width beside the table.
+
+:func:`fused_gather_resnetfc_infer` launches the kernel for CUDA tensors
+and runs :func:`fused_gather_resnetfc_infer_plain` for CPU tensors; it never
+falls back from one to the other. ``fused_gather_resnetfc_infer.launches``
+counts launches.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Tuple
+
+import torch
+
+from . import _build
+from .fused_mlp import SMEM_LIMIT, _check as _check_mlp, check_kernel_shapes, fused_resnetfc_infer_plain
+from .gather import _check as _check_gather, gather_bilerp_plain
+
+
+def fused_gather_resnetfc_infer_plain(
+    table: torch.Tensor,
+    base: torch.Tensor,
+    wg: torch.Tensor,
+    x: torch.Tensor,
+    weights: Tuple[torch.Tensor, ...],
+    n_blocks: int,
+    combine_layer: int,
+    width: int,
+) -> torch.Tensor:
+    """The kernel's function in plain PyTorch: kernel A's plain version
+    (bf16 output) feeding kernel B's plain version."""
+    z = gather_bilerp_plain(table, base, wg, width, torch.bfloat16)
+    return fused_resnetfc_infer_plain(z, x, weights, n_blocks, combine_layer)
+
+
+def _check(table, base, wg, x, weights, n_blocks, combine_layer, width):
+    _check_gather(table, base, wg, width, torch.bfloat16)
+    if table.dtype != torch.bfloat16:
+        raise TypeError(f"table must be bfloat16 (pack_encoding), got {table.dtype}")
+    if x.dim() != 2 or x.shape[0] != base.shape[0]:
+        raise ValueError(f"x must be (N, d_in) with base's N, got {tuple(x.shape)}")
+    if x.device != table.device:
+        raise ValueError(f"x on {x.device}, table on {table.device}")
+    # the MLP's checks, on a stand-in (a view, no memory) for the latents
+    # the kernel gathers
+    z = table[:1].expand(x.shape[0], table.shape[1])
+    return (table, base, wg) + _check_mlp(z, x, weights, n_blocks, combine_layer)[1:]
+
+
+def _launch(table, base, wg, x, weights, n_blocks, combine_layer, width, probe: bool) -> torch.Tensor:
+    tensors = _check(table, base, wg, x, weights, n_blocks, combine_layer, width)
+    if table.device.type != "cuda":
+        raise ValueError(f"unsupported device {table.device}")
+    dh, d_in_pad = weights[0].shape
+    c = table.shape[1]
+    check_kernel_shapes(tensors, d_in_pad, c, dh)
+    if table.data_ptr() % 16:
+        raise ValueError("table must be 16-byte aligned")
+    lib = _build.load("fused_field")
+    smem_fn = lib.fused_field_smem_bytes
+    smem_fn.argtypes = [ctypes.c_int] * 3
+    smem_fn.restype = ctypes.c_size_t
+    if smem_fn(d_in_pad, c, dh) > SMEM_LIMIT:
+        raise ValueError(f"widths ({d_in_pad}, {c}, {dh}) exceed the block's shared memory")
+    n = base.shape[0]
+    out = torch.empty((n, 4), dtype=torch.float32, device=table.device)
+    fn = lib.fused_gather_resnetfc_infer
+    # table, base, wg, x, the ten weights, out: 15 pointers
+    fn.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int64] + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    stream = torch.cuda.current_stream(table.device).cuda_stream
+    with torch.cuda.device(table.device):
+        err = fn(
+            table.data_ptr(), base.data_ptr(), wg.data_ptr(), x.data_ptr(),
+            *(w.data_ptr() for w in weights), out.data_ptr(),
+            n, x.shape[1], d_in_pad, c, dh, n_blocks, min(combine_layer, n_blocks),
+            int(width), int(probe), stream,
+        )
+    _build.check(err, "fused_gather_resnetfc_infer launch")
+    return out
+
+
+def fused_gather_resnetfc_infer(
+    table: torch.Tensor,
+    base: torch.Tensor,
+    wg: torch.Tensor,
+    x: torch.Tensor,
+    weights: Tuple[torch.Tensor, ...],
+    n_blocks: int,
+    combine_layer: int,
+    width: int,
+) -> torch.Tensor:
+    """Gather per-point latents and run the conditioned MLP in one kernel.
+
+    :param table: (R, C) bf16 feature rows (``pack_encoding``; all views
+        folded into R)
+    :param base: (N, 2) int32 row bases (``ops.grid_sample.bilinear_pair_bases``)
+    :param wg: (N, 2) float32 [wx, wy] fractional lerp weights
+    :param x: (N, d_in) bf16 spatial code
+    :param weights: the packed MLP weights (``ops.fused_mlp.pack_weights``)
+    :param width: W, the row length of one view of the map
+    :return: (N, 4) float32 raw rgb and sigma
+    """
+    if table.device.type == "cpu":
+        _check(table, base, wg, x, weights, n_blocks, combine_layer, width)
+        return fused_gather_resnetfc_infer_plain(
+            table, base, wg, x, weights, n_blocks, combine_layer, width
+        )
+    out = _launch(table, base, wg, x, weights, n_blocks, combine_layer, width, probe=False)
+    fused_gather_resnetfc_infer.launches += 1
+    return out
+
+
+fused_gather_resnetfc_infer.launches = 0
+
+
+def gather_prologue_probe(table, base, wg, x, weights, n_blocks, combine_layer, width) -> torch.Tensor:
+    """A measurement aid, CUDA only: launch the kernel with its MLP cut off,
+    so that only the x tile and the gather prologue run. Returns the first 4
+    channels of each gathered latent, (N, 4) float32. Not counted in
+    ``launches``; nothing in the port calls it."""
+    return _launch(table, base, wg, x, weights, n_blocks, combine_layer, width, probe=True)

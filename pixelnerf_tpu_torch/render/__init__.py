@@ -1,6 +1,8 @@
 from .renderer import (  # noqa: F401
+    NeRFRenderer,
     RenderConfig,
     RenderSchedule,
+    composite,
     composite_outputs,
     draw_noise,
     render_rays,

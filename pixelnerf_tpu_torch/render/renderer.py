@@ -10,6 +10,9 @@ Semantics kept exactly:
 - ``alpha = 1 - exp(-delta * relu(sigma))``, transmittance by the cumprod
   of shifted ``(1 - alpha + 1e-10)``, ``delta_inf = far - z_K``, optional
   white background
+- ``render_rays`` takes the field as one ``query_fn(points, viewdirs,
+  coarse)`` (unstaged: the fine pass queries the sorted union of coarse
+  and new samples) or as a staged pair ``(features_fn, mlp_fn)``
 - the staged fine pass: the fine MLP runs on the cached coarse features and
   on the new samples' features, and the two outputs are merged by one
   stable sort of z with the 4 output channels as payload
@@ -36,7 +39,7 @@ positions; only the importance weights are detached.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Optional, Union
+from typing import Callable, Dict, Optional, Sequence, Union
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -151,6 +154,38 @@ def sample_fine_depth(
     return torch.minimum(torch.maximum(z, rays[..., 6:7]), rays[..., 7:8])
 
 
+QueryFn = Union[Callable, Sequence[Callable]]
+
+
+def _points_of(rays: torch.Tensor, z_samp: torch.Tensor, use_viewdirs: bool):
+    """World points (SB, B*K, 3) of the samples ``z_samp`` (SB, B, K) along
+    ``rays``, and their view directions (or None)."""
+    SB, B, K = z_samp.shape
+    points = rays[..., None, :3] + z_samp[..., None] * rays[..., None, 3:6]
+    points = points.reshape(SB, B * K, 3)
+    viewdirs = None
+    if use_viewdirs:
+        viewdirs = rays[..., None, 3:6].expand(SB, B, K, 3).reshape(SB, B * K, 3)
+    return points, viewdirs
+
+
+def composite(
+    query_fn: Callable, rays: torch.Tensor, z_samp: torch.Tensor, coarse: bool, cfg: RenderConfig,
+    sigma_noise: Optional[torch.Tensor] = None, use_viewdirs: bool = True,
+) -> Dict[str, torch.Tensor]:
+    """Alpha-composite field queries along rays.
+
+    :param query_fn: ``f(points (SB, P, 3), viewdirs, coarse) -> (SB, P, 4)``
+    :param rays: (SB, B, 8)
+    :param z_samp: (SB, B, K), sorted
+    :return: dict(weights (SB, B, K), rgb (SB, B, 3), depth (SB, B))
+    """
+    SB, B, K = z_samp.shape
+    points, viewdirs = _points_of(rays, z_samp, use_viewdirs)
+    out = query_fn(points, viewdirs, coarse)
+    return composite_outputs(out.reshape(SB, B, K, -1), rays, z_samp, cfg, sigma_noise)
+
+
 def composite_outputs(
     out: torch.Tensor, rays: torch.Tensor, z_samp: torch.Tensor, cfg: RenderConfig,
     sigma_noise: Optional[torch.Tensor] = None,
@@ -183,13 +218,7 @@ def composite_outputs(
 
 def _stage_features(features_fn, rays, z_samp, use_viewdirs):
     """The feature stage on the sample positions of ``z_samp``."""
-    SB, B, K = z_samp.shape
-    points = rays[..., None, :3] + z_samp[..., None] * rays[..., None, 3:6]
-    points = points.reshape(SB, B * K, 3)
-    viewdirs = None
-    if use_viewdirs:
-        viewdirs = rays[..., None, 3:6].expand(SB, B, K, 3).reshape(SB, B * K, 3)
-    return features_fn(points, viewdirs)
+    return features_fn(*_points_of(rays, z_samp, use_viewdirs))
 
 
 def _format(out: Dict[str, torch.Tensor], want_weights: bool) -> Dict[str, torch.Tensor]:
@@ -200,8 +229,7 @@ def _format(out: Dict[str, torch.Tensor], want_weights: bool) -> Dict[str, torch
 
 
 def render_rays(
-    features_fn: Callable,
-    mlp_fn: Callable,
+    query_fn: QueryFn,
     rays: torch.Tensor,
     cfg: RenderConfig,
     generator: Optional[torch.Generator] = None,
@@ -210,12 +238,17 @@ def render_rays(
     use_viewdirs: bool = True,
     train: bool = False,
 ) -> Dict[str, Dict[str, torch.Tensor]]:
-    """Staged hierarchical render of a ray batch.
+    """Hierarchical render of a ray batch.
 
-    :param features_fn: ``f(points (SB, P, 3), viewdirs) -> feats``
-    :param mlp_fn: ``f(feats, coarse: bool) -> (SB, P, 4)``; the fine pass
-        reuses the coarse samples' features (the sorted fine union contains
-        every coarse z), so only the new samples go through ``features_fn``
+    :param query_fn: either ``f(points (SB, P, 3), viewdirs, coarse) ->
+        (SB, P, 4)`` or a staged pair ``(features_fn, mlp_fn)`` with
+        ``features_fn(points, viewdirs) -> feats`` and ``mlp_fn(feats,
+        coarse) -> (SB, P, 4)``. Staged, the fine pass reuses the coarse
+        samples' features (the sorted fine union contains every coarse z),
+        so only the new samples go through ``features_fn``, and the field
+        outputs are permuted by the sort of z instead of the features. The
+        two forms compute the same per-sample values in other batches: they
+        agree to the matrix products' float32 rounding, not bit for bit
     :param rays: (SB, B, 8) [origin, dir, near, far]
     :param noise: pre-drawn random numbers (see the module docstring);
         drawn from ``generator`` if None
@@ -231,12 +264,18 @@ def render_rays(
     SB, B, _ = rays.shape
     sigma_noise = train and cfg.noise_std > 0.0
 
+    staged = isinstance(query_fn, (tuple, list))
+    noise_c = noise["noise_c"] if sigma_noise else None
+    noise_f = noise["noise_f"] if sigma_noise and cfg.using_fine else None
+
     z_coarse = sample_coarse(rays, cfg, noise["coarse"])               # (SB, B, Kc)
-    feats_c = _stage_features(features_fn, rays, z_coarse, use_viewdirs)
-    out_c = mlp_fn(feats_c, True).reshape(SB, B, cfg.n_coarse, 4)
-    coarse_out = composite_outputs(
-        out_c, rays, z_coarse, cfg, noise["noise_c"] if sigma_noise else None
-    )
+    if staged:
+        features_fn, mlp_fn = query_fn
+        feats_c = _stage_features(features_fn, rays, z_coarse, use_viewdirs)
+        out_c = mlp_fn(feats_c, True).reshape(SB, B, cfg.n_coarse, 4)
+        coarse_out = composite_outputs(out_c, rays, z_coarse, cfg, noise_c)
+    else:
+        coarse_out = composite(query_fn, rays, z_coarse, True, cfg, noise_c, use_viewdirs)
     outputs = {"coarse": _format(coarse_out, want_weights)}
 
     if cfg.using_fine:
@@ -247,29 +286,30 @@ def render_rays(
             )
         if cfg.n_fine_depth > 0:
             new_samps.append(sample_fine_depth(rays, coarse_out["depth"], cfg, noise["depth"]))
-        out_fc = mlp_fn(feats_c, False).reshape(SB, B, cfg.n_coarse, 4)
-        del feats_c   # both MLP calls have taken it; autograd keeps what it saved
-        if new_samps:
-            z_new = torch.cat(new_samps, dim=-1)                        # (SB, B, Kn)
-            feats_n = _stage_features(features_fn, rays, z_new, use_viewdirs)
-            out_fn = mlp_fn(feats_n, False).reshape(SB, B, z_new.shape[-1], 4)
-            out_f = torch.cat([out_fc, out_fn], dim=2)
-            z_all = torch.cat([z_coarse, z_new], dim=-1)
+        if not staged:
+            z_combine, _ = torch.sort(torch.cat([z_coarse] + new_samps, dim=-1), dim=-1)
+            fine_out = composite(query_fn, rays, z_combine, False, cfg, noise_f, use_viewdirs)
         else:
-            out_f, z_all = out_fc, z_coarse
-        # one stable sort keyed on z; the 4 output channels ride as payload
-        z_sorted, order = torch.sort(z_all, dim=-1, stable=True)
-        out_sorted = torch.gather(out_f, 2, order[..., None].expand(-1, -1, -1, 4))
-        fine_out = composite_outputs(
-            out_sorted, rays, z_sorted, cfg, noise["noise_f"] if sigma_noise else None
-        )
+            out_fc = mlp_fn(feats_c, False).reshape(SB, B, cfg.n_coarse, 4)
+            del feats_c   # both MLP calls have taken it; autograd keeps what it saved
+            if new_samps:
+                z_new = torch.cat(new_samps, dim=-1)                    # (SB, B, Kn)
+                feats_n = _stage_features(features_fn, rays, z_new, use_viewdirs)
+                out_fn = mlp_fn(feats_n, False).reshape(SB, B, z_new.shape[-1], 4)
+                out_f = torch.cat([out_fc, out_fn], dim=2)
+                z_all = torch.cat([z_coarse, z_new], dim=-1)
+            else:
+                out_f, z_all = out_fc, z_coarse
+            # one stable sort keyed on z; the 4 output channels ride as payload
+            z_sorted, order = torch.sort(z_all, dim=-1, stable=True)
+            out_sorted = torch.gather(out_f, 2, order[..., None].expand(-1, -1, -1, 4))
+            fine_out = composite_outputs(out_sorted, rays, z_sorted, cfg, noise_f)
         outputs["fine"] = _format(fine_out, want_weights)
     return outputs
 
 
 def render_rays_chunked(
-    features_fn: Callable,
-    mlp_fn: Callable,
+    query_fn: QueryFn,
     rays: torch.Tensor,
     cfg: RenderConfig,
     ray_chunk: int,
@@ -293,7 +333,8 @@ def render_rays_chunked(
     - ``"features"``: only the two MLP calls; the feature stage (projection,
       gather, positional code) runs outside the checkpoint and keeps its
       outputs, the torch form of the JAX package's
-      ``save_only_these_names("gathered_features")``
+      ``save_only_these_names("gathered_features")``; it needs the staged
+      pair, which alone has a feature stage of its own
     - ``"dots"`` (the JAX package's GEMM-output policy) is not ported
     """
     if remat == "dots":
@@ -301,10 +342,14 @@ def render_rays_chunked(
     if remat not in (False, True, "features"):
         raise ValueError(f"unknown remat policy {remat!r}")
     if remat == "features":
-        inner_mlp = mlp_fn
+        if not isinstance(query_fn, (tuple, list)):
+            raise ValueError('remat="features" needs the staged (features_fn, mlp_fn) pair')
+        features_fn, inner_mlp = query_fn
 
         def mlp_fn(feats, coarse):
             return checkpoint(inner_mlp, feats, coarse, use_reentrant=False)
+
+        query_fn = (features_fn, mlp_fn)
 
     SB, B, _ = rays.shape
     outs = []
@@ -316,7 +361,7 @@ def render_rays_chunked(
             noise = draw_noise(chunk, cfg, generator, train)
         else:
             raise ValueError("pass a torch.Generator or pre-drawn noise")
-        args = (features_fn, mlp_fn, chunk, cfg, None, noise, want_weights, use_viewdirs, train)
+        args = (query_fn, chunk, cfg, None, noise, want_weights, use_viewdirs, train)
         if remat is True:
             outs.append(checkpoint(render_rays, *args, use_reentrant=False))
         else:
@@ -325,3 +370,56 @@ def render_rays_chunked(
         branch: {k: torch.cat([o[branch][k] for o in outs], dim=1) for k in outs[0][branch]}
         for branch in outs[0]
     }
+
+
+class NeRFRenderer:
+    """Object API around the functional renderer (counterpart of
+    ``NeRFRenderer`` in ``pixelnerf_tpu/render/renderer.py``: ``from_conf``,
+    ``__call__``, ``bind``)."""
+
+    def __init__(self, cfg: RenderConfig):
+        self.cfg = cfg
+
+    @classmethod
+    def from_conf(cls, conf, white_bkgd: bool = False) -> "NeRFRenderer":
+        return cls(RenderConfig.from_conf(conf, white_bkgd))
+
+    def __call__(
+        self, query_fn: QueryFn, rays: torch.Tensor, generator=None, noise=None, train: bool = False,
+        want_weights: bool = False, use_viewdirs: bool = True, ray_chunk: Optional[int] = None,
+    ):
+        """Render (SB, B, 8) rays, in chunks of ``ray_chunk`` rays when B
+        exceeds it. ``noise`` is one pre-drawn dict, or with chunks a list
+        of one dict per chunk."""
+        if ray_chunk is None or rays.shape[1] <= ray_chunk:
+            if isinstance(noise, (list, tuple)):
+                noise = noise[0]
+            return render_rays(
+                query_fn, rays, self.cfg, generator, noise, want_weights, use_viewdirs, train
+            )
+        return render_rays_chunked(
+            query_fn, rays, self.cfg, ray_chunk, generator, noise, want_weights, use_viewdirs, train
+        )
+
+    def bind(self, net, enc, simple_output: bool = False):
+        """Bind a PixelNeRF net and a SceneEncoding into a rays -> render
+        callable on ``net.query`` (unstaged).
+
+        :param simple_output: return ``(rgb, depth)`` of the fine branch
+            (the coarse one without fine samples) instead of the dict
+        """
+
+        def query_fn(xyz, viewdirs, coarse):
+            return net.query(enc, xyz, viewdirs, coarse=coarse)
+
+        def render(rays, generator=None, noise=None, train=False, want_weights=False, ray_chunk=None):
+            out = self(
+                query_fn, rays, generator, noise, train=train, want_weights=want_weights,
+                use_viewdirs=net.use_viewdirs, ray_chunk=ray_chunk,
+            )
+            if simple_output:
+                branch = out["fine"] if self.cfg.using_fine else out["coarse"]
+                return branch["rgb"], branch["depth"]
+            return out
+
+        return render

@@ -82,12 +82,12 @@ def make_train_step(
         rays = batch["rays"]
         if ray_chunk is not None and rays.shape[1] > ray_chunk:
             outputs = render_rays_chunked(
-                *stages, rays, cfg, ray_chunk, generator, noise,
+                stages, rays, cfg, ray_chunk, generator, noise,
                 use_viewdirs=net.use_viewdirs, train=True, remat=remat,
             )
         else:
             outputs = render_rays(
-                *stages, rays, cfg, generator, None if noise is None else noise[0],
+                stages, rays, cfg, generator, None if noise is None else noise[0],
                 use_viewdirs=net.use_viewdirs, train=True,
             )
         loss, metrics = loss_fn(outputs, batch["rgb_gt"])
@@ -122,7 +122,7 @@ def make_eval_step(net, cfg: RenderConfig, loss_fn):
     def step(batch, generator=None, noise=None):
         enc = net.encode(batch["images"], batch["poses"], batch["focal"], batch.get("c"))
         outputs = render_rays(
-            *_stages(net, enc, use_kernels=True, differentiable=False), batch["rays"], cfg,
+            _stages(net, enc, use_kernels=True, differentiable=False), batch["rays"], cfg,
             generator, noise, use_viewdirs=net.use_viewdirs,
         )
         _, metrics = loss_fn(outputs, batch["rgb_gt"])

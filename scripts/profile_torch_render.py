@@ -6,11 +6,16 @@ two warm-up requests (one 128x128 novel view each, one ray chunk per
 image), times three more with the host clock around ``synchronize()``,
 then runs one under ``torch.profiler`` and prints one JSON line: the
 request's wall time, the device time summed over its kernels, the device's
-idle share, and the device time of the kernels grouped (the two CUDA
-kernels of the port, then the rest by name).
+idle share, and the device time of the kernels grouped (the CUDA kernels
+of the port, then the rest by name).
+
+``--path`` picks the render path: ``staged`` (kernel A's gather, kernel
+B's MLP; the default), ``fused`` (the unstaged renderer on ``query_fused``:
+kernel D) or ``baked`` (a ``bake_encoding``'d scene: kernel A on the
+injection maps, kernel B with ``z_is_tz``).
 
 Usage, on a machine with one NVIDIA GPU, from the repository root:
-``python3 scripts/profile_torch_render.py [--trace PATH]``
+``python3 scripts/profile_torch_render.py [--path staged|fused|baked] [--trace PATH]``
 (``--trace`` also writes the profiler's chrome trace).
 """
 import argparse
@@ -27,6 +32,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--path", default="staged", choices=("staged", "fused", "baked"))
     ap.add_argument("--trace", default=None, help="write the chrome trace here")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -34,7 +40,7 @@ def main():
         return 2
     sys.path.insert(0, REPO)
     import chip_smoke as cs
-    from pixelnerf_tpu_torch.eval import FullRenderer
+    from pixelnerf_tpu_torch.models import bake_encoding, pack_encoding
     from pixelnerf_tpu_torch.utils import geometry
 
     dev = torch.device("cuda")
@@ -46,17 +52,19 @@ def main():
     net, cfg = cs.make_srn_model(dev, g)
     images, src_pose = cs.source_view(g, dev)
     pose = cs.target_poses()[0]
-    renderer = FullRenderer(net, cfg, ray_chunk=cs.RAY_CHUNK, fast=True)
     rgen = torch.Generator(device=dev).manual_seed(1)
 
     def request():
         rays = geometry.gen_rays(pose[None], cs.IMAGE, cs.IMAGE, cs.FOCAL, cs.NEAR, cs.FAR, device=dev)[0]
-        rgb, depth = renderer.render_image(enc, rays, generator=rgen)
+        rgb, depth = render(rays, generator=rgen)
         torch.cuda.synchronize()
         return rgb, depth
 
     with torch.inference_mode():
         enc = net.encode(images, src_pose, cs.FOCAL)
+        if args.path != "staged":
+            enc = (pack_encoding if args.path == "fused" else bake_encoding)(net, enc)
+        render = cs.make_request(args.path, net, cfg, enc)
         for _ in range(2):
             request()
         wall = []
@@ -84,6 +92,8 @@ def main():
             name = "gather_bilerp (kernel A)"
         elif "fused_mlp_kernel" in name:
             name = "fused_resnetfc_infer (kernel B)"
+        elif "fused_field_kernel" in name:
+            name = "fused_gather_resnetfc_infer (kernel D)"
         entry = groups.setdefault(name, {"ms": 0.0, "calls": 0})
         entry["ms"] += ms
         entry["calls"] += ev.count
@@ -93,6 +103,7 @@ def main():
         prof.export_chrome_trace(args.trace)
     print(json.dumps({
         "card": smi,
+        "path": args.path,
         "request": "one 128x128 view, conf/exp/srn.conf bf16, fast=True, one ray chunk",
         "wall_ms_unprofiled": wall,
         "wall_ms_profiled": prof_wall_ms,

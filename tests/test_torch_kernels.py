@@ -11,6 +11,11 @@ import pytest
 import torch
 
 from pixelnerf_tpu_torch.ops import grid_sample as tgs
+from pixelnerf_tpu_torch.ops.fused_field import (
+    fused_gather_resnetfc_infer,
+    fused_gather_resnetfc_infer_plain,
+    gather_prologue_probe,
+)
 from pixelnerf_tpu_torch.ops.fused_mlp import fused_resnetfc_infer, fused_resnetfc_infer_plain
 from pixelnerf_tpu_torch.ops.gather import gather_bilerp, gather_bilerp_plain
 from pixelnerf_tpu_torch.ops.gather_rows import (
@@ -20,6 +25,7 @@ from pixelnerf_tpu_torch.ops.gather_rows import (
     gather_rows_lerp_bwd_plain,
     gather_rows_lerp_plain,
 )
+from pixelnerf_tpu_torch.ops.gather_study import FORMULATIONS, gather_study, gather_study_plain
 
 
 def _pair_inputs(hh=16, ww=16, c=128, p=300, seed=0):
@@ -283,3 +289,83 @@ def test_gather_rows_autograd_launches_both_kernels_cuda(cuda_device):
     torch.testing.assert_close(out, out_p, atol=0, rtol=0)
     torch.testing.assert_close(gt, pt, atol=1e-5 * pt.abs().max().item(), rtol=0)
     torch.testing.assert_close(gw, pw, atol=1e-5 * pw.abs().max().item(), rtol=0)
+
+
+@pytest.mark.cuda
+def test_gather_kernel_wide_rows_cuda(cuda_device):
+    """Kernel A on rows as wide as a baked injection map (3 x 512)."""
+    g = torch.Generator().manual_seed(0)
+    hh = ww = 16
+    table = torch.randn((hh * ww, 1536), generator=g).to(torch.bfloat16)
+    ix = torch.rand(1000, generator=g) * (ww - 1)
+    iy = torch.rand(1000, generator=g) * (hh - 1)
+    ix[:50], iy[25:75] = ww - 1, hh - 1        # the right and bottom borders
+    base, w = tgs.bilinear_pair_bases(ix, iy, hh, ww)
+    args = [a.to(cuda_device) for a in (table, base, w)]
+    out = gather_bilerp(*args, ww, torch.bfloat16)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, gather_bilerp_plain(*args, ww, torch.bfloat16), atol=0, rtol=0)
+
+
+@pytest.mark.cuda
+def test_fused_mlp_tz_kernel_matches_plain_cuda(cuda_device):
+    weights = _mlp_weights(dh=64, d_in=42, d_z=64, n_blocks=5, combine_layer=3)
+    weights = tuple(w.to(cuda_device) for w in weights[:2]) + (None, None) + tuple(
+        w.to(cuda_device) for w in weights[4:])
+    g = torch.Generator().manual_seed(1)
+    tz = torch.randn((300, 3 * 64), generator=g).to(torch.bfloat16).to(cuda_device)
+    x = torch.randn((300, 42), generator=g).to(torch.bfloat16).to(cuda_device)
+    before = fused_resnetfc_infer.launches
+    out = fused_resnetfc_infer(tz, x, weights, 5, 3, z_is_tz=True)
+    torch.cuda.synchronize()
+    assert fused_resnetfc_infer.launches == before + 1
+    ref = fused_resnetfc_infer_plain(tz, x, weights, 5, 3, z_is_tz=True)
+    # as the unbaked kernel: float32 sums in other orders may flip a bf16 rounding
+    torch.testing.assert_close(out, ref, atol=5e-2, rtol=5e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [64, 256, 700])
+def test_fused_field_kernel_matches_composition_and_plain_cuda(cuda_device, n):
+    """Kernel D equals kernel B fed by kernel A bit for bit, and its plain
+    version within kernel B's tolerance; points on the right and bottom
+    borders and exact corners included."""
+    g = torch.Generator().manual_seed(2)
+    hh = ww = 9
+    c = 128
+    weights = tuple(w.to(cuda_device) for w in _mlp_weights(dh=64, d_in=42, d_z=c, n_blocks=5, combine_layer=3))
+    table = torch.randn((hh * ww, c), generator=g).to(torch.bfloat16)
+    ix = torch.rand(n, generator=g) * (ww - 1)
+    iy = torch.rand(n, generator=g) * (hh - 1)
+    ix[:10], iy[5:15] = ww - 1, hh - 1
+    ix[15:20], iy[15:20] = torch.arange(5.0), torch.arange(5.0)
+    base, wg = tgs.bilinear_pair_bases(ix, iy, hh, ww)
+    x = torch.randn((n, 42), generator=g).to(torch.bfloat16)
+    table, base, wg, x = (a.to(cuda_device) for a in (table, base, wg, x))
+    before = fused_gather_resnetfc_infer.launches
+    out = fused_gather_resnetfc_infer(table, base, wg, x, weights, 5, 3, ww)
+    torch.cuda.synchronize()
+    assert fused_gather_resnetfc_infer.launches == before + 1
+    z = gather_bilerp(table, base, wg, ww, torch.bfloat16)
+    torch.testing.assert_close(out, fused_resnetfc_infer(z, x, weights, 5, 3), atol=0, rtol=0)
+    ref = fused_gather_resnetfc_infer_plain(table, base, wg, x, weights, 5, 3, ww)
+    torch.testing.assert_close(out, ref, atol=5e-2, rtol=5e-2)
+    # the prologue alone leaves the gathered latents' first channels
+    probe = gather_prologue_probe(table, base, wg, x, weights, 5, 3, ww)
+    torch.testing.assert_close(probe, z[:, :4].float(), atol=0, rtol=0)
+    assert fused_gather_resnetfc_infer.launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("table_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("formulation", sorted(FORMULATIONS))
+def test_gather_study_kernels_match_plain_cuda(cuda_device, formulation, table_dtype):
+    # 1000 points: off every tile size
+    table, idx, w = _rows_inputs(rows=256, c=512, n=1000, table_dtype=table_dtype)
+    args = [a.to(cuda_device) for a in (table, idx, w)]
+    before = gather_study.launches[formulation]
+    out = gather_study(*args, formulation, tile=128)
+    torch.cuda.synchronize()
+    assert gather_study.launches[formulation] == before + 1
+    # no contracted multiply-adds in the kernels: bit-equal
+    torch.testing.assert_close(out, gather_study_plain(*args), atol=0, rtol=0)

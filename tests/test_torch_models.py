@@ -15,7 +15,6 @@ import torch
 from pixelnerf_tpu.config import load_config as jax_load_config
 from pixelnerf_tpu.models import make_model as jax_make_model
 from pixelnerf_tpu.models.code import PositionalEncoding as JaxPE
-from pixelnerf_tpu.models.resnetfc import ResnetFC as JaxResnetFC
 from pixelnerf_tpu.models.resnetfc import _kernel_params_sub
 from pixelnerf_tpu.models.torch_import import export_state_dict
 from pixelnerf_tpu.ops.fused_mlp import pack_weights as jax_pack_weights
@@ -26,7 +25,7 @@ from pixelnerf_tpu_torch.models.code import PositionalEncoding
 from pixelnerf_tpu_torch.ops.fused_mlp import fused_resnetfc_infer_plain, pack_weights
 from pixelnerf_tpu_torch.utils import geometry as tgeo
 
-from torch_port_utils import FOCAL, REPO, SRN_CONF, build_pair, novel_rays, perturb, source_view, t
+from torch_port_utils import FOCAL, REPO, SRN_CONF, build_pair, mlp_pair as _mlp_pair, novel_rays, source_view, t
 
 
 def _np(x):
@@ -88,19 +87,6 @@ def test_encoder_matches_jax_f32(pair):
     np.testing.assert_allclose(enc.c.numpy(), _np(ref.c))
 
 
-def _mlp_pair(dtype="float32", d_hidden=64, d_latent=128, seed=0):
-    jmlp = JaxResnetFC(d_in=42, d_latent=d_latent, n_blocks=5, d_hidden=d_hidden,
-                       combine_layer=3, dtype=getattr(jnp, dtype))
-    rng = np.random.default_rng(seed)
-    z = rng.normal(size=(8, d_latent)).astype(np.float32)
-    x = rng.normal(size=(8, 42)).astype(np.float32)
-    variables = perturb(jax.device_get(jmlp.init(jax.random.PRNGKey(seed), (jnp.asarray(z), jnp.asarray(x)))), seed)
-    tmlp = ResnetFC(d_in=42, d_latent=d_latent, n_blocks=5, d_hidden=d_hidden,
-                    combine_layer=3, dtype=getattr(torch, dtype))
-    load_jax_variables(tmlp, variables)
-    return jmlp, variables, tmlp
-
-
 @pytest.mark.parametrize("ns", [1, 2])
 def test_resnetfc_f32_matches_jax(ns):
     """NS=1, and NS=2 through the mean at combine_layer 3."""
@@ -136,6 +122,13 @@ def test_pack_weights_matches_jax():
         # matrices are the transposes (torch's (out, in) layout), biases 1-D
         o = o.swapaxes(-1, -2) if name.startswith("w") else o.reshape(r.shape)
         np.testing.assert_array_equal(o, r, err_msg=name)
+    # the z_is_tz variant's tuple: the same arrays, wz and bz left out
+    # (the JAX side ships zero dummies in their place)
+    tz_tuple = pack_weights(tmlp, with_wz=False)
+    assert tz_tuple[2] is None and tz_tuple[3] is None
+    for name, a, b in zip(names, out, tz_tuple):
+        if name not in ("wz", "bz"):
+            assert torch.equal(a, b), name
 
 
 def test_fused_plain_matches_jax_fast_bf16():
@@ -238,11 +231,13 @@ def _imported_roots(path):
 
 def test_port_imports_nothing_of_jax():
     """Every module of the port, chip_smoke.py and the port's profiling
-    scripts: no import of jax, flax,
+    and gather-study scripts: no import of jax, flax,
     optax or the top-level package pixelnerf_tpu (matched by exact name:
     pixelnerf_tpu_torch shares its prefix)."""
     files = [os.path.join(REPO, "chip_smoke.py")] + [
-        os.path.join(REPO, "scripts", f"profile_torch_{name}.py") for name in ("render", "train")
+        os.path.join(REPO, "scripts", f"{name}.py")
+        for name in ("profile_torch_render", "profile_torch_train", "bench_gather_torch",
+                     "probe_gather_kernels_torch")
     ]
     for root, _, names in os.walk(os.path.join(REPO, "pixelnerf_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]

@@ -88,8 +88,8 @@ def test_staged_render_rays_matches_jax_f32(pair):
     ref = jr.render_rays((features_fn, mlp_fn), jnp.asarray(rays), key, jcfg, want_weights=True)
     with torch.no_grad():
         out = tr.render_rays(
-            lambda xyz, vd: tnet.query_features(enc_t, xyz, vd),
-            lambda feats, coarse: tnet.query_mlp(enc_t, feats, coarse),
+            (lambda xyz, vd: tnet.query_features(enc_t, xyz, vd),
+             lambda feats, coarse: tnet.query_mlp(enc_t, feats, coarse)),
             t(rays), tcfg, noise=jax_draws(key, 1, rays.shape[1], jcfg), want_weights=True,
         )
     for branch in ("coarse", "fine"):

@@ -284,8 +284,8 @@ def test_train_step_matches_jax(jax_runs, remat):
     with torch.no_grad():
         # non-degeneracy: a near-constant render would certify nothing
         enc = net.encode(batch["images"], batch["poses"], batch["focal"], batch["c"])
-        out = tr.render_rays(lambda p, v: net.query_features(enc, p, v),
-                             lambda f, c: net.query_mlp(enc, f, c),
+        out = tr.render_rays((lambda p, v: net.query_features(enc, p, v),
+                              lambda f, c: net.query_mlp(enc, f, c)),
                              batch["rays"][:, : noise[0]["coarse"].shape[1]], cfg, noise=noise[0])
         assert float(out["fine"]["rgb"].std()) > 1e-3
     metrics = step(batch, noise=noise)
@@ -326,7 +326,7 @@ def test_fast_mlp_refuses_autograd():
 def test_remat_dots_is_not_ported():
     cfg = tr.RenderConfig(n_coarse=4)
     with pytest.raises(NotImplementedError):
-        tr.render_rays_chunked(None, None, torch.zeros((1, 8, 8)), cfg, 4, remat="dots")
+        tr.render_rays_chunked((None, None), torch.zeros((1, 8, 8)), cfg, 4, remat="dots")
 
 
 def test_gather_rows_autograd_plain_matches_wrapper_on_cpu():

@@ -108,6 +108,36 @@ def build_pair(d_hidden=64, num_layers=2, dtype=None, seed=0, SB=1):
     return jnet, variables, tnet, jconf, tconf
 
 
+def mlp_pair(dtype="float32", d_hidden=64, d_latent=128, seed=0):
+    """A JAX ResnetFC (42 -> 5 blocks, combine_layer 3) with perturbed
+    variables and the port's ResnetFC holding the same weights."""
+    from pixelnerf_tpu.models.resnetfc import ResnetFC as JaxResnetFC
+    from pixelnerf_tpu_torch.models import ResnetFC
+
+    jmlp = JaxResnetFC(d_in=42, d_latent=d_latent, n_blocks=5, d_hidden=d_hidden,
+                       combine_layer=3, dtype=getattr(jnp, dtype))
+    rng = np.random.default_rng(seed)
+    z = rng.normal(size=(8, d_latent)).astype(np.float32)
+    x = rng.normal(size=(8, 42)).astype(np.float32)
+    variables = perturb(jax.device_get(jmlp.init(jax.random.PRNGKey(seed), (jnp.asarray(z), jnp.asarray(x)))), seed)
+    tmlp = ResnetFC(d_in=42, d_latent=d_latent, n_blocks=5, d_hidden=d_hidden,
+                    combine_layer=3, dtype=getattr(torch, dtype))
+    load_jax_variables(tmlp, variables)
+    return jmlp, variables, tmlp
+
+
+def port_weights_from_jax(weights):
+    """The JAX package's packed weight tuple (matrices (in, out), biases
+    (1, n)) as the port's (matrices (out, in), biases 1-D), bf16."""
+    names = ("win", "bin", "wz", "bz", "w0", "b0", "w1", "b1", "wout", "bout")
+    out = []
+    for name, a in zip(names, weights):
+        a = torch.from_numpy(np.asarray(a, np.float32))
+        a = a.transpose(-1, -2) if name.startswith("w") else a.squeeze(-2)
+        out.append(a.contiguous().to(torch.bfloat16))
+    return tuple(out)
+
+
 def jax_draws(key, SB, B, cfg, train=False):
     """The random numbers JAX's ``render_rays`` draws from ``key``, as the
     port's noise dict (numpy -> torch); with ``train`` and
