@@ -44,7 +44,11 @@ Phases, one JSON line each:
     one state, batch and noise
 12. kernel_b_tz: kernel B's ``z_is_tz`` variant and 13. kernel_d: the fused
     gather+MLP kernel, against their plain versions (D also against kernel
-    B fed by kernel A, bit for bit), with the time of D's gather prologue
+    B fed by kernel A, bit for bit), with the time of D's gather alone.
+    B, B-tz and D are also held to their plain versions and timed at the
+    fine pass's 1,572,864 rows and held to them at a ragged 700 rows, and
+    report the bytes a launch moves through L2 and device memory as
+    reckoned from the kernel's design
 14. kernel_f and 15. kernel_e: the four formulations of the gather study
     through ``scripts/probe_gather_kernels_torch.py`` (small shapes,
     registers and spills) and ``scripts/bench_gather_torch.py`` (full
@@ -226,10 +230,55 @@ def check_kernel_b(dev, g, mlp):
         "max_abs_err": err, "tolerance": tol, "frac_within_1e-2": close,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": library_ms, "library_call": "bf16 torch.matmul chain (ResnetFC fast=False)",
-        "tflops": flops / ms / 1e9,
+        "tflops": flops / ms / 1e9, **mlp_traffic(n, ms, weights, mlp.d_latent * 2, bytes_moved),
     }
+
+    def other_shape(m):
+        zm = torch.randn((m, mlp.d_latent), generator=g).to(torch.bfloat16).to(dev)
+        xm = torch.randn((m, mlp.d_in), generator=g).to(torch.bfloat16).to(dev)
+        return (zm, xm, weights, mlp.n_blocks, mlp.combine_layer)
+
+    res.update(mlp_other_shapes(fused_resnetfc_infer, fused_resnetfc_infer_plain, other_shape, "kernel B",
+                                lambda m: mlp_flops(m, weights, mlp)))
     emit({"phase": "kernel_b", **res})
     return res
+
+
+FINE_ROWS = RAY_CHUNK * 96     # the fine pass's launch: 64 coarse + 32 fine samples per ray
+RAGGED_ROWS = 700              # a last tile of 60 rows
+
+
+def mlp_other_shapes(run, plain, make_args, what, flops_of):
+    """A fused MLP kernel at the fine pass's 1,572,864 rows (the launch the
+    paths really make: held to its plain version and timed) and at a ragged
+    700 rows (held to its plain version)."""
+    args = make_args(FINE_ROWS)
+    out = run(*args)
+    torch.cuda.synchronize()
+    err, _, close = assert_mlp_close(out, plain(*args), f"{what} at {FINE_ROWS} rows")
+    del out
+    ms = time_ms(lambda: run(*args), reps=5)
+    del args
+    args = make_args(RAGGED_ROWS)
+    out = run(*args)
+    torch.cuda.synchronize()
+    err_r, _, _ = assert_mlp_close(out, plain(*args), f"{what} at {RAGGED_ROWS} rows")
+    return {"fine_shape": {"rows": FINE_ROWS, "ms": ms, "tflops": flops_of(FINE_ROWS) / ms / 1e9,
+                           "max_abs_err": err, "frac_within_1e-2": close},
+            "ragged_shape": {"rows": RAGGED_ROWS, "max_abs_err": err_r}}
+
+
+def mlp_traffic(n, ms, weights, l2_row_bytes, hbm_bytes):
+    """Bytes a launch of the fused MLP body moves, reckoned from its design
+    (csrc/mlp_body.cuh), and the rates they make at ``ms``. Through L2:
+    every 64-row tile streams the tiled weight image, and ``l2_row_bytes``
+    per row for the z tile (the latents once per tile; the baked
+    injections, a slice per injection; kernel D's gather, four map rows per
+    point). Through device memory: ``hbm_bytes``, each input read once and
+    each output written once, as the bound counts them."""
+    l2 = -(-n // 64) * weights.image.numel() * 2 + n * l2_row_bytes
+    return {"l2_gb_per_launch": l2 / 1e9, "l2_tb_per_s": l2 / ms / 1e9,
+            "hbm_gb_per_launch": hbm_bytes / 1e9, "hbm_tb_per_s": hbm_bytes / ms / 1e9}
 
 
 def mlp_flops(n, weights, mlp, with_wz=True):
@@ -288,8 +337,17 @@ def check_kernel_b_tz(dev, g, mlp):
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": library_ms,
         "library_call": "bf16 torch.matmul chain without the wz product (ResnetFC fast=False, z_pretransformed)",
-        "tflops": flops / ms / 1e9,
+        "tflops": flops / ms / 1e9, **mlp_traffic(n, ms, weights, d_tz * 2, bytes_moved),
     }
+    del tz, x, out, args
+
+    def other_shape(m):
+        tzm = torch.randn((m, d_tz), generator=g).to(torch.bfloat16).to(dev)
+        xm = torch.randn((m, mlp.d_in), generator=g).to(torch.bfloat16).to(dev)
+        return (tzm, xm, weights, mlp.n_blocks, mlp.combine_layer, True)
+
+    res.update(mlp_other_shapes(fused_resnetfc_infer, fused_resnetfc_infer_plain, other_shape, "kernel B (z_is_tz)",
+                                lambda m: mlp_flops(m, weights, mlp, with_wz=False)))
     emit({"phase": "kernel_b_tz", **res})
     return res
 
@@ -358,7 +416,20 @@ def check_kernel_d(dev, g, mlp):
         "library_ms": library_ms, "library_call": "F.grid_sample(NCHW bf16) + bf16 torch.matmul chain",
         "b_fed_by_a_ms": composition_ms, "gather_prologue_ms": prologue_ms,
         "gather_prologue_share": prologue_ms / ms, "tflops": flops / ms / 1e9,
+        **mlp_traffic(n, ms, weights, 4 * c * 2, bytes_moved),
     }
+    del base, wg, x, out, args
+
+    def other_shape(m):
+        ixm = (torch.rand(m, generator=g) * (wl - 1)).to(dev)
+        iym = (torch.rand(m, generator=g) * (hl - 1)).to(dev)
+        ixm[:50], iym[25:75] = wl - 1, hl - 1
+        bm, wm = bilinear_pair_bases(ixm, iym, hl, wl)
+        xm = torch.randn((m, mlp.d_in), generator=g).to(torch.bfloat16).to(dev)
+        return (table, bm, wm, xm, weights, mlp.n_blocks, mlp.combine_layer, wl)
+
+    res.update(mlp_other_shapes(fused_gather_resnetfc_infer, fused_gather_resnetfc_infer_plain, other_shape,
+                                "kernel D", lambda m: mlp_flops(m, weights, mlp)))
     emit({"phase": "kernel_d", **res})
     return res
 
@@ -913,7 +984,7 @@ def main():
     t0 = time.time()
     logs = _build.build(["gather", "fused_mlp", "gather_rows", "fused_field", "gather_study"])
     emit({"phase": "build", "seconds": time.time() - t0,
-          "ptxas": {k: [l.strip() for l in v.splitlines() if "registers" in l or "spill" in l]
+          "ptxas": {k: [l.strip() for l in v.splitlines() if "Used" in l or "spill" in l]
                     for k, v in logs.items()}})
 
     g = torch.Generator().manual_seed(0)

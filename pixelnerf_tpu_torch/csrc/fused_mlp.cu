@@ -1,9 +1,9 @@
-// Fused single-view ResnetFC inference MLP for Hopper.
+// Fused single-view ResnetFC inference MLP for Hopper (kernel B).
 //
 // Replaces: pixelnerf_tpu/ops/fused_mlp.py, fused_resnetfc_infer / _mlp_kernel,
-// with its z_is_tz variant. Per tile of T rows it runs the whole conditioned
-// MLP (mlp_body.cuh holds the chain, its rounding contract and the tile
-// layout, shared with the fused gather+MLP kernel):
+// with its z_is_tz variant. Per tile of 64 rows it runs the whole conditioned
+// MLP (mlp_body.cuh holds the chain, its rounding contract and the block's
+// design, shared with the fused gather+MLP kernel):
 //   h = x.Win + bin
 //   for block i:  if i < n_lin_z: h += z.Wz[:, i*dh:(i+1)*dh] + bz[i*dh:(i+1)*dh]
 //                 net = relu(h).W0_i + b0_i;  h += relu(net).W1_i + b1_i
@@ -12,54 +12,86 @@
 // into the feature map at encode time, n_lin_z*dh wide): block i adds
 // tz[:, i*dh:(i+1)*dh] to h in bf16 and there is no Wz product.
 //
-// Bound on this card: operations. About 7 MFLOP per row (5.5 with z_is_tz)
-// against ~1.3 KB (~3.2 KB) of inputs, above the H100's ~295 flop/byte
-// balance point. The TPU kernel pinned all ~6.8 MB of bf16 weights in VMEM;
-// a block here has 227 KB of shared memory, so a block keeps only its rows'
-// activations on chip: the x and z tiles and h and net (T=64 rows, 512 wide,
-// 212 KB in all). The weights are streamed from global memory through L2
-// (where all of them fit) straight into the tensor-core fragments. The
-// injections are computed one block's column slice at a time
-// (z.Wz[:, i*dh:(i+1)*dh]): the whole (T, 3*dh) tz would not fit beside h
-// and net, and each output element is the same dot product. For the same
-// reason the z_is_tz variant keeps no z tile: a 64 x 1536 bf16 tile is
-// 196 KB, and each block's 512-wide slice is consumed once, so it is read
-// from global memory where it is added. wgmma, TMA and warp specialisation
-// are left for later work.
+// Bound on this card: operations against device memory (about 7 MFLOP per
+// row, 5.5 with z_is_tz, against ~1.3 KB or ~3.2 KB of inputs), but the
+// weights do not fit beside a tile's activations in shared memory, so what
+// the kernel really waits for is the stream of all the weights from L2 once
+// per 64-row tile, at the rate one SM can take them in. mlp_body.cuh: a
+// persistent block per SM, wgmma fed from a ring of weight slabs that a
+// producer thread fills with bulk copies, the residual stream in registers.
+//
+// What this file adds is the tile of the injections: the producer's filler
+// warps copy the 64 rows of z, once per tile and a tile ahead, or with
+// z_is_tz block i's dh-wide slice of the injections, a block ahead, into
+// the z buffer.
 #include "mlp_body.cuh"
 
 namespace {
 
-template <bool Z_IS_TZ>
-__global__ void __launch_bounds__(WARPS * 32, 1) fused_mlp_kernel(Params p) {
-  extern __shared__ uint4 smem_raw[];
-  const Tiles t = carve_tiles(p, smem_raw, !Z_IS_TZ);
-  const int64_t row0 = (int64_t)blockIdx.x * T;
-  fill_x_tile(p, t, row0);
-  if constexpr (!Z_IS_TZ) fill_z_tile(p, t, row0);
-  __syncthreads();
-  mlp_chain<Z_IS_TZ>(p, t, row0);
+// The tile of injection `inj`: the latents, or the injection's own slice.
+struct RowsFill {
+  const bf16* z;
+  int64_t ld, n;
+  int width, step;   // columns of the tile; columns from one injection to the next
+  __device__ __forceinline__ void operator()(int inj, int64_t row0, uint8_t* dst, int ft) const {
+    fill_tile_rows(z + (int64_t)inj * step, ld, width, row0, n, dst, ft);
+  }
+};
+
+template <int NI, int NH, int MODE>
+__global__ void __launch_bounds__(THREADS, 1) fused_mlp_kernel(const Params p, const RowsFill fill) {
+  mlp_block<NI, NH, MODE>(p, fill);
+}
+
+template <int MODE>
+int launch_width(const Params& p, const RowsFill& f, cudaStream_t s) {
+  switch (p.dh) {
+    case 64: return launch_mlp(fused_mlp_kernel<32, 1, MODE>, p, s, p, f);
+    case 128: return launch_mlp(fused_mlp_kernel<64, 1, MODE>, p, s, p, f);
+    case 256: return launch_mlp(fused_mlp_kernel<128, 1, MODE>, p, s, p, f);
+    case 512: return launch_mlp(fused_mlp_kernel<128, 2, MODE>, p, s, p, f);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-extern "C" size_t fused_resnetfc_smem_bytes(int d_in_pad, int d_z, int d_hidden, int z_is_tz) {
-  return mlp_smem_bytes(d_in_pad, d_z, d_hidden, !z_is_tz);
+// Shared memory the MLP body's block takes with kx columns of x, a zw-wide
+// z tile and d_hidden hidden units, 0 for widths it does not take: what
+// ops/fused_mlp.py check_kernel_fits asks before a launch.
+extern "C" size_t mlp_body_smem_bytes(int kx, int zw, int d_hidden) {
+  return body_smem_bytes(kx, zw, d_hidden);
 }
 
-// Returns cudaGetLastError() after the launch (0 = success). With z_is_tz,
-// wz and bz are not read and may be null.
-extern "C" int fused_resnetfc_infer(const void* x, const void* z, const void* win,
-                                    const void* bin, const void* wz, const void* bz,
-                                    const void* w0, const void* b0, const void* w1,
-                                    const void* b1, const void* wout, const void* bout,
-                                    void* out, int64_t n, int d_in, int d_in_pad, int d_z,
-                                    int d_hidden, int n_blocks, int n_lin_z, int z_is_tz,
-                                    void* stream) {
-  const Params p = make_params(x, z, win, bin, wz, bz, w0, b0, w1, b1, wout, bout, out, n,
-                               d_in, d_in_pad, d_z, d_hidden, n_blocks, n_lin_z);
-  const size_t smem = mlp_smem_bytes(d_in_pad, d_z, d_hidden, !z_is_tz);
+// image: the tiled weights (with the Wz slabs unless z_is_tz); bz is not read
+// with z_is_tz and may be null. Returns the CUDA error of the launch
+// (0 = success).
+extern "C" int fused_resnetfc_infer(const void* x, const void* z, const void* image,
+                                    const void* bin, const void* bz, const void* b0,
+                                    const void* b1, const void* wout, const void* bout, void* out,
+                                    int64_t n, int d_in, int kx, int d_z, int d_hidden,
+                                    int n_blocks, int n_lin_z, int z_is_tz, void* stream) {
+  Params p;
+  p.x = static_cast<const bf16*>(x);
+  p.image = static_cast<const bf16*>(image);
+  p.bin = static_cast<const bf16*>(bin);
+  p.bz = static_cast<const bf16*>(bz);
+  p.b0 = static_cast<const bf16*>(b0);
+  p.b1 = static_cast<const bf16*>(b1);
+  p.wout = static_cast<const bf16*>(wout);
+  p.bout = static_cast<const bf16*>(bout);
+  p.out = static_cast<float*>(out);
+  p.n = n;
+  p.d_in = d_in;
+  p.kx = kx;
+  p.zw = z_is_tz ? d_hidden : d_z;
+  p.dh = d_hidden;
+  p.n_blocks = n_blocks;
+  p.n_lin_z = n_lin_z;
+  p.stages = stages_that_fit(kx, p.zw, d_hidden);
+  if (!p.stages) return (int)cudaErrorInvalidValue;
+  const RowsFill f = {static_cast<const bf16*>(z), d_z, n, p.zw, z_is_tz ? d_hidden : 0};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (z_is_tz) return launch_tiles(fused_mlp_kernel<true>, smem, n, s, p);
-  return launch_tiles(fused_mlp_kernel<false>, smem, n, s, p);
+  if (z_is_tz) return launch_width<MODE_TZ>(p, f, s);
+  return launch_width<MODE_Z>(p, f, s);
 }

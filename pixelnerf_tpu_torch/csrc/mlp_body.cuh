@@ -1,27 +1,64 @@
-// The conditioned ResnetFC MLP on one tile of T rows, shared by the fused
+// The conditioned ResnetFC MLP on tiles of T = 64 rows, shared by the fused
 // MLP kernel (fused_mlp.cu) and the fused gather+MLP kernel (fused_field.cu):
 //   h = x.Win + bin
 //   for block i:  if i < n_lin_z: h += tz[:, i*dh:(i+1)*dh]
 //                 net = relu(h).W0_i + b0_i;  h += relu(net).W1_i + b1_i
 //   out = relu(h).Wout + bout          (first 4 columns, float32)
 // where tz = z.Wz + bz is computed one block's column slice at a time from
-// the z tile in shared memory, or, with Z_IS_TZ, read from global memory
-// (the injections were folded into the feature map at encode time).
+// the z tile, or, in the TZ mode, read as it is (the injections were folded
+// into the feature map at encode time).
 //
 // Rounding contract, as in the TPU kernel (pixelnerf_tpu/ops/fused_mlp.py,
 // _mlp_kernel) and nn.Dense(dtype=bfloat16): each product accumulates in
-// float32 on the tensor cores (mma.sync m16n8k16 bf16), is rounded to bf16,
-// then the bf16 bias is added and the sum rounded to bf16. The residual adds
-// and the latent injections are bf16 adds. This ONE definition serves both
-// kernels, so the fused gather+MLP kernel equals the MLP kernel fed by the
-// gather kernel bit for bit.
+// float32 on the tensor cores, is rounded to bf16, then the bf16 bias is
+// added and the sum rounded to bf16. The residual adds and the latent
+// injections are bf16 adds. This ONE definition serves both kernels, so the
+// fused gather+MLP kernel equals the MLP kernel fed by the gather kernel bit
+// for bit.
 //
-// Shared memory: the x and z tiles and h and net, T = 64 rows, rows padded
-// by 8 bf16 so the fragment loads are free of bank conflicts; with Z_IS_TZ
-// there is no z tile. The weights are streamed from global memory through
-// L2 straight into the tensor-core fragments. Eight warps split each layer's
-// output columns in 32-wide chunks; every warp covers all 64 rows, so a
-// weight fragment is read once per block.
+// What bounds it on an H100: 7 MFLOP per row, far above the card's
+// flop-per-byte balance against device memory, but a block can keep only one
+// 64-row tile of activations in its 227 KB of shared memory, so every tile
+// streams all the weights (6.9 MB at the SRN widths) from L2. Fetched with
+// 4-byte loads straight into mma.sync fragments, one block per tile, those
+// loads alone take 86% of the kernel's 46 ms, and mma.sync fed from shared
+// memory by 4-byte loads does not go below 25 ms either (PERF.md). This
+// design:
+//
+// - One persistent block per SM walks the tiles. It has two consumer
+//   warpgroups and one producer warpgroup that never reconverge;
+//   setmaxnreg moves registers from the producer to the consumers.
+// - Tensor cores: wgmma m64nNk16, A and B both from shared memory in the
+//   128-byte swizzle, the sum in registers. The two consumer warpgroups
+//   split a layer's output columns; a warpgroup's half is NH slabs of NI
+//   columns (NI <= 128, 64 float32 registers a thread per slab).
+// - Weights: ops/fused_mlp.py lays every matrix out once per model as the
+//   sequence of (NI x 64) slabs the consumers walk, each slab already the
+//   swizzled shared-memory image. Lane 0 of the producer's first warp copies
+//   slab after slab into a ring of stages with one cp.async.bulk each; full
+//   and empty mbarriers order it against the consumers, which release a
+//   stage as soon as the wgmma group that read it has completed.
+// - The residual stream h lives in the consumers' registers (bf16 pairs, in
+//   the accumulator's layout: a thread always owns the same elements), so
+//   shared memory holds only what a product reads, and relu(h) and relu(net)
+//   are only ever read through the ReLU: the epilogue that writes them
+//   rectifies them, and both take turns in ONE activation buffer (a sync of
+//   the consumers between a product's last read and the next write).
+// - That leaves a buffer for the z tile of the injections (the latents, or
+//   kernel D's gather), filled by the producer's other three warps once per
+//   tile and a tile ahead, under the blocks that follow the last injection;
+//   in the TZ mode it holds one injection's slice, filled a block ahead.
+//   The x tile (64 columns, not 128) has its own buffer, a tile ahead too.
+//   Wout's 8 rows stay resident. At the SRN widths: activations 64 KB, z
+//   64 KB, x 8 KB, Wout 8 KB, ring 5 x 16 KB.
+//
+// What it is left waiting for: the weight stream. With the tensor cores'
+// work taken out the kernel takes the same time, half the grid takes twice
+// the time, and a thread block cluster whose blocks each fetch a part of
+// every slab and multicast it to the others (tried, 2 and 4 blocks) gains
+// nothing: an SM takes in ~65 GB/s of slabs whatever L2 is asked for, and a
+// 64-row tile needs all 6.9 MB. More rows per fetched byte need a block that
+// holds more than 64 rows of activations (PERF.md).
 #pragma once
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -29,331 +66,641 @@
 
 namespace {
 
-constexpr int T = 64;          // rows per block
-constexpr int WARPS = 8;
-constexpr int PAD = 8;         // bf16 padding per shared-memory row
-
 typedef __nv_bfloat16 bf16;
 
+constexpr int T = 64;                  // rows per tile: one wgmma M
+constexpr int CONSUMERS = 256;         // two warpgroups
+constexpr int FILLERS = 96;            // the producer warpgroup's warps 1-3
+constexpr int THREADS = CONSUMERS + 32 + FILLERS;
+constexpr int CHUNK = T * 128;         // bytes of a 64-row x 64-column chunk
+constexpr int MAX_STAGES = 8;
+constexpr int SMEM_LIMIT = 232448;     // dynamic shared memory a Hopper block may use
+constexpr int CONSUMER_REGS = 224;
+constexpr int PRODUCER_REGS = 56;
+
+// What the z buffer holds: the tile's z rows (given, or gathered by kernel D),
+// one injection's slice of the baked injections, or the z rows alone with
+// the MLP cut off (kernel D's probe).
+enum Mode { MODE_Z = 0, MODE_TZ = 1, MODE_PROBE = 2 };
+
 struct Params {
-  const bf16* x;     // (n, d_in)
-  const bf16* z;     // (n, d_z): the latents, or with Z_IS_TZ the injections
-  const bf16* win;   // (dh, d_in_pad)       torch (out, in) layout
-  const bf16* bin;   // (dh)
-  const bf16* wz;    // (n_lin_z*dh, d_z); unused with Z_IS_TZ
-  const bf16* bz;    // (n_lin_z*dh); unused with Z_IS_TZ
-  const bf16* w0;    // (n_blocks, dh, dh)
-  const bf16* b0;    // (n_blocks, dh)
-  const bf16* w1;    // (n_blocks, dh, dh)
-  const bf16* b1;    // (n_blocks, dh)
-  const bf16* wout;  // (>= 8, dh)
-  const bf16* bout;  // (>= 8)
-  float* out;        // (n, 4)
+  const bf16* x;      // (n, d_in)
+  const bf16* image;  // the tiled weights (ops/fused_mlp.py, tile_weights)
+  const bf16* bin;    // (dh)
+  const bf16* bz;     // (n_lin_z*dh); unused in the TZ mode
+  const bf16* b0;     // (n_blocks, dh)
+  const bf16* b1;     // (n_blocks, dh)
+  const bf16* wout;   // (>= 8, dh)
+  const bf16* bout;   // (>= 8)
+  float* out;         // (n, 4)
   int64_t n;
-  int d_in, d_in_pad, d_z, dh, n_blocks, n_lin_z;
+  int d_in, kx;       // x columns, and their count rounded up to 64
+  int zw;             // width of the z tile: d_z, or dh in the TZ mode
+  int dh, n_blocks, n_lin_z, stages;
 };
 
-// The block's tiles in dynamic shared memory; sz is null without a z tile.
-struct Tiles {
-  bf16* sx;
-  bf16* sz;
-  bf16* sh;
-  bf16* snet;
-  int ldx, ldz, ldh;
+// Byte offsets of the block's buffers from the 1024-aligned base.
+struct Layout {
+  int act, z, x, wout, ring, bars, total;
 };
 
-__host__ __device__ inline size_t mlp_smem_bytes(int d_in_pad, int d_z, int d_hidden,
-                                                 bool z_tile) {
-  return sizeof(bf16) * (size_t)T *
-         ((d_in_pad + PAD) + (z_tile ? (d_z + PAD) : 0) + 2 * (size_t)(d_hidden + PAD));
+__host__ __device__ inline Layout layout_of(int kx, int zw, int dh, int ni, int stages) {
+  Layout l;
+  l.act = 0;
+  l.z = 128 * dh;
+  l.x = l.z + 128 * zw;
+  l.wout = l.x + 128 * kx;
+  l.ring = l.wout + ((16 * dh + 1023) / 1024) * 1024;
+  l.bars = l.ring + stages * ni * 128;
+  l.total = l.bars + 256 + 1024;       // barriers; slack to align the base
+  return l;
 }
 
-__device__ __forceinline__ Tiles carve_tiles(const Params& p, void* smem, bool z_tile) {
-  Tiles t;
-  t.ldx = p.d_in_pad + PAD;
-  t.ldz = p.d_z + PAD;
-  t.ldh = p.dh + PAD;
-  t.sx = reinterpret_cast<bf16*>(smem);
-  bf16* next = t.sx + T * t.ldx;
-  t.sz = nullptr;
-  if (z_tile) {
-    t.sz = next;
-    next += T * t.ldz;
-  }
-  t.sh = next;
-  t.snet = t.sh + T * t.ldh;
-  return t;
+// Columns of a weight slab: half of dh, at most 128.
+__host__ __device__ inline int slab_columns(int dh) { return dh / 2 < 128 ? dh / 2 : 128; }
+
+// Ring stages that fit beside the activations; 0 for widths the body is not
+// built for (the launchers instantiate dh 64, 128, 256, 512; the tiles are
+// whole 64-column chunks) or that do not fit.
+inline int stages_that_fit(int kx, int zw, int dh) {
+  if (dh != 64 && dh != 128 && dh != 256 && dh != 512) return 0;
+  if (kx < 64 || zw < 64 || kx % 64 || zw % 64) return 0;
+  const int ni = slab_columns(dh);
+  int stages = (SMEM_LIMIT - layout_of(kx, zw, dh, ni, 0).total) / (ni * 128);
+  if (stages > MAX_STAGES) stages = MAX_STAGES;
+  return stages < 2 ? 0 : stages;
 }
 
-__device__ __forceinline__ uint32_t ld_smem32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+// Shared memory of the block at these widths, 0 if stages_that_fit refuses them.
+inline size_t body_smem_bytes(int kx, int zw, int dh) {
+  const int stages = stages_that_fit(kx, zw, dh);
+  return stages ? layout_of(kx, zw, dh, slab_columns(dh), stages).total : 0;
 }
 
-__device__ __forceinline__ uint32_t ld_global32(const bf16* p) {
-  return __ldg(reinterpret_cast<const unsigned int*>(p));
+// ---- PTX: barriers, bulk copies, fences -------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ uint32_t relu2(uint32_t v) {
-  __nv_bfloat162 h = *reinterpret_cast<__nv_bfloat162*>(&v);
-  h = __hmax2(h, __float2bfloat162_rn(0.0f));
-  return *reinterpret_cast<uint32_t*>(&h);
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
 }
 
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4], const uint32_t b[2]) {
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+// Wait until the phase of parity `parity` has completed. A new barrier is in
+// phase 0: waiting for parity 1 passes at once, for parity 0 blocks.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
 }
 
-// bf16(bf16(acc) + bias): the dense layer's rounding contract.
-__device__ __forceinline__ float dense_round(float acc, bf16 bias) {
-  const float y = __bfloat162float(__float2bfloat16_rn(acc));
-  return __bfloat162float(__float2bfloat16_rn(__fadd_rn(y, __bfloat162float(bias))));
+// generic-proxy writes to shared memory made visible to wgmma's reads
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
-// bf16 add of two bf16 values held as floats.
-__device__ __forceinline__ float bf16_add(float a, float b) {
-  return __bfloat162float(__float2bfloat16_rn(__fadd_rn(a, b)));
+__device__ __forceinline__ void consumer_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(CONSUMERS) : "memory");
 }
 
-// One warp: C[0:64, n0:n0+8*NT] = A[0:64, 0:K] . Wt[n0:n0+8*NT, 0:K]^T, with A
-// in shared memory (row stride lda, relu applied on load if RELU) and Wt in
-// global memory (row stride ldw). Calls epi(row, col, v_col, v_col+1) on
-// each pair of adjacent output columns.
-template <bool RELU, int NT, typename Epi>
-__device__ __forceinline__ void warp_gemm(const bf16* A, int lda, int K, const bf16* Wt,
-                                          int ldw, int n0, Epi epi) {
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  float acc[4][NT][4];
-#pragma unroll
-  for (int m = 0; m < 4; ++m)
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[m][j][e] = 0.0f;
+// ---- PTX: wgmma -------------------------------------------------------
 
-  for (int k0 = 0; k0 < K; k0 += 16) {
-    uint32_t b[NT][2];
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      const bf16* bp = Wt + (int64_t)(n0 + j * 8 + g) * ldw + k0 + 2 * t;
-      b[j][0] = ld_global32(bp);
-      b[j][1] = ld_global32(bp + 8);
-    }
-#pragma unroll
-    for (int m = 0; m < 4; ++m) {
-      const bf16* ap = A + (m * 16 + g) * lda + k0 + 2 * t;
-      uint32_t a[4];
-      a[0] = ld_smem32(ap);
-      a[1] = ld_smem32(ap + 8 * lda);
-      a[2] = ld_smem32(ap + 8);
-      a[3] = ld_smem32(ap + 8 * lda + 8);
-      if (RELU) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) a[e] = relu2(a[e]);
-      }
-#pragma unroll
-      for (int j = 0; j < NT; ++j) mma_bf16(acc[m][j], a, b[j]);
-    }
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Descriptor of a K-major operand in the 128-byte swizzle: rows of 128 bytes
+// (64 bf16 of K), 8-row groups 1024 bytes apart. The k-th 16-column step of
+// a chunk starts 32 bytes, i.e. 2 address units, further.
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) | (1ull << 62);
+}
+
+// D (64 x N, float32 in registers) = or += A (64 x 16) . B (N x 16)^T
+template <int N>
+struct Wgmma;
+
+template <>
+struct Wgmma<8> {
+  static __device__ __forceinline__ void mma(float (&d)[4], uint64_t da, uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3}, "
+        "%4, %5, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "l"(da), "l"(db), "r"(scale_d));
   }
+};
+
+template <>
+struct Wgmma<32> {
+  static __device__ __forceinline__ void mma(float (&d)[16], uint64_t da, uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "%16, %17, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
+};
+
+template <>
+struct Wgmma<64> {
+  static __device__ __forceinline__ void mma(float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "%32, %33, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
+};
+
+template <>
+struct Wgmma<128> {
+  static __device__ __forceinline__ void mma(float (&d)[64], uint64_t da, uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "%64, %65, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
+};
+
+// keep the compiler from moving reads of a wgmma's sums above its wait
+template <int N>
+__device__ __forceinline__ void fence_registers(float (&d)[N]) {
 #pragma unroll
-  for (int m = 0; m < 4; ++m)
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      const int row = m * 16 + g;
-      const int col = n0 + j * 8 + 2 * t;
-      epi(row, col, acc[m][j][0], acc[m][j][1]);
-      epi(row + 8, col, acc[m][j][2], acc[m][j][3]);
-    }
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-__device__ __forceinline__ float2 ld_pair(const bf16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+// ---- the rounding contract --------------------------------------------
+//
+// The sum of two bf16 values is exact in float32 unless their exponents lie
+// 17 or more apart, and then neither rounding can move it off the larger
+// one; so one add.rn.bf16x2 equals the float32 add followed by the rounding
+// to bf16 that the plain version makes, bit for bit.
+
+typedef __nv_bfloat162 bf162;
+
+__device__ __forceinline__ bf162 as_bf162(uint32_t u) { return *reinterpret_cast<bf162*>(&u); }
+__device__ __forceinline__ uint32_t as_u32(bf162 v) { return *reinterpret_cast<uint32_t*>(&v); }
+
+// bf16(bf16(acc) + bias) on two adjacent columns: the dense layer's
+// rounding contract.
+__device__ __forceinline__ bf162 dense_round(float acc0, float acc1, bf162 bias) {
+  return __hadd2(__floats2bfloat162_rn(acc0, acc1), bias);
 }
 
-__device__ __forceinline__ void st_pair(bf16* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+__device__ __forceinline__ uint32_t relu2(bf162 v) {
+  return as_u32(__hmax2(v, __float2bfloat162_rn(0.0f)));
 }
 
-// x tile, zero-padded to d_in_pad columns and past the last row
-__device__ __forceinline__ void fill_x_tile(const Params& p, const Tiles& t, int64_t row0) {
-  for (int i = threadIdx.x; i < T * p.d_in_pad; i += WARPS * 32) {
-    const int r = i / p.d_in_pad, c = i % p.d_in_pad;
+// two adjacent bf16 (a bias pair, 4-byte aligned)
+__device__ __forceinline__ bf162 ld_pair(const bf16* p) {
+  return as_bf162(__ldg(reinterpret_cast<const unsigned int*>(p)));
+}
+
+// ---- tiles in shared memory -------------------------------------------
+
+// Byte offset of the 16-byte unit `cu` (columns 8cu..8cu+7) of row `r` in a
+// 64-row tile: 64-column chunks of CHUNK bytes, rows of 128 bytes, the
+// unit's place in its row XOR-ed with the row (the 128-byte swizzle).
+__device__ __forceinline__ int swz_unit(int r, int cu) {
+  return (cu >> 3) * CHUNK + r * 128 + (((cu & 7) ^ (r & 7)) << 4);
+}
+
+// x tile, zero-padded to kx columns and past the last row
+__device__ __forceinline__ void fill_x_tile(const Params& p, uint8_t* xs, int64_t row0, int ft) {
+  for (int i = ft; i < T * p.kx; i += FILLERS) {
+    const int r = i / p.kx, c = i % p.kx;
     bf16 v = __float2bfloat16_rn(0.0f);
     if (row0 + r < p.n && c < p.d_in) v = p.x[(row0 + r) * p.d_in + c];
-    t.sx[r * t.ldx + c] = v;
+    *reinterpret_cast<bf16*>(xs + swz_unit(r, c >> 3) + (c & 7) * 2) = v;
   }
 }
 
-// z tile from global memory, 16-byte vectors, zero past the last row
-__device__ __forceinline__ void fill_z_tile(const Params& p, const Tiles& t, int64_t row0) {
-  const int zv = p.d_z / 8;
-  for (int i = threadIdx.x; i < T * zv; i += WARPS * 32) {
-    const int r = i / zv, c8 = i % zv;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < p.n)
-      v = __ldg(reinterpret_cast<const uint4*>(p.z + (row0 + r) * p.d_z) + c8);
-    *reinterpret_cast<uint4*>(t.sz + r * t.ldz + c8 * 8) = v;
+// A tile of `width` columns of the rows row0.. of src (row stride ld), by
+// 16-byte vectors, zero past the last row. Each thread starts LOADS loads
+// before it uses the first, so the tile arrives at the rate of the memory,
+// not at its latency.
+__device__ __forceinline__ void fill_tile_rows(const bf16* src, int64_t ld, int width, int64_t row0,
+                                               int64_t n, uint8_t* dst, int ft) {
+  constexpr int LOADS = 8;
+  const int units = width / 8;
+  const int total = T * units;
+  for (int i0 = ft; i0 < total; i0 += FILLERS * LOADS) {
+    uint4 raw[LOADS];
+#pragma unroll
+    for (int u = 0; u < LOADS; ++u) {
+      const int i = i0 + u * FILLERS;
+      const int r = i / units, cu = i % units;
+      raw[u] = make_uint4(0u, 0u, 0u, 0u);
+      if (i < total && row0 + r < n)
+        raw[u] = __ldg(reinterpret_cast<const uint4*>(src + (row0 + r) * ld) + cu);
+    }
+#pragma unroll
+    for (int u = 0; u < LOADS; ++u) {
+      const int i = i0 + u * FILLERS;
+      if (i < total) *reinterpret_cast<uint4*>(dst + swz_unit(i / units, i % units)) = raw[u];
+    }
   }
 }
 
-// The MLP on the block's tile, after the x tile (and, without Z_IS_TZ, the
-// z tile) is filled and the block has synchronised.
-template <bool Z_IS_TZ>
-__device__ __forceinline__ void mlp_chain(const Params& p, const Tiles& t, int64_t row0) {
-  bf16* sh = t.sh;
-  bf16* snet = t.snet;
-  const int ldh = t.ldh;
+// ---- the consumers' pieces --------------------------------------------
+
+// A consumer warpgroup's view of the weight ring: it takes every second
+// slab, starting with its own index. With an odd number of stages a stage
+// serves the two warpgroups in turn.
+struct Ring {
+  uint32_t full, empty, data;   // shared-memory addresses: barriers, stages
+  int stages, stage;
+  uint32_t phase;
+};
+
+// acc = A . W^T for this warpgroup's NH slabs of NI columns: A (64 rows,
+// 64*kchunks columns) at shared address a_addr, the slabs from the ring in
+// the order (slab of columns, chunk of K). A stage goes back to the producer
+// as soon as the wgmma group that read it has completed: the ring's refill,
+// not the tensor cores, is what the kernel waits for, so the short drain of
+// the tensor pipe between slabs costs nothing and the earlier refill gains.
+// Each of the four warps reports its own completion (`first`: the warp's
+// lane 0), so a warp that lags never finds a stage, or the A tile, refilled
+// under it.
+//
+// A wait on a barrier's parity is sound only while the waiter cannot be a
+// whole phase ahead of the barrier. On a stage that serves the warpgroups in
+// turn, the one that runs ahead (the other's slab came late, from device
+// memory) would wait for the stage's next fill before its present fill has
+// completed, and pass. So a warpgroup first waits until the stage's fill
+// before its own has been released (the fill before that was its own), and
+// only then for its own fill.
+template <int NI, int NH>
+__device__ __forceinline__ void product(float (&acc)[NH][NI / 2], uint32_t a_addr, int kchunks,
+                                        Ring& rg, bool first) {
+#pragma unroll
+  for (int nh = 0; nh < NH; ++nh) {
+    for (int kc = 0; kc < kchunks; ++kc) {
+      mbar_wait(rg.empty + 8 * rg.stage, rg.phase ^ 1);
+      mbar_wait(rg.full + 8 * rg.stage, rg.phase);
+      wgmma_fence();
+      const uint64_t da = make_desc(a_addr + kc * CHUNK);
+      const uint64_t db = make_desc(rg.data + rg.stage * (NI * 128));
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        Wgmma<NI>::mma(acc[nh], da + 2 * kk, db + 2 * kk, (kc | kk) != 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      if (first) mbar_arrive(rg.empty + 8 * rg.stage);
+      rg.stage += 2;
+      if (rg.stage >= rg.stages) {
+        rg.stage -= rg.stages;
+        rg.phase ^= 1;
+      }
+    }
+  }
+#pragma unroll
+  for (int nh = 0; nh < NH; ++nh) fence_registers(acc[nh]);
+}
+
+// Where a consumer thread's elements lie. Its sums acc[nh][4j + 2*half + e]
+// are row row_a + 8*half, column col0 + nh*NI + 8j + e; in a shared-memory
+// tile that pair is 4 bytes at unit_off(nh, j) + 1024*half.
+template <int NI, int NH>
+struct Place {
+  int col0, cu0, r7, rowoff;
+  __device__ __forceinline__ Place(int wg, int row_a, int lane)
+      : col0(wg * NH * NI + 2 * (lane & 3)), cu0(wg * NH * NI / 8), r7(row_a & 7),
+        rowoff(row_a * 128 + (lane & 3) * 4) {}
+  __device__ __forceinline__ int unit_off(int nh, int j) const {
+    const int cu = cu0 + nh * (NI / 8) + j;
+    return (cu >> 3) * CHUNK + (((cu & 7) ^ r7) << 4) + rowoff;
+  }
+};
+
+enum Epilogue { EPI_SET, EPI_ADD, EPI_NET };
+
+// The epilogue of a product, y = bf16(bf16(acc) + bias) per element:
+// EPI_SET: h = y;  EPI_ADD: h = bf16(h + y);  EPI_NET: tile = relu(y).
+template <int NI, int NH, int EPI>
+__device__ __forceinline__ void epilogue(float (&acc)[NH][NI / 2], uint32_t (&h)[NH][NI / 8][2],
+                                         const bf16* bias, const Place<NI, NH>& pl, uint8_t* tile) {
+#pragma unroll
+  for (int nh = 0; nh < NH; ++nh) {
+#pragma unroll
+    for (int j = 0; j < NI / 8; ++j) {
+      const bf162 b = ld_pair(bias + pl.col0 + nh * NI + 8 * j);
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const bf162 y = dense_round(acc[nh][4 * j + 2 * half], acc[nh][4 * j + 2 * half + 1], b);
+        if constexpr (EPI == EPI_SET) {
+          h[nh][j][half] = as_u32(y);
+        } else if constexpr (EPI == EPI_ADD) {
+          h[nh][j][half] = as_u32(__hadd2(as_bf162(h[nh][j][half]), y));
+        } else {
+          *reinterpret_cast<uint32_t*>(tile + pl.unit_off(nh, j) + 1024 * half) = relu2(y);
+        }
+      }
+    }
+  }
+}
+
+// tile = relu(h)
+template <int NI, int NH>
+__device__ __forceinline__ void store_relu(const uint32_t (&h)[NH][NI / 8][2],
+                                           const Place<NI, NH>& pl, uint8_t* tile) {
+#pragma unroll
+  for (int nh = 0; nh < NH; ++nh)
+#pragma unroll
+    for (int j = 0; j < NI / 8; ++j)
+#pragma unroll
+      for (int half = 0; half < 2; ++half)
+        *reinterpret_cast<uint32_t*>(tile + pl.unit_off(nh, j) + 1024 * half) =
+            relu2(as_bf162(h[nh][j][half]));
+}
+
+// h = bf16(h + tile)
+template <int NI, int NH>
+__device__ __forceinline__ void add_tile(uint32_t (&h)[NH][NI / 8][2], const Place<NI, NH>& pl,
+                                         const uint8_t* tile) {
+#pragma unroll
+  for (int nh = 0; nh < NH; ++nh)
+#pragma unroll
+    for (int j = 0; j < NI / 8; ++j)
+#pragma unroll
+      for (int half = 0; half < 2; ++half)
+        h[nh][j][half] = as_u32(__hadd2(
+            as_bf162(h[nh][j][half]),
+            as_bf162(*reinterpret_cast<const uint32_t*>(tile + pl.unit_off(nh, j) + 1024 * half))));
+}
+
+// ---- the block --------------------------------------------------------
+
+// The whole kernel body. NI, NH: a warpgroup's columns are NH slabs of NI
+// (dh = 2*NH*NI). MODE: what the z buffer holds (Mode). fill(inj, row0, dst,
+// ft) is called by the 96 filler threads (ft = 0..95) and writes the z tile
+// of the rows from row0 (in the TZ mode: the slice of injection `inj`) into
+// dst, 64 rows in the swizzled layout of swz_unit, zero past the last row.
+// In MODE_PROBE only the z tile is filled and its first 4 columns are
+// written to out.
+template <int NI, int NH, int MODE, typename Fill>
+__device__ __forceinline__ void mlp_block(const Params& p, const Fill& fill) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const Layout L = layout_of(p.kx, p.zw, p.dh, NI, p.stages);
+  const uint32_t sbase = smem_u32(base);
+  const uint32_t wfull = sbase + L.bars, wempty = wfull + 8 * MAX_STAGES;
+  const uint32_t xfull = wempty + 8 * MAX_STAGES, xempty = xfull + 8;
+  const uint32_t zfull = xfull + 16, zempty = xfull + 24;
   const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int dh = p.dh;
-  const int n_chunks = dh / 32;
+  constexpr bool PROBE = MODE == MODE_PROBE;
 
-  // h = x.Win + bin
-  for (int ch = warp; ch < n_chunks; ch += WARPS) {
-    warp_gemm<false, 4>(t.sx, t.ldx, p.d_in_pad, p.win, p.d_in_pad, ch * 32,
-                        [&](int r, int c, float v0, float v1) {
-                          st_pair(sh + r * ldh + c, dense_round(v0, p.bin[c]),
-                                  dense_round(v1, p.bin[c + 1]));
-                        });
+  if (tid == 0) {
+    for (int s = 0; s < p.stages; ++s) {
+      mbar_init(wfull + 8 * s, 1);
+      mbar_init(wempty + 8 * s, 4);
+    }
+    mbar_init(xfull, FILLERS);
+    mbar_init(xempty, CONSUMERS / 32);
+    mbar_init(zfull, FILLERS);
+    mbar_init(zempty, MODE == MODE_TZ ? CONSUMERS : CONSUMERS / 32);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  // Wout's first 8 rows stay in shared memory for the whole kernel
+  const int units = p.dh / 8;
+  for (int i = tid; i < 8 * units; i += THREADS) {
+    const int r = i / units, cu = i % units;
+    *reinterpret_cast<uint4*>(base + L.wout + (cu >> 3) * 1024 + r * 128 + (((cu & 7) ^ r) << 4)) =
+        __ldg(reinterpret_cast<const uint4*>(p.wout + r * p.dh) + cu);
+  }
+  fence_proxy_async();
   __syncthreads();
 
-  for (int blk = 0; blk < p.n_blocks; ++blk) {
-    if (blk < p.n_lin_z) {
-      if constexpr (Z_IS_TZ) {
-        // h += tz[:, blk*dh:(blk+1)*dh], each slice read once from global
-        // memory, 16-byte vectors; rows past the last are left alone. Each
-        // thread issues TZ_LOADS loads before it uses the first: with one
-        // load in flight per thread the slice arrives at the latency of
-        // device memory, not at its rate.
-        constexpr int TZ_LOADS = 8;
-        const int hv = dh / 8;
-        for (int i0 = tid; i0 < T * hv; i0 += WARPS * 32 * TZ_LOADS) {
-          uint4 raw[TZ_LOADS];
-#pragma unroll
-          for (int u = 0; u < TZ_LOADS; ++u) {
-            const int i = i0 + u * WARPS * 32;
-            const int r = i / hv, c8 = i % hv;
-            raw[u] = make_uint4(0u, 0u, 0u, 0u);
-            if (i < T * hv && row0 + r < p.n)
-              raw[u] = __ldg(
-                  reinterpret_cast<const uint4*>(p.z + (row0 + r) * p.d_z + (int64_t)blk * dh) + c8);
-          }
-#pragma unroll
-          for (int u = 0; u < TZ_LOADS; ++u) {
-            const int i = i0 + u * WARPS * 32;
-            const int r = i / hv, c8 = i % hv;
-            if (i >= T * hv || row0 + r >= p.n) continue;
-            const __nv_bfloat162* tz = reinterpret_cast<const __nv_bfloat162*>(&raw[u]);
-            bf16* hp = sh + r * ldh + c8 * 8;
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              const float2 h = ld_pair(hp + 2 * e);
-              const float2 v = __bfloat1622float2(tz[e]);
-              st_pair(hp + 2 * e, bf16_add(h.x, v.x), bf16_add(h.y, v.y));
+  // the block walks the tiles blockIdx.x, blockIdx.x + gridDim.x, ...
+  const int64_t n_tiles = (p.n + T - 1) / T;
+  const int iters = (int)((n_tiles - blockIdx.x + gridDim.x - 1) / gridDim.x);
+
+  if (tid >= CONSUMERS) {
+    // ======== producer warpgroup ========
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
+    const int pt = tid - CONSUMERS;
+    if (pt < 32) {
+      if (pt == 0 && !PROBE) {
+        // the weight ring: every tile takes the whole image, slab by slab
+        const uint32_t slab = NI * 128;
+        const int wz_chunks = MODE == MODE_TZ ? 0 : p.n_lin_z * (p.zw / 64);
+        const int slabs = 2 * NH * (p.kx / 64 + wz_chunks + 2 * p.n_blocks * (p.dh / 64));
+        int stage = 0;
+        uint32_t phase = 1;
+        for (int it = 0; it < iters; ++it) {
+          const uint8_t* src = reinterpret_cast<const uint8_t*>(p.image);
+          for (int s = 0; s < slabs; ++s, src += slab) {
+            mbar_wait(wempty + 8 * stage, phase);
+            mbar_expect_tx(wfull + 8 * stage, slab);
+            bulk_copy(sbase + L.ring + stage * slab, src, slab, wfull + 8 * stage);
+            if (++stage == p.stages) {
+              stage = 0;
+              phase ^= 1;
             }
           }
         }
-      } else {
-        // h += z.Wz[:, blk*dh:(blk+1)*dh] + bz[blk*dh:(blk+1)*dh]
-        const bf16* wz = p.wz + (int64_t)blk * dh * p.d_z;
-        const bf16* bz = p.bz + blk * dh;
-        for (int ch = warp; ch < n_chunks; ch += WARPS) {
-          warp_gemm<false, 4>(t.sz, t.ldz, p.d_z, wz, p.d_z, ch * 32,
-                              [&](int r, int c, float v0, float v1) {
-                                bf16* hp = sh + r * ldh + c;
-                                const float2 h = ld_pair(hp);
-                                st_pair(hp, bf16_add(h.x, dense_round(v0, bz[c])),
-                                        bf16_add(h.y, dense_round(v1, bz[c + 1])));
-                              });
+      }
+    } else {
+      // the x tile and the tile of the injections a tile ahead (in the TZ
+      // mode a slice per injection, a block ahead)
+      const int ft = pt - 32;
+      const int fills = MODE == MODE_TZ ? p.n_lin_z : 1;
+      uint32_t ph_x = 1, ph_z = 1;
+      for (int it = 0; it < iters; ++it) {
+        const int64_t row0 = ((int64_t)it * gridDim.x + blockIdx.x) * T;
+        if (!PROBE) {
+          mbar_wait(xempty, ph_x);
+          ph_x ^= 1;
+          fill_x_tile(p, base + L.x, row0, ft);
+          fence_proxy_async();
+          mbar_arrive(xfull);
+        }
+        for (int inj = 0; inj < fills; ++inj) {
+          mbar_wait(zempty, ph_z);
+          ph_z ^= 1;
+          fill(inj, row0, base + L.z, ft);
+          fence_proxy_async();
+          mbar_arrive(zfull);
         }
       }
-      __syncthreads();
     }
-    // net = relu(h).W0 + b0
-    const bf16* w0 = p.w0 + (int64_t)blk * dh * dh;
-    const bf16* b0 = p.b0 + blk * dh;
-    for (int ch = warp; ch < n_chunks; ch += WARPS) {
-      warp_gemm<true, 4>(sh, ldh, dh, w0, dh, ch * 32,
-                         [&](int r, int c, float v0, float v1) {
-                           st_pair(snet + r * ldh + c, dense_round(v0, b0[c]),
-                                   dense_round(v1, b0[c + 1]));
-                         });
+  } else {
+    // ======== consumer warpgroups ========
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
+    const int wg = tid >> 7, wtid = tid & 127, lane = tid & 31;
+    const bool first = lane == 0;     // reports for its warp
+    const int row_a = (wtid >> 5) * 16 + (lane >> 2);
+    uint32_t ph_z = 0;
+    if constexpr (PROBE) {
+      for (int it = 0; it < iters; ++it) {
+        const int64_t row0 = ((int64_t)it * gridDim.x + blockIdx.x) * T;
+        mbar_wait(zfull, ph_z);
+        ph_z ^= 1;
+        const int r = tid >> 2, c = tid & 3;
+        if (row0 + r < p.n)
+          p.out[(row0 + r) * 4 + c] =
+              __bfloat162float(*reinterpret_cast<const bf16*>(base + L.z + swz_unit(r, 0) + c * 2));
+        consumer_sync();
+        if (first) mbar_arrive(zempty);
+      }
+    } else {
+      float acc[NH][NI / 2];
+      uint32_t h[NH][NI / 8][2];     // the residual stream, bf16 pairs
+      const Place<NI, NH> pl(wg, row_a, lane);
+      Ring rg = {wfull, wempty, sbase + L.ring, p.stages, wg, 0u};
+      uint8_t* const act = base + L.act;       // relu(h), then relu(net): what a product reads
+      const uint8_t* const ztile = base + L.z;
+      const uint32_t act_addr = sbase + L.act, z_addr = sbase + L.z;
+      const int hc = p.dh / 64;
+      uint32_t ph_x = 0;
+      for (int it = 0; it < iters; ++it) {
+        const int64_t row0 = ((int64_t)it * gridDim.x + blockIdx.x) * T;
+        // h = x.Win + bin
+        mbar_wait(xfull, ph_x);
+        ph_x ^= 1;
+        product<NI, NH>(acc, sbase + L.x, p.kx / 64, rg, first);
+        if (first) mbar_arrive(xempty);
+        epilogue<NI, NH, EPI_SET>(acc, h, p.bin, pl, nullptr);
+        for (int blk = 0; blk < p.n_blocks; ++blk) {
+          if (blk < p.n_lin_z) {
+            if constexpr (MODE == MODE_TZ) {
+              // h += tz[:, blk*dh:(blk+1)*dh], a slice per injection
+              mbar_wait(zfull, ph_z);
+              ph_z ^= 1;
+              add_tile<NI, NH>(h, pl, ztile);
+              mbar_arrive(zempty);
+            } else {
+              // h += z.Wz[:, blk*dh:(blk+1)*dh] + bz, from the tile's one z tile
+              if (blk == 0) {
+                mbar_wait(zfull, ph_z);
+                ph_z ^= 1;
+              }
+              product<NI, NH>(acc, z_addr, p.zw / 64, rg, first);
+              if (blk == p.n_lin_z - 1 && first) mbar_arrive(zempty);
+              epilogue<NI, NH, EPI_ADD>(acc, h, p.bz + blk * p.dh, pl, nullptr);
+            }
+          }
+          // net = relu(h).W0 + b0; each sync: the product before has read
+          // the buffer in both warpgroups, or the epilogue has written it
+          consumer_sync();
+          store_relu<NI, NH>(h, pl, act);
+          fence_proxy_async();
+          consumer_sync();
+          product<NI, NH>(acc, act_addr, hc, rg, first);
+          consumer_sync();
+          epilogue<NI, NH, EPI_NET>(acc, h, p.b0 + blk * p.dh, pl, act);
+          fence_proxy_async();
+          consumer_sync();
+          // h += relu(net).W1 + b1
+          product<NI, NH>(acc, act_addr, hc, rg, first);
+          epilogue<NI, NH, EPI_ADD>(acc, h, p.b1 + blk * p.dh, pl, nullptr);
+        }
+        // out = relu(h).Wout + bout, columns 0..3 of one 8-wide wgmma
+        consumer_sync();
+        store_relu<NI, NH>(h, pl, act);
+        fence_proxy_async();
+        consumer_sync();
+        if (wg == 0) {
+          float o[4];
+          wgmma_fence();
+          for (int kc = 0; kc < hc; ++kc) {
+            const uint64_t da = make_desc(act_addr + kc * CHUNK);
+            const uint64_t db = make_desc(sbase + L.wout + kc * 1024);
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk) Wgmma<8>::mma(o, da + 2 * kk, db + 2 * kk, (kc | kk) != 0);
+          }
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_registers(o);
+          const int c = 2 * (lane & 3);
+          if (c < 4) {
+            const bf162 b = ld_pair(p.bout + c);
+#pragma unroll
+            for (int half = 0; half < 2; ++half) {
+              const int64_t row = row0 + row_a + 8 * half;
+              if (row < p.n)
+                *reinterpret_cast<float2*>(p.out + row * 4 + c) =
+                    __bfloat1622float2(dense_round(o[2 * half], o[2 * half + 1], b));
+            }
+          }
+        }
+      }
     }
-    __syncthreads();
-    // h += relu(net).W1 + b1
-    const bf16* w1 = p.w1 + (int64_t)blk * dh * dh;
-    const bf16* b1 = p.b1 + blk * dh;
-    for (int ch = warp; ch < n_chunks; ch += WARPS) {
-      warp_gemm<true, 4>(snet, ldh, dh, w1, dh, ch * 32,
-                         [&](int r, int c, float v0, float v1) {
-                           bf16* hp = sh + r * ldh + c;
-                           const float2 h = ld_pair(hp);
-                           st_pair(hp, bf16_add(h.x, dense_round(v0, b1[c])),
-                                   bf16_add(h.y, dense_round(v1, b1[c + 1])));
-                         });
-    }
-    __syncthreads();
-  }
-
-  // out = relu(h).Wout + bout, columns 0..3 of one 8-wide tile
-  if (warp == 0) {
-    warp_gemm<true, 1>(sh, ldh, dh, p.wout, dh, 0,
-                       [&](int r, int c, float v0, float v1) {
-                         const int64_t row = row0 + r;
-                         if (row < p.n && c < 4) {
-                           p.out[row * 4 + c] = dense_round(v0, p.bout[c]);
-                           p.out[row * 4 + c + 1] = dense_round(v1, p.bout[c + 1]);
-                         }
-                       });
   }
 }
 
-// The weight and shape arguments every entry point takes, into a Params.
-inline Params make_params(const void* x, const void* z, const void* win, const void* bin,
-                          const void* wz, const void* bz, const void* w0, const void* b0,
-                          const void* w1, const void* b1, const void* wout, const void* bout,
-                          void* out, int64_t n, int d_in, int d_in_pad, int d_z, int d_hidden,
-                          int n_blocks, int n_lin_z) {
-  Params p;
-  p.x = static_cast<const bf16*>(x);
-  p.z = static_cast<const bf16*>(z);
-  p.win = static_cast<const bf16*>(win);
-  p.bin = static_cast<const bf16*>(bin);
-  p.wz = static_cast<const bf16*>(wz);
-  p.bz = static_cast<const bf16*>(bz);
-  p.w0 = static_cast<const bf16*>(w0);
-  p.b0 = static_cast<const bf16*>(b0);
-  p.w1 = static_cast<const bf16*>(w1);
-  p.b1 = static_cast<const bf16*>(b1);
-  p.wout = static_cast<const bf16*>(wout);
-  p.bout = static_cast<const bf16*>(bout);
-  p.out = static_cast<float*>(out);
-  p.n = n;
-  p.d_in = d_in;
-  p.d_in_pad = d_in_pad;
-  p.d_z = d_z;
-  p.dh = d_hidden;
-  p.n_blocks = n_blocks;
-  p.n_lin_z = n_lin_z;
-  return p;
-}
+// ---- host side --------------------------------------------------------
 
-// Launch `kernel` with one block per T rows and `smem` bytes of dynamic
-// shared memory; returns cudaGetLastError() after the launch (0 = success).
+// Launch `kernel` (a __global__ instance of mlp_block) as a persistent grid,
+// one block per SM or per tile if there are fewer. Returns the CUDA error of
+// the launch (0 = success).
 template <typename Kernel, typename... Args>
-int launch_tiles(Kernel kernel, size_t smem, int64_t n, cudaStream_t stream, Args... args) {
-  if (n == 0) return 0;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+int launch_mlp(Kernel kernel, const Params& p, cudaStream_t stream, Args... args) {
+  if (p.n == 0) return 0;
+  const int smem = layout_of(p.kx, p.zw, p.dh, slab_columns(p.dh), p.stages).total;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  const int64_t blocks = (n + T - 1) / T;
-  kernel<<<(unsigned)blocks, WARPS * 32, smem, stream>>>(args...);
+  int dev = 0, sms = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return (int)err;
+  const int64_t n_tiles = (p.n + T - 1) / T;
+  const unsigned blocks = (unsigned)(n_tiles < sms ? n_tiles : sms);
+  kernel<<<blocks, THREADS, smem, stream>>>(args...);
   return (int)cudaGetLastError();
 }
 

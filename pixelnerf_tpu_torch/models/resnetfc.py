@@ -12,9 +12,12 @@ rounded to ``dtype`` before the ``dtype`` bias add, as ``nn.Dense(dtype=...)``
 does. With ``fast=True`` and the kernel's gate met (bf16, single view,
 a latent) the whole MLP is one launch of the
 fused kernel (``ops/fused_mlp.py``); otherwise the dense chain below runs,
-as the JAX package leaves that case to XLA. With ``z_pretransformed`` the
-latent already holds the injections (a baked encoding), and with ``gather=``
-the latents are gathered inside the kernel (``ops/fused_field.py``).
+as the JAX package leaves that case to XLA. On the card the kernel is built
+for ``d_hidden`` 64, 128, 256 or 512 and a latent in multiples of 64: other
+widths with ``fast=True`` raise there, they do not fall back to the chain.
+With ``z_pretransformed`` the latent already holds the injections (a baked
+encoding), and with ``gather=`` the latents are gathered inside the kernel
+(``ops/fused_field.py``).
 """
 from __future__ import annotations
 
@@ -71,6 +74,9 @@ class ResnetFC(nn.Module):
         return min(self.combine_layer, self.n_blocks) if self.d_latent > 0 else 0
 
     def _can_use_kernel(self, single_view: bool) -> bool:
+        """The fused kernel's gate: bf16, a latent and a single view, as in
+        the JAX package. Widths play no part in it: on the card a width the
+        kernel is not built for raises in the kernel's wrapper."""
         return self.d_latent > 0 and single_view and self.dtype == torch.bfloat16
 
     def _dense(self, a: torch.Tensor, lin: nn.Linear) -> torch.Tensor:

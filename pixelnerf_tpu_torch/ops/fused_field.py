@@ -25,7 +25,10 @@ from typing import Tuple
 import torch
 
 from . import _build
-from .fused_mlp import SMEM_LIMIT, _check as _check_mlp, check_kernel_shapes, fused_resnetfc_infer_plain
+from .fused_mlp import (
+    KC, _check as _check_mlp, _round_up, check_kernel_fits, check_kernel_shapes,
+    fused_resnetfc_infer_plain, kernel_weight_pointers, weight_image,
+)
 from .gather import _check as _check_gather, gather_bilerp_plain
 
 
@@ -63,30 +66,28 @@ def _launch(table, base, wg, x, weights, n_blocks, combine_layer, width, probe: 
     tensors = _check(table, base, wg, x, weights, n_blocks, combine_layer, width)
     if table.device.type != "cuda":
         raise ValueError(f"unsupported device {table.device}")
-    dh, d_in_pad = weights[0].shape
+    dh = weights[0].shape[0]
     c = table.shape[1]
-    check_kernel_shapes(tensors, d_in_pad, c, dh)
-    if table.data_ptr() % 16:
-        raise ValueError("table must be 16-byte aligned")
+    kx = _round_up(x.shape[1], KC)
+    n_lin_z = min(combine_layer, n_blocks)
+    check_kernel_shapes(tensors[2:], kx, c, dh)     # wg, x, then the weights
+    if table.data_ptr() % 16 or any(not t.is_contiguous() for t in tensors[:2]):
+        raise ValueError("table and base must be contiguous, table 16-byte aligned")
+    image = weight_image(weights, kx, n_blocks, n_lin_z, with_wz=True)
     lib = _build.load("fused_field")
-    smem_fn = lib.fused_field_smem_bytes
-    smem_fn.argtypes = [ctypes.c_int] * 3
-    smem_fn.restype = ctypes.c_size_t
-    if smem_fn(d_in_pad, c, dh) > SMEM_LIMIT:
-        raise ValueError(f"widths ({d_in_pad}, {c}, {dh}) exceed the block's shared memory")
+    check_kernel_fits(lib, kx, c, dh)
     n = base.shape[0]
     out = torch.empty((n, 4), dtype=torch.float32, device=table.device)
     fn = lib.fused_gather_resnetfc_infer
-    # table, base, wg, x, the ten weights, out: 15 pointers
-    fn.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int64] + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    # table, base, wg, x, the image, six weight arrays, out: 12 pointers
+    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int64] + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     stream = torch.cuda.current_stream(table.device).cuda_stream
     with torch.cuda.device(table.device):
         err = fn(
-            table.data_ptr(), base.data_ptr(), wg.data_ptr(), x.data_ptr(),
-            *(w.data_ptr() for w in weights), out.data_ptr(),
-            n, x.shape[1], d_in_pad, c, dh, n_blocks, min(combine_layer, n_blocks),
-            int(width), int(probe), stream,
+            table.data_ptr(), base.data_ptr(), wg.data_ptr(), x.data_ptr(), image.data_ptr(),
+            *kernel_weight_pointers(weights), out.data_ptr(),
+            n, x.shape[1], kx, c, dh, n_blocks, n_lin_z, int(width), int(probe), stream,
         )
     _build.check(err, "fused_gather_resnetfc_infer launch")
     return out

@@ -16,6 +16,15 @@ Rounding contract (``_mlp_kernel``): every product accumulates in float32,
 is rounded to bf16, then the bf16 bias is added; residual adds and the
 latent injections are bf16 adds.
 
+Beside the tuple rides the kernel's own layout of the same matrices, the
+*tiled image* (:func:`tile_weights`): every matrix cut into the slabs of
+``slab_columns(dh)`` output columns by 64 input columns that the kernel's
+tensor cores take, each slab already in the 128-byte swizzle of
+shared memory, in the order the kernel walks them, so that one bulk copy
+brings one slab. :func:`pack_weights` builds it once per model (the result
+is cached on the module until a parameter changes) and returns a
+:class:`PackedWeights`, a tuple of the ten arrays that carries the image.
+
 With ``z_is_tz`` (the kernel's variant for baked encodings,
 ``models/pixelnerf.py`` ``bake_encoding``) ``z`` already holds the
 injections ``z_raw @ wz.T + bz``, ``n_lin_z * dh`` wide: block ``i`` adds
@@ -37,17 +46,106 @@ from . import _build
 
 LANE = 128
 SMEM_LIMIT = 232448   # dynamic shared memory a Hopper block may use
+KC = 64               # input columns of a weight slab: 128 bytes, one swizzle row
+KERNEL_WIDTHS = (64, 128, 256, 512)   # d_hidden the kernel is built for
 
 
 def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
 
 
+def slab_columns(dh: int) -> int:
+    """Output columns of one weight slab: half of ``dh`` (one consumer
+    warpgroup's share), at most 128."""
+    return min(dh // 2, 128)
+
+
+def check_kernel_widths(kx: int, zw: int, dh: int) -> None:
+    """Raise ValueError for widths the kernel is not built for: ``kx``
+    columns of x, a ``zw``-wide injection tile, ``dh`` hidden. Whether they
+    also fit the block's shared memory only the built kernel says
+    (``csrc/mlp_body.cuh`` ``layout_of``; :func:`check_kernel_fits`)."""
+    if dh not in KERNEL_WIDTHS:
+        raise ValueError(f"the fused MLP kernel is built for d_hidden in {KERNEL_WIDTHS}, got {dh}")
+    if kx % KC or zw % KC or kx < KC or zw < KC:
+        raise ValueError(
+            f"the fused MLP kernel takes x and latent widths in multiples of {KC}, got {kx}, {zw}")
+
+
+def check_kernel_fits(lib, kx: int, zw: int, dh: int) -> int:
+    """Ask the built kernel (``lib``: either library of the MLP body) for its
+    block's shared memory at these widths; raises ValueError if it has none
+    (the widths are not built, or exceed the block's shared memory)."""
+    fn = lib.mlp_body_smem_bytes
+    fn.argtypes = [ctypes.c_int] * 3
+    fn.restype = ctypes.c_size_t
+    smem = fn(kx, zw, dh)
+    if not smem:
+        raise ValueError(f"widths ({kx}, {zw}, {dh}) do not fit the fused MLP kernel's block")
+    return smem
+
+
+def _tile_matrix(w: torch.Tensor) -> torch.Tensor:
+    """One (dh, K) matrix as its slabs, flat: for each slab of columns of a
+    warpgroup's share, for each 64-wide chunk of K, for each of the two
+    warpgroups, ``slab_columns(dh)`` rows of 8 16-byte units, the unit at
+    place ``u`` of row ``r`` holding the columns of unit ``u ^ (r % 8)``."""
+    dh, k = w.shape
+    ni = slab_columns(dh)
+    v = w.reshape(2, dh // (2 * ni), ni, k // KC, 8, 8)      # wg, slab, row, chunk, unit, element
+    v = v.permute(1, 3, 0, 2, 4, 5)                           # slab, chunk, wg, row, unit, element
+    r = torch.arange(ni, device=w.device)
+    unit = torch.arange(8, device=w.device)[None, :] ^ (r[:, None] % 8)
+    return v[:, :, :, r[:, None], unit].reshape(-1)
+
+
+@torch.no_grad()
+def tile_weights(weights, kx: int, n_blocks: int, n_lin_z: int, with_wz: bool = True) -> torch.Tensor:
+    """The kernel's image of the ten-array tuple: ``win[:, :kx]``, then per
+    block its ``wz`` slice (if ``with_wz`` and the block has an injection),
+    ``w0`` and ``w1``, each as :func:`_tile_matrix` lays it out, in one flat
+    bf16 tensor. ``wout`` is not in it (the kernel keeps its rows resident)."""
+    win, _, wz, _, w0, _, w1, _, _, _ = weights
+    dh = win.shape[0]
+    parts = [_tile_matrix(win[:, :kx])]
+    for i in range(n_blocks):
+        if with_wz and i < n_lin_z:
+            parts.append(_tile_matrix(wz[i * dh : (i + 1) * dh]))
+        parts += [_tile_matrix(w0[i]), _tile_matrix(w1[i])]
+    return torch.cat(parts).contiguous()
+
+
+class PackedWeights(tuple):
+    """The ten-array weight tuple, carrying the kernel's tiled image of it
+    (``image``) and what the image was built for (``image_key``)."""
+
+    image: Optional[torch.Tensor] = None
+    image_key: Optional[tuple] = None
+
+
+def weight_image(weights, kx: int, n_blocks: int, n_lin_z: int, with_wz: bool) -> torch.Tensor:
+    """The tiled image for a launch: the one ``weights`` carries if it was
+    built for this launch, else built now (a plain tuple pays that on every
+    launch; :func:`pack_weights` pays it once per model)."""
+    key = (kx, n_blocks, n_lin_z, with_wz)
+    if getattr(weights, "image_key", None) == key:
+        return weights.image
+    return tile_weights(weights, kx, n_blocks, n_lin_z, with_wz)
+
+
 @torch.no_grad()
 def pack_weights(mlp, with_wz: bool = True) -> Tuple[Optional[torch.Tensor], ...]:
     """Assemble the kernel's weight tuple from a port ``ResnetFC`` (bf16
-    cast and padding). Without ``with_wz`` the injection weights ``wz`` and
-    ``bz`` are left None, for the ``z_is_tz`` variant."""
+    cast and padding), with the tiled image where the kernel takes the
+    widths. Without ``with_wz`` the injection weights ``wz`` and ``bz`` are
+    left None, for the ``z_is_tz`` variant. The result is kept on the module
+    and reused until a parameter is changed, moved or replaced, as its
+    storage, device and version counter show: a write that bypasses the
+    version counter (through ``p.data``) is not seen."""
+    state = tuple((p.data_ptr(), p._version, p.device) for p in mlp.parameters())
+    cache = mlp.__dict__.setdefault("_packed_weights", {})
+    if with_wz in cache and cache[with_wz][0] == state:
+        return cache[with_wz][1]
     bf16 = torch.bfloat16
     dh = mlp.d_hidden
     dev = mlp.lin_out.weight.device
@@ -67,7 +165,18 @@ def pack_weights(mlp, with_wz: bool = True) -> Tuple[Optional[torch.Tensor], ...
     wout[: mlp.d_out] = mlp.lin_out.weight.to(bf16)
     bout = torch.zeros((LANE,), dtype=bf16, device=dev)
     bout[: mlp.d_out] = mlp.lin_out.bias.to(bf16)
-    return win, bin_, wz, bz, w0, b0, w1, b1, wout, bout
+    packed = PackedWeights((win, bin_, wz, bz, w0, b0, w1, b1, wout, bout))
+    n_lin_z = min(mlp.combine_layer, mlp.n_blocks)
+    kx = _round_up(max(mlp.d_in, 1), KC)
+    try:
+        check_kernel_widths(kx, mlp.d_latent if with_wz else dh, dh)
+    except ValueError:
+        pass      # the tuple alone: the plain version takes any widths, a launch raises
+    else:
+        packed.image = tile_weights(packed, kx, mlp.n_blocks, n_lin_z, with_wz)
+        packed.image_key = (kx, mlp.n_blocks, n_lin_z, with_wz)
+    cache[with_wz] = (state, packed)
+    return packed
 
 
 def fused_resnetfc_infer_plain(
@@ -77,31 +186,80 @@ def fused_resnetfc_infer_plain(
     n_blocks: int,
     combine_layer: int,
     z_is_tz: bool = False,
-) -> torch.Tensor:
+    hidden_max: bool = False,
+):
     """The kernel's function in plain PyTorch. z (N, d_latent), or with
     ``z_is_tz`` the injections (N, n_lin_z*dh), x (N, d_in) bf16 ->
-    (N, 4) float32."""
+    (N, 4) float32. With ``hidden_max`` it returns ``(out, m)``, ``m`` (N,)
+    float32 the largest magnitude each row's hidden values (h and net)
+    reach: the scale of one bf16 rounding on that row
+    (:func:`disagreement_with_plain`)."""
     win, bin_, wz, bz, w0, b0, w1, b1, wout, bout = weights
     bf16 = torch.bfloat16
     dh = w0.shape[-1]
+    peak = [None]
 
     def dense(a, w, b):
         # float32 accumulation of bf16 products, rounded, then the bias add
         return torch.matmul(a.float(), w.float().t()).to(bf16) + b
 
+    def seen(v):
+        if hidden_max:
+            m = v.abs().amax(dim=-1).float()
+            peak[0] = m if peak[0] is None else torch.maximum(peak[0], m)
+        return v
+
     x = x.to(bf16)
-    h = dense(x, win[:, : x.shape[-1]], bin_)
+    h = seen(dense(x, win[:, : x.shape[-1]], bin_))
     n_lin_z = min(combine_layer, n_blocks)
     tz = None
     if n_lin_z > 0:
         tz = z.to(bf16) if z_is_tz else dense(z.to(bf16), wz, bz)
     for i in range(n_blocks):
         if i < n_lin_z:
-            h = h + tz[:, i * dh : (i + 1) * dh]
-        net = dense(torch.relu(h), w0[i], b0[i])
-        h = h + dense(torch.relu(net), w1[i], b1[i])
-    out = dense(torch.relu(h), wout[:4], bout[:4])
-    return out.float()
+            h = seen(h + tz[:, i * dh : (i + 1) * dh])
+        net = seen(dense(torch.relu(h), w0[i], b0[i]))
+        h = seen(h + dense(torch.relu(net), w1[i], b1[i]))
+    out = dense(torch.relu(h), wout[:4], bout[:4]).float()
+    return (out, peak[0]) if hidden_max else out
+
+
+# What the kernels are held to against their plain versions. Both round
+# every layer's output to bf16, and their float32 sums run in other orders
+# (the tensor cores' accumulation is also coarser than a float32 matmul's),
+# so a sum that lies within that error of a bf16 boundary may round the
+# other way: one value of that row is then one bf16 ulp off, and the later
+# layers carry the difference on, amplified where their gain exceeds 1. The
+# plain version held against itself with its hidden units permuted shows the
+# same rare outliers (scripts/stress_fused_mlp_torch.py).
+MLP_ATOL = MLP_RTOL = 5e-2    # every element, but for the outliers below
+MLP_OUTLIER_SHARE = 2e-4      # of the elements may lie outside, each by no more than
+MLP_OUTLIER_ULPS = 2.0        # this many bf16 ulps of its row's largest hidden magnitude
+
+
+def disagreement_with_plain(out: torch.Tensor, ref: torch.Tensor, row_hidden_max: torch.Tensor) -> dict:
+    """A fused MLP kernel's (N, 4) output against its plain version's, with
+    the plain version's ``hidden_max``: the largest difference, how many
+    elements lie outside ``MLP_ATOL + MLP_RTOL * |ref|`` and their share, and
+    the worst of those in bf16 ulps of its row's largest hidden magnitude
+    (a bf16 ulp of m is 2**(floor(log2 m) - 7))."""
+    diff = (out - ref).abs()
+    outside = diff > MLP_ATOL + MLP_RTOL * ref.abs()
+    ulp = torch.exp2(torch.floor(torch.log2(row_hidden_max.clamp_min(2.0 ** -126))) - 7)
+    in_ulps = (diff / ulp[:, None])[outside]
+    return {
+        "max_abs_err": diff.max().item(),
+        "outside": int(outside.sum()),
+        "outside_share": outside.float().mean().item(),
+        "worst_outlier_ulps": in_ulps.max().item() if in_ulps.numel() else 0.0,
+        "finite": bool(torch.isfinite(out).all()),
+    }
+
+
+def agrees_with_plain(d: dict) -> bool:
+    """Whether a :func:`disagreement_with_plain` is within the tolerance."""
+    return (d["finite"] and d["outside_share"] <= MLP_OUTLIER_SHARE
+            and d["worst_outlier_ulps"] <= MLP_OUTLIER_ULPS)
 
 
 def _check(z, x, weights, n_blocks, combine_layer, z_is_tz=False) -> Tuple[torch.Tensor, ...]:
@@ -145,20 +303,22 @@ def _check(z, x, weights, n_blocks, combine_layer, z_is_tz=False) -> Tuple[torch
     return tensors
 
 
-def check_kernel_shapes(tensors, d_in_pad: int, d_z: int, dh: int) -> None:
+def check_kernel_shapes(tensors, kx: int, zw: int, dh: int) -> None:
     """The launch-side checks shared by the fused kernels: widths the
-    tensor-core tiles take, contiguous tensors."""
-    if d_in_pad % 16 or d_z % 16 or dh % 32:
-        raise ValueError(
-            f"kernel needs d_in_pad, d_latent multiples of 16 and d_hidden of 32, "
-            f"got {d_in_pad}, {d_z}, {dh}"
-        )
+    kernel is built for (:func:`check_kernel_widths`), contiguous tensors,
+    16-byte aligned weights (``tensors[2:]``)."""
+    check_kernel_widths(kx, zw, dh)
     if any(not t.is_contiguous() for t in tensors):
         raise ValueError("the inputs and the weights must be contiguous")
+    if any(t.data_ptr() % 16 for t in tensors[2:]):
+        raise ValueError("the weights must be 16-byte aligned")
 
 
-def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
-    return None if t is None else t.data_ptr()
+def kernel_weight_pointers(weights) -> Tuple[Optional[int], ...]:
+    """What the kernels read of the tuple beside the image: the biases
+    ``bin``, ``bz`` (None with ``z_is_tz``), ``b0``, ``b1``, and ``wout``,
+    ``bout``."""
+    return tuple(None if weights[i] is None else weights[i].data_ptr() for i in (1, 3, 5, 7, 8, 9))
 
 
 def fused_resnetfc_infer(
@@ -177,30 +337,29 @@ def fused_resnetfc_infer(
         return fused_resnetfc_infer_plain(z, x, weights, n_blocks, combine_layer, z_is_tz)
     if z.device.type != "cuda":
         raise ValueError(f"unsupported device {z.device}")
-    dh, d_in_pad = weights[0].shape
+    dh = weights[0].shape[0]
     d_z = z.shape[1]
-    check_kernel_shapes(tensors, d_in_pad, d_z, dh)
+    kx = _round_up(x.shape[1], KC)
+    n_lin_z = min(combine_layer, n_blocks)
+    check_kernel_shapes(tensors, kx, dh if z_is_tz else d_z, dh)
     if z.data_ptr() % 16:
         raise ValueError("z must be 16-byte aligned")
+    image = weight_image(weights, kx, n_blocks, n_lin_z, with_wz=not z_is_tz)
     lib = _build.load("fused_mlp")
-    smem_fn = lib.fused_resnetfc_smem_bytes
-    smem_fn.argtypes = [ctypes.c_int] * 4
-    smem_fn.restype = ctypes.c_size_t
-    if smem_fn(d_in_pad, d_z, dh, int(z_is_tz)) > SMEM_LIMIT:
-        raise ValueError(f"widths ({d_in_pad}, {d_z}, {dh}) exceed the block's shared memory")
+    check_kernel_fits(lib, kx, dh if z_is_tz else d_z, dh)
     n = z.shape[0]
     out = torch.empty((n, 4), dtype=torch.float32, device=z.device)
     fn = lib.fused_resnetfc_infer
-    fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int64] + [ctypes.c_int] * 7 + [
+    # x, z, the image, six weight arrays, out: 10 pointers
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int64] + [ctypes.c_int] * 7 + [
         ctypes.c_void_p
     ]
     fn.restype = ctypes.c_int
     stream = torch.cuda.current_stream(z.device).cuda_stream
     with torch.cuda.device(z.device):
         err = fn(
-            x.data_ptr(), z.data_ptr(), *(_ptr(w) for w in weights),
-            out.data_ptr(), n, x.shape[1], d_in_pad, d_z, dh, n_blocks,
-            min(combine_layer, n_blocks), int(z_is_tz), stream,
+            x.data_ptr(), z.data_ptr(), image.data_ptr(), *kernel_weight_pointers(weights),
+            out.data_ptr(), n, x.shape[1], kx, d_z, dh, n_blocks, n_lin_z, int(z_is_tz), stream,
         )
     _build.check(err, "fused_resnetfc_infer launch")
     fused_resnetfc_infer.launches += 1

@@ -2,8 +2,9 @@
 ``pixelnerf_tpu/train/state.py``).
 
 One file holds the model's state_dict (parameters and running statistics),
-the optimizer's state_dict and the step counter, written with
-``torch.save``. Saves copy the current file to ``*_backup`` first, write a
+the optimizer's state_dict with the gradient accumulation's state
+(``train/step.py`` ``accumulation_state``) and the step counter, written
+with ``torch.save``. Saves copy the current file to ``*_backup`` first, write a
 tmp file and rename it into place, so a crash mid-write leaves a loadable
 file. Loads fall back to the backup when the primary is unreadable, and to
 a partial restore (model and step, the optimizer left as it was built) when
@@ -32,6 +33,7 @@ def save_checkpoint(ckpt_dir: str, net: torch.nn.Module, optimizer: torch.optim.
             "model": net.state_dict(),
             "optimizer": optimizer.state_dict(),
             "optimizer_class": type(optimizer).__name__,
+            "accumulation": getattr(optimizer, "accumulation", None),
             "step": int(step),
         },
         tmp,
@@ -71,6 +73,7 @@ def load_checkpoint(
             if raw.get("optimizer_class") != type(optimizer).__name__:
                 raise ValueError(f"saved {raw.get('optimizer_class')}, built {type(optimizer).__name__}")
             optimizer.load_state_dict(raw["optimizer"])
+            optimizer.accumulation = raw.get("accumulation")
         except Exception as e:
             print(
                 f"WARNING: partial restore from {candidate}: model and step={step} restored, "

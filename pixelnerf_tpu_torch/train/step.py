@@ -30,6 +30,19 @@ def _stages(net, enc, use_kernels: bool, differentiable: bool):
     return features_fn, mlp_fn
 
 
+def accumulation_state(optimizer: torch.optim.Optimizer) -> dict:
+    """The gradient accumulation's state, kept on the optimizer as
+    ``optax.MultiSteps`` keeps it in the optimizer state: ``mini_step``, the
+    calls since the last update, and ``acc_grads``, their partial mean (one
+    entry per parameter of the optimizer, None before the first call).
+    ``train/state.py`` saves and restores it with the optimizer, and every
+    step built on the optimizer shares it."""
+    state = getattr(optimizer, "accumulation", None)
+    if state is None:
+        state = optimizer.accumulation = {"mini_step": 0, "acc_grads": None}
+    return state
+
+
 def make_train_step(
     net,
     cfg: RenderConfig,
@@ -53,7 +66,9 @@ def make_train_step(
     :param ray_chunk: render in chunks of this many rays per object when
         R exceeds it, with ``remat`` as in ``render_rays_chunked``
     :param accu_grad: average the gradients of this many calls before one
-        optimizer update (``optax.MultiSteps``)
+        optimizer update (``optax.MultiSteps``); the partial mean and the
+        call counter live in :func:`accumulation_state` of the optimizer, so
+        a checkpoint in the middle of an accumulation resumes it
     :param use_kernels: the gather through kernel C and its backward (for
         CUDA tensors) if True, else through their plain versions
     :return: the step; ``noise`` is one pre-drawn noise dict per ray chunk
@@ -65,8 +80,6 @@ def make_train_step(
     if accu_grad < 1:
         raise ValueError(f"accu_grad must be >= 1, got {accu_grad}")
     params = [p for g in optimizer.param_groups for p in g["params"]]
-    acc: List[Optional[torch.Tensor]] = [None] * len(params)
-    calls = [0]
 
     def step(
         batch: Dict[str, torch.Tensor],
@@ -98,14 +111,18 @@ def make_train_step(
         update = True
         if accu_grad > 1:
             # MultiSteps: one update with the mean of accu_grad calls' gradients
-            calls[0] += 1
-            update = calls[0] % accu_grad == 0
+            state = accumulation_state(optimizer)
+            acc: List[Optional[torch.Tensor]] = state["acc_grads"] or [None] * len(params)
+            state["mini_step"] += 1
+            # >=: a counter restored from a run with a larger accu_grad still updates
+            update = state["mini_step"] >= accu_grad
             for i, (p, g) in enumerate(zip(params, grads)):
                 if g is not None:
                     acc[i] = g / accu_grad if acc[i] is None else acc[i] + g / accu_grad
                 p.grad = acc[i] if update else None
-                if update:
-                    acc[i] = None
+            state["acc_grads"] = None if update else acc
+            if update:
+                state["mini_step"] = 0
         if update:
             optimizer.step()
         return {**{k: v.detach() for k, v in metrics.items()}, "gnorm": gnorm.detach()}

@@ -107,8 +107,9 @@ class Trainer:
 
     def _steps_for(self, cfg: RenderConfig):
         """(train_step, eval_step) for a render config, cached: the
-        sample-count schedule switches between a few configs. A switch
-        in the middle of a gradient accumulation starts a new one."""
+        sample-count schedule switches between a few configs. The gradient
+        accumulation's state lives on the optimizer, so it carries over a
+        switch and, through the checkpoint, a resume."""
         if cfg not in self._step_cache:
             self._step_cache[cfg] = (
                 make_train_step(

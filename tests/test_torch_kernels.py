@@ -16,6 +16,7 @@ from pixelnerf_tpu_torch.ops.fused_field import (
     fused_gather_resnetfc_infer_plain,
     gather_prologue_probe,
 )
+from pixelnerf_tpu_torch.ops import fused_mlp as fm
 from pixelnerf_tpu_torch.ops.fused_mlp import fused_resnetfc_infer, fused_resnetfc_infer_plain
 from pixelnerf_tpu_torch.ops.gather import gather_bilerp, gather_bilerp_plain
 from pixelnerf_tpu_torch.ops.gather_rows import (
@@ -89,13 +90,13 @@ def test_gather_wrapper_rejects_bad_inputs(case):
     assert gather_bilerp.launches == before
 
 
-def _mlp_weights(dh=32, d_in=10, d_z=16, n_blocks=3, combine_layer=2, seed=0):
+def _mlp_weights(dh=32, d_in=10, d_z=16, n_blocks=3, combine_layer=2, seed=0, scale=0.2):
     g = torch.Generator().manual_seed(seed)
     bf = torch.bfloat16
     n_lin_z = min(combine_layer, n_blocks)
 
     def r(*shape):
-        return (torch.randn(shape, generator=g) * 0.2).to(bf)
+        return (torch.randn(shape, generator=g) * scale).to(bf)
 
     win = torch.zeros((dh, 128), dtype=bf)
     win[:, :d_in] = r(dh, d_in)
@@ -132,6 +133,205 @@ def test_fused_mlp_wrapper_rejects_bad_inputs(case):
     with pytest.raises((TypeError, ValueError)):
         fused_resnetfc_infer(z, x, tuple(weights), 3, 2)
     assert fused_resnetfc_infer.launches == before
+
+
+def _untiled_offsets(dh, k):
+    """Where element (n, kk) of a (dh, k) matrix lies in its tiled image,
+    written out from the kernel's walk: a warpgroup owns half the columns,
+    in slabs of at most 128; the slabs follow each other by (slab, 64-wide
+    chunk of K, warpgroup); a slab row is 64 elements, its 8-element units
+    XOR-ed with the row."""
+    n, kk = np.meshgrid(np.arange(dh), np.arange(k), indexing="ij")
+    ni = min(dh // 2, 128)
+    wg, slab, row = n // (dh // 2), (n % (dh // 2)) // ni, n % ni
+    chunk, unit, elem = kk // 64, (kk % 64) // 8, kk % 8
+    return (((slab * (k // 64) + chunk) * 2 + wg) * ni + row) * 64 + ((unit ^ (row % 8)) * 8) + elem
+
+
+@pytest.mark.parametrize("dh,d_z,with_wz", [(512, 512, True), (512, 512, False), (64, 64, True),
+                                            (64, 128, True), (128, 64, True), (256, 192, False)])
+def test_tiled_image_untiles_to_every_matrix(dh, d_z, with_wz):
+    """The kernel's image of the weights, read back through an index
+    formula of its own, is every matrix of the ten-array tuple exactly, at
+    the SRN widths and at the tests' widths; the tuple is what it was."""
+    n_blocks, n_lin_z, kx = 5, 3, 64
+    weights = _mlp_weights(dh=dh, d_in=42, d_z=d_z, n_blocks=n_blocks, combine_layer=n_lin_z, seed=3)
+    image = fm.tile_weights(weights, kx, n_blocks, n_lin_z, with_wz).view(torch.int16).numpy()
+    win, _, wz, _, w0, _, w1, _, _, _ = (w.view(torch.int16).numpy() for w in weights)
+    mats = [win[:, :kx]]
+    for i in range(n_blocks):
+        if with_wz and i < n_lin_z:
+            mats.append(wz[i * dh:(i + 1) * dh])
+        mats += [w0[i], w1[i]]
+    assert image.size == sum(m.size for m in mats)
+    start = 0
+    for m in mats:
+        np.testing.assert_array_equal(image[start + _untiled_offsets(*m.shape)], m)
+        start += m.size
+
+
+def test_pack_weights_keeps_the_tuple_and_carries_the_image():
+    from pixelnerf_tpu_torch.models.resnetfc import ResnetFC
+
+    mlp = ResnetFC(d_in=42, d_latent=64, d_hidden=64, n_blocks=5, combine_layer=3, dtype=torch.bfloat16)
+    with torch.no_grad():
+        for p in mlp.parameters():
+            p.copy_(torch.randn(p.shape, generator=torch.Generator().manual_seed(p.numel())) * 0.1)
+    packed = fm.pack_weights(mlp)
+    assert isinstance(packed, tuple) and len(packed) == 10
+    win, bin_, wz, bz, w0, b0, w1, b1, wout, bout = packed
+    bf = torch.bfloat16
+    assert win.shape == (64, 128) and wout.shape == (128, 64) and bout.shape == (128,)
+    assert torch.equal(win[:, :42], mlp.lin_in.weight.to(bf)) and not win[:, 42:].any()
+    assert torch.equal(wz, torch.cat([l.weight.to(bf) for l in mlp.lin_z]))
+    assert torch.equal(w1[4], mlp.blocks[4].fc_1.weight.to(bf)) and torch.equal(b0[2], mlp.blocks[2].fc_0.bias.to(bf))
+    assert torch.equal(wout[:4], mlp.lin_out.weight.to(bf)) and not wout[4:].any()
+    assert packed.image_key == (64, 5, 3, True)
+    assert torch.equal(packed.image, fm.tile_weights(tuple(packed), 64, 5, 3, True))
+    assert fm.weight_image(packed, 64, 5, 3, True) is packed.image
+    # built once per model, and again when a parameter changes
+    assert fm.pack_weights(mlp) is packed
+    baked = fm.pack_weights(mlp, with_wz=False)
+    assert baked[2] is None and baked[3] is None and baked.image.numel() < packed.image.numel()
+    with torch.no_grad():
+        mlp.lin_in.bias.add_(1.0)
+    again = fm.pack_weights(mlp)
+    assert again is not packed and torch.equal(again[1], mlp.lin_in.bias.to(bf))
+    # widths the kernel is not built for: the tuple alone
+    odd = fm.pack_weights(ResnetFC(d_in=10, d_latent=16, d_hidden=32, n_blocks=3, combine_layer=2,
+                                   dtype=torch.bfloat16))
+    assert len(odd) == 10 and odd.image is None
+
+
+def test_kernel_widths_at_the_srn_and_test_widths():
+    for kx, zw, dh in [(64, 512, 512), (64, 64, 64), (64, 128, 64), (128, 256, 256), (64, 192, 128)]:
+        fm.check_kernel_widths(kx, zw, dh)
+    # a warpgroup's half of the columns, in slabs of at most 128
+    assert [fm.slab_columns(dh) for dh in fm.KERNEL_WIDTHS] == [32, 64, 128, 128]
+
+
+@pytest.mark.parametrize("kx,zw,dh", [(64, 512, 96), (64, 64, 32), (64, 48, 64), (48, 64, 64),
+                                      (64, 512, 384), (64, 512, 1024), (0, 64, 64)])
+def test_kernel_refuses_widths_it_is_not_built_for(kx, zw, dh):
+    with pytest.raises(ValueError, match="fused MLP kernel"):
+        fm.check_kernel_widths(kx, zw, dh)
+    tensors = (torch.zeros(4, 8), torch.zeros(4, 8), torch.zeros(16, 8))
+    with pytest.raises(ValueError, match="fused MLP kernel"):
+        fm.check_kernel_shapes(tensors, kx, zw, dh)
+
+
+def test_resnetfc_gate_has_no_width_term():
+    """Widths the kernel is not built for pass the gate like any other (on
+    the CPU the plain version takes them; on the card the wrapper raises):
+    ``fast=True`` never gives way to the dense chain for a width."""
+    from pixelnerf_tpu_torch.models.resnetfc import ResnetFC
+
+    mlp = ResnetFC(d_in=10, d_latent=48, d_hidden=96, n_blocks=3, combine_layer=2, dtype=torch.bfloat16)
+    assert mlp._can_use_kernel(single_view=True)
+    with pytest.raises(ValueError):
+        fm.check_kernel_widths(64, 48, 96)
+    g = torch.Generator().manual_seed(0)
+    z, x = torch.randn((20, 48), generator=g), torch.randn((20, 10), generator=g)
+    before = fused_resnetfc_infer.launches
+    with torch.no_grad():
+        out = mlp((z, x), fast=True)
+        ref = fused_resnetfc_infer_plain(z.to(torch.bfloat16), x.to(torch.bfloat16), fm.pack_weights(mlp), 3, 2)
+    assert torch.equal(out, ref) and fused_resnetfc_infer.launches == before
+
+
+def test_check_kernel_shapes_wants_contiguous_aligned_weights():
+    ok = (torch.zeros(4, 8), torch.zeros(4, 8), torch.zeros(64, 64, dtype=torch.bfloat16))
+    fm.check_kernel_shapes(ok, 64, 64, 64)
+    with pytest.raises(ValueError, match="contiguous"):
+        fm.check_kernel_shapes(ok[:2] + (ok[2].t(),), 64, 64, 64)
+    with pytest.raises(ValueError, match="aligned"):
+        fm.check_kernel_shapes(ok[:2] + (ok[2].reshape(-1)[1:65],), 64, 64, 64)
+
+
+@pytest.mark.parametrize("mode", ["b", "tz", "d"])
+def test_stress_script_cases_on_cpu(mode):
+    """The cases of ``scripts/stress_fused_mlp_torch.py`` are well-formed
+    inputs of the wrappers: on the CPU each runs its plain version."""
+    stress = _stress_module()
+    run, plain, args = stress.make_case(mode, 64, 100, torch.device("cpu"), torch.Generator().manual_seed(0))
+    out = run(*args)
+    assert out.shape == (100, 4) and torch.isfinite(out).all() and out.std() > 0
+    assert torch.equal(out, plain(*args))
+
+
+def _stress_module():
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "scripts"))
+    import stress_fused_mlp_torch as stress
+
+    return stress
+
+
+@pytest.mark.parametrize("mode", ["b", "tz", "d"])
+def test_reordered_plain_is_the_same_function(mode):
+    """The stress script's yardstick for rounding flips: the plain version
+    with its hidden units permuted computes the same function (in float64
+    to float32 rounding; in bf16 within the kernels' own tolerance)."""
+    stress = _stress_module()
+    run, _, args = stress.make_case(mode, 64, 500, torch.device("cpu"), torch.Generator().manual_seed(0))
+    z, x, weights, tz = stress.mlp_inputs(mode, args)
+    perm = torch.randperm(64, generator=torch.Generator().manual_seed(1))
+    w_perm, z_perm = stress.reordered(z, weights, tz, perm)
+    assert all((a is None) == (b is None) and (a is None or a.shape == b.shape) for a, b in zip(weights, w_perm))
+    assert not torch.equal(w_perm[4], weights[4])
+    ref, peak = fused_resnetfc_infer_plain(z, x, weights, 5, 3, tz, hidden_max=True)
+    assert torch.equal(ref, run(*args))
+    other = fused_resnetfc_infer_plain(z_perm, x, w_perm, 5, 3, tz)
+    assert fm.agrees_with_plain(fm.disagreement_with_plain(other, ref, peak))
+    np.testing.assert_allclose(other.numpy(), ref.numpy(), atol=5e-2, rtol=5e-2)
+
+
+def test_plain_hidden_max_is_the_rows_largest_hidden_magnitude():
+    weights = _mlp_weights(dh=64, d_in=42, d_z=64, n_blocks=5, combine_layer=3)
+    g = torch.Generator().manual_seed(1)
+    z = torch.randn((50, 64), generator=g).to(torch.bfloat16)
+    x = torch.randn((50, 42), generator=g).to(torch.bfloat16)
+    out, peak = fused_resnetfc_infer_plain(z, x, weights, 5, 3, hidden_max=True)
+    assert torch.equal(out, fused_resnetfc_infer_plain(z, x, weights, 5, 3))
+    assert peak.shape == (50,) and peak.dtype == torch.float32
+    # the chain written out once more, keeping every hidden value
+    win, bin_, wz, bz, w0, b0, w1, b1, _, _ = weights
+    bf = torch.bfloat16
+    dense = lambda a, w, b: (a.float() @ w.float().t()).to(bf) + b
+    h = dense(x, win[:, :42], bin_)
+    tz = dense(z, wz, bz)
+    hidden = [h]
+    for i in range(5):
+        if i < 3:
+            h = h + tz[:, i * 64:(i + 1) * 64]
+            hidden.append(h)
+        net = dense(torch.relu(h), w0[i], b0[i])
+        h = h + dense(torch.relu(net), w1[i], b1[i])
+        hidden += [net, h]
+    assert torch.equal(peak, torch.stack(hidden).abs().amax(dim=(0, 2)).float())
+
+
+def test_disagreement_with_plain_counts_outliers_in_hidden_ulps():
+    ref = torch.zeros((10000, 4))
+    peak = torch.full((10000,), 100.0)          # a bf16 ulp at 100 is 0.5
+    out = ref.clone()
+    out[0, 0], out[1, 1], out[2, 2] = 0.04, 0.25, -0.5
+    d = fm.disagreement_with_plain(out, ref, peak)
+    assert d["outside"] == 2 and d["max_abs_err"] == 0.5 and d["worst_outlier_ulps"] == 1.0 and d["finite"]
+    assert fm.agrees_with_plain(d)
+    peak[2] = 30.0                               # an ulp of 0.125: the same difference is four
+    assert not fm.agrees_with_plain(fm.disagreement_with_plain(out, ref, peak))
+    peak[2] = 100.0
+    out[3:12, 3] = 0.2                           # 11 of 40,000 outside: more than the share allows
+    d = fm.disagreement_with_plain(out, ref, peak)
+    assert d["outside"] == 11 and d["worst_outlier_ulps"] == 1.0 and not fm.agrees_with_plain(d)
+    out = ref.clone()
+    out[5, 0] = float("nan")
+    assert not fm.agrees_with_plain(fm.disagreement_with_plain(out, ref, peak))
+    exact = fm.disagreement_with_plain(ref, ref, peak)
+    assert exact["outside"] == 0 and exact["worst_outlier_ulps"] == 0.0 and fm.agrees_with_plain(exact)
 
 
 def _rows_inputs(rows=64, c=16, n=50, seed=0, table_dtype=torch.float32):
@@ -225,18 +425,50 @@ def test_gather_kernel_matches_plain_cuda(cuda_device, table_dtype, out_dtype):
     torch.testing.assert_close(out, ref, atol=0, rtol=0)
 
 
+# rows of the fused kernels' tests: a ragged last tile (300, 700) and more
+# tiles than the card has SMs, so that a persistent block walks several
+MANY_TILES = 64 * 132 * 2 + 700
+# d_hidden: every width the kernel is built for below the SRN's 512 (which
+# test_fused_mlp_kernel_srn_widths_packed_cuda holds); at 128 and 256 the
+# weight ring has 8 stages, at 64 as many as the MLP has slabs
+WIDTHS = [64, 128, 256]
+
+
+def _weight_scale(dh):
+    """0.2 at d_hidden 64: a gain of 1.6 a layer, the hidden values reach
+    ~100, where one bf16 ulp is 0.5, and the chain carries one flipped
+    rounding on, amplified. At 128 and 256 a gain of 1 (``dh ** -0.5``): at
+    1.6 two right implementations differ beyond the tolerance in 2 of 1,200
+    elements already (the plain version against itself reordered shows the
+    same), which holds no kernel to anything."""
+    return 0.2 if dh == 64 else dh ** -0.5
+
+
+def _assert_agrees_with_plain(out, ref, peak):
+    """``ops.fused_mlp.disagreement_with_plain``: within atol = rtol = 5e-2,
+    but for at most 2e-4 of the elements (none below 5,000 elements), each
+    off by no more than two bf16 ulps of its row's largest hidden value."""
+    d = fm.disagreement_with_plain(out, ref, peak)
+    assert fm.agrees_with_plain(d), d
+    if out.numel() < 5000:
+        torch.testing.assert_close(out, ref, atol=5e-2, rtol=5e-2)
+
+
 @pytest.mark.cuda
-def test_fused_mlp_kernel_matches_plain_cuda(cuda_device):
-    weights = tuple(w.to(cuda_device) for w in _mlp_weights(dh=64, d_in=42, d_z=64, n_blocks=5, combine_layer=3))
+@pytest.mark.parametrize("dh", WIDTHS)
+@pytest.mark.parametrize("n", [300, 700, MANY_TILES])
+def test_fused_mlp_kernel_matches_plain_cuda(cuda_device, n, dh):
+    weights = tuple(w.to(cuda_device) for w in _mlp_weights(dh=dh, d_in=42, d_z=64, n_blocks=5, combine_layer=3,
+                                                            scale=_weight_scale(dh)))
     g = torch.Generator().manual_seed(1)
-    z = torch.randn((300, 64), generator=g).to(torch.bfloat16).to(cuda_device)
-    x = torch.randn((300, 42), generator=g).to(torch.bfloat16).to(cuda_device)
+    z = torch.randn((n, 64), generator=g).to(torch.bfloat16).to(cuda_device)
+    x = torch.randn((n, 42), generator=g).to(torch.bfloat16).to(cuda_device)
     out = fused_resnetfc_infer(z, x, weights, 5, 3)
     torch.cuda.synchronize()
-    ref = fused_resnetfc_infer_plain(z, x, weights, 5, 3)
+    ref, peak = fused_resnetfc_infer_plain(z, x, weights, 5, 3, hidden_max=True)
     # both accumulate bf16 products in float32, in other orders; a rounding
     # flip of one bf16 intermediate moves an output by a few bf16 ulps
-    torch.testing.assert_close(out, ref, atol=5e-2, rtol=5e-2)
+    _assert_agrees_with_plain(out, ref, peak)
 
 
 @pytest.mark.cuda
@@ -308,32 +540,36 @@ def test_gather_kernel_wide_rows_cuda(cuda_device):
 
 
 @pytest.mark.cuda
-def test_fused_mlp_tz_kernel_matches_plain_cuda(cuda_device):
-    weights = _mlp_weights(dh=64, d_in=42, d_z=64, n_blocks=5, combine_layer=3)
+@pytest.mark.parametrize("dh", WIDTHS)
+@pytest.mark.parametrize("n", [300, 700, MANY_TILES])
+def test_fused_mlp_tz_kernel_matches_plain_cuda(cuda_device, n, dh):
+    weights = _mlp_weights(dh=dh, d_in=42, d_z=64, n_blocks=5, combine_layer=3, scale=_weight_scale(dh))
     weights = tuple(w.to(cuda_device) for w in weights[:2]) + (None, None) + tuple(
         w.to(cuda_device) for w in weights[4:])
     g = torch.Generator().manual_seed(1)
-    tz = torch.randn((300, 3 * 64), generator=g).to(torch.bfloat16).to(cuda_device)
-    x = torch.randn((300, 42), generator=g).to(torch.bfloat16).to(cuda_device)
+    tz = torch.randn((n, 3 * dh), generator=g).to(torch.bfloat16).to(cuda_device)
+    x = torch.randn((n, 42), generator=g).to(torch.bfloat16).to(cuda_device)
     before = fused_resnetfc_infer.launches
     out = fused_resnetfc_infer(tz, x, weights, 5, 3, z_is_tz=True)
     torch.cuda.synchronize()
     assert fused_resnetfc_infer.launches == before + 1
-    ref = fused_resnetfc_infer_plain(tz, x, weights, 5, 3, z_is_tz=True)
+    ref, peak = fused_resnetfc_infer_plain(tz, x, weights, 5, 3, z_is_tz=True, hidden_max=True)
     # as the unbaked kernel: float32 sums in other orders may flip a bf16 rounding
-    torch.testing.assert_close(out, ref, atol=5e-2, rtol=5e-2)
+    _assert_agrees_with_plain(out, ref, peak)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [64, 256, 700])
-def test_fused_field_kernel_matches_composition_and_plain_cuda(cuda_device, n):
+@pytest.mark.parametrize("dh", WIDTHS)
+@pytest.mark.parametrize("n", [64, 256, 700, MANY_TILES])
+def test_fused_field_kernel_matches_composition_and_plain_cuda(cuda_device, n, dh):
     """Kernel D equals kernel B fed by kernel A bit for bit, and its plain
     version within kernel B's tolerance; points on the right and bottom
     borders and exact corners included."""
     g = torch.Generator().manual_seed(2)
     hh = ww = 9
     c = 128
-    weights = tuple(w.to(cuda_device) for w in _mlp_weights(dh=64, d_in=42, d_z=c, n_blocks=5, combine_layer=3))
+    weights = tuple(w.to(cuda_device) for w in _mlp_weights(dh=dh, d_in=42, d_z=c, n_blocks=5, combine_layer=3,
+                                                            scale=_weight_scale(dh)))
     table = torch.randn((hh * ww, c), generator=g).to(torch.bfloat16)
     ix = torch.rand(n, generator=g) * (ww - 1)
     iy = torch.rand(n, generator=g) * (hh - 1)
@@ -349,7 +585,11 @@ def test_fused_field_kernel_matches_composition_and_plain_cuda(cuda_device, n):
     z = gather_bilerp(table, base, wg, ww, torch.bfloat16)
     torch.testing.assert_close(out, fused_resnetfc_infer(z, x, weights, 5, 3), atol=0, rtol=0)
     ref = fused_gather_resnetfc_infer_plain(table, base, wg, x, weights, 5, 3, ww)
-    torch.testing.assert_close(out, ref, atol=5e-2, rtol=5e-2)
+    # kernel D's plain version is A's plain version feeding B's
+    ref_b, peak = fused_resnetfc_infer_plain(gather_bilerp_plain(table, base, wg, ww, torch.bfloat16), x,
+                                             weights, 5, 3, hidden_max=True)
+    assert torch.equal(ref, ref_b)
+    _assert_agrees_with_plain(out, ref, peak)
     # the prologue alone leaves the gathered latents' first channels
     probe = gather_prologue_probe(table, base, wg, x, weights, 5, 3, ww)
     torch.testing.assert_close(probe, z[:, :4].float(), atol=0, rtol=0)
@@ -369,3 +609,59 @@ def test_gather_study_kernels_match_plain_cuda(cuda_device, formulation, table_d
     assert gather_study.launches[formulation] == before + 1
     # no contracted multiply-adds in the kernels: bit-equal
     torch.testing.assert_close(out, gather_study_plain(*args), atol=0, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("z_is_tz", [False, True])
+def test_fused_mlp_kernel_srn_widths_packed_cuda(cuda_device, z_is_tz):
+    """At the SRN widths, through ``pack_weights`` (the image built once per
+    model), a ragged 700 rows: the kernel against its plain version."""
+    from pixelnerf_tpu_torch.models.resnetfc import ResnetFC
+
+    mlp = ResnetFC(d_in=42, d_latent=512, d_hidden=512, n_blocks=5, combine_layer=3, dtype=torch.bfloat16)
+    g = torch.Generator().manual_seed(4)
+    with torch.no_grad():
+        for blk in mlp.blocks:
+            blk.fc_1.weight.copy_(torch.randn(blk.fc_1.weight.shape, generator=g) * 0.02)
+    mlp = mlp.to(cuda_device)
+    weights = fm.pack_weights(mlp, with_wz=not z_is_tz)
+    assert weights.image is not None and fm.pack_weights(mlp, with_wz=not z_is_tz) is weights
+    z = torch.randn((700, 3 * 512 if z_is_tz else 512), generator=g).to(torch.bfloat16).to(cuda_device)
+    x = torch.randn((700, 42), generator=g).to(torch.bfloat16).to(cuda_device)
+    out = fused_resnetfc_infer(z, x, weights, 5, 3, z_is_tz)
+    torch.cuda.synchronize()
+    ref = fused_resnetfc_infer_plain(z, x, weights, 5, 3, z_is_tz)
+    torch.testing.assert_close(out, ref, atol=5e-2, rtol=5e-2)
+
+
+@pytest.mark.cuda
+def test_resnetfc_fast_raises_on_the_card_for_widths_not_built_cuda(cuda_device):
+    """On the card ``fast=True`` launches the kernel or raises: a width the
+    kernel is not built for does not fall back to the dense chain."""
+    from pixelnerf_tpu_torch.models.resnetfc import ResnetFC
+
+    mlp = ResnetFC(d_in=10, d_latent=48, d_hidden=96, n_blocks=3, combine_layer=2,
+                   dtype=torch.bfloat16).to(cuda_device)
+    z, x = torch.randn((20, 48), device=cuda_device), torch.randn((20, 10), device=cuda_device)
+    before = fused_resnetfc_infer.launches
+    with torch.no_grad(), pytest.raises(ValueError, match="fused MLP kernel"):
+        mlp((z, x), fast=True)
+    assert fused_resnetfc_infer.launches == before
+    with torch.no_grad():
+        assert mlp((z, x), fast=False).shape == (20, 4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("source", ["fused_mlp", "fused_field"])
+def test_kernel_reports_its_blocks_shared_memory_cuda(cuda_device, source):
+    from pixelnerf_tpu_torch.ops import _build
+
+    lib = _build.load(source)
+    # activations 64 KB, z 64 KB, x 8 KB, Wout 8 KB, barriers and slack, 5 slabs of 16 KB
+    assert fm.check_kernel_fits(lib, 64, 512, 512) == 2 * 65536 + 2 * 8192 + 1280 + 5 * 16384
+    for kx, zw, dh in [(64, 64, 64), (64, 128, 64), (128, 256, 256), (64, 128, 128)]:
+        assert 0 < fm.check_kernel_fits(lib, kx, zw, dh) <= fm.SMEM_LIMIT
+    # too wide for the block, and widths the body is not built for
+    for kx, zw, dh in [(64, 4096, 512), (64, 2048, 512), (64, 48, 64), (64, 512, 96), (48, 64, 64)]:
+        with pytest.raises(ValueError, match="do not fit"):
+            fm.check_kernel_fits(lib, kx, zw, dh)

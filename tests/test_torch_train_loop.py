@@ -256,3 +256,91 @@ def test_train_app_synthetic_two_by_two_and_resume(tmp_path, capsys, monkeypatch
     resumed = train.main(argv + ["--resume", "--epochs", "1"])
     assert "Resumed from step 4" in capsys.readouterr().out
     assert resumed.step == 6
+
+
+def test_accumulation_resumes_from_a_checkpoint_and_matches_multisteps(tmp_path):
+    """accu_grad=2 over two different batches: one call, a checkpoint, the
+    model, optimizer and step rebuilt from it, one more call. The update
+    equals two calls without the break, and ``optax.MultiSteps(adam, 2)``
+    fed the same two gradients (taken from plain steps at lr 0)."""
+    _, variables, _, _, tconf = build_pair(d_hidden=32, SB=1)
+    images, poses = source_view()
+    rng = np.random.default_rng(7)
+    batches = [{"images": t(images), "poses": t(poses), "focal": torch.full((1,), FOCAL),
+                "c": torch.full((1, 2), W / 2.0), "rays": t(novel_rays()[:, 16 * i:16 * (i + 1)]),
+                "rgb_gt": t(rng.uniform(0, 1, (1, 16, 3)).astype(np.float32))} for i in range(2)]
+    cfg = tr.RenderConfig.from_conf(tconf["renderer"])
+    noise = [[tr.draw_noise(b["rays"], cfg, torch.Generator().manual_seed(i), train=True)]
+             for i, b in enumerate(batches)]
+    loss_fn = make_render_loss(tconf["loss"])
+
+    def fresh(accu, lr=1e-3):
+        # the encoder in eval mode: no running statistics move, so both
+        # gradients are taken at the same state
+        net = make_model(tconf["model"], device="cpu")
+        load_jax_variables(net, variables)
+        opt = _opt(net, lr=lr)
+        return net, opt, make_train_step(net, cfg, opt, loss_fn, train_encoder=False, accu_grad=accu)
+
+    # two calls without a break
+    net_a, _, step_a = fresh(2)
+    start = {k: p.detach().clone() for k, p in net_a.named_parameters()}
+    for b, n in zip(batches, noise):
+        step_a(b, noise=n)
+    # one call, save, rebuild everything from the checkpoint, one more call
+    net_b, opt_b, step_b = fresh(2)
+    step_b(batches[0], noise=noise[0])
+    save_checkpoint(str(tmp_path), net_b, opt_b, 1)
+    net_c, opt_c, step_c = fresh(2)
+    assert load_checkpoint(str(tmp_path), net_c, opt_c) == 1
+    assert opt_c.accumulation["mini_step"] == 1
+    step_c(batches[1], noise=noise[1])
+    assert opt_c.accumulation == {"mini_step": 0, "acc_grads": None}
+    for k, p in net_a.named_parameters():
+        assert not torch.equal(p, start[k]) or p.grad is None, k
+        torch.testing.assert_close(dict(net_c.named_parameters())[k], p, atol=0, rtol=0, msg=k)
+
+    # optax.MultiSteps on the same two gradients
+    grads = []
+    for b, n in zip(batches, noise):
+        net_g, _, step_g = fresh(1, lr=0.0)
+        step_g(b, noise=n)
+        grads.append({k: p.grad.numpy().copy() for k, p in net_g.named_parameters() if p.grad is not None})
+    params = {k: jnp.asarray(start[k].numpy()) for k in grads[0]}
+    tx = optax.MultiSteps(optax.adam(1e-3), 2)
+    opt_state = tx.init(params)
+    for g in grads:
+        updates, opt_state = tx.update({k: jnp.asarray(v) for k, v in g.items()}, opt_state, params)
+        params = optax.apply_updates(params, updates)
+    assert int(opt_state.mini_step) == 0
+    moved = 0
+    for k, p in net_c.named_parameters():
+        if k in params:
+            # two libraries' float32 Adam: one ulp of the parameter beside
+            # the 1e-7 of test_accumulated_step_equals_one_step_of_the_mean
+            np.testing.assert_allclose(p.detach().numpy(), np.asarray(params[k]), atol=1e-7, rtol=1.2e-7, err_msg=k)
+            moved += int(not torch.equal(p, start[k]))
+    assert moved > 0
+
+
+def test_accumulation_counter_restored_past_accu_grad_still_updates():
+    """A checkpoint taken in the middle of an accumulation of 4, resumed
+    with accu_grad=2: the restored counter (2, then 3) is already at the new
+    bound, and the next call updates and starts a new accumulation instead
+    of never reaching equality."""
+    _, variables, _, _, tconf = build_pair(d_hidden=32, SB=1)
+    images, poses = source_view()
+    batch = {"images": t(images), "poses": t(poses), "focal": torch.full((1,), FOCAL),
+             "c": torch.full((1, 2), W / 2.0), "rays": t(novel_rays()[:, :16]),
+             "rgb_gt": torch.rand((1, 16, 3), generator=torch.Generator().manual_seed(0))}
+    cfg = tr.RenderConfig.from_conf(tconf["renderer"])
+    noise = [tr.draw_noise(batch["rays"], cfg, torch.Generator().manual_seed(1), train=True)]
+    net = make_model(tconf["model"], device="cpu")
+    load_jax_variables(net, variables)
+    opt = _opt(net, lr=1e-3)
+    step = make_train_step(net, cfg, opt, make_render_loss(tconf["loss"]), accu_grad=2)
+    opt.accumulation = {"mini_step": 2, "acc_grads": None}
+    start = {k: p.detach().clone() for k, p in net.named_parameters()}
+    step(batch, noise=noise)
+    assert opt.accumulation == {"mini_step": 0, "acc_grads": None}
+    assert any(not torch.equal(start[k], p) for k, p in net.named_parameters())
