@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's main paths on one NVIDIA GPU and check them.
 
-Four paths at the full width and depth of the SRN model
+Five paths at the full width and depth of the SRN model
 (``conf/exp/srn.conf``: ResNet34 to a 512-channel latent, ResnetFC 512 x 5
 blocks, 64 coarse + 32 fine samples), weights random from a seed:
 
@@ -19,7 +19,10 @@ blocks, 64 coarse + 32 fine samples), weights random from a seed:
   reference config (f32, 4 objects x 128 rays, unchunked, 20 steps on one
   batch) and at the chip-filling config (bf16 compute, f32 parameters and
   Adam, 4 objects x 2048 rays, 256-ray chunks, ``remat="features"``,
-  5 steps); and the training app itself for a few steps.
+  5 steps); and the training app itself for a few steps;
+- the SRN evaluation workflow, f32, through the apps a user calls:
+  ``apps.train -F srn`` -> ``apps.eval`` (and its resume) ->
+  ``apps.eval_approx`` on an SRN-layout fixture.
 
 Phases, one JSON line each:
 
@@ -58,6 +61,16 @@ Phases, one JSON line each:
     read around each
 18. fused_vs_staged_e2e: the 2048-ray crop through the fused, staged,
     plain and baked renders on the same noise
+19. srn_workflow (run after 11): an SRN-layout fixture (2 objects x 251
+    views at 128^2, train/val/test, written by the port's PNG writer),
+    ``apps.train -F srn`` for 2 batches (C, C-bwd; its eval and visual
+    through A), ``apps.eval`` of 8 target views per object with depth and
+    comparison images (A), ``apps.eval`` again (resumed, nothing
+    rendered), ``apps.eval_approx`` with both objects in one batch (A on a
+    two-scene table); launch counts against the chunking, the eval render
+    through A bit-equal to its plain version, ``finish.txt``'s PSNR
+    against the written PNGs, seconds per step, ms per view and PNG
+    decode ms
 
 then the ``kernels`` line, the card's name and power limit, and
 ``{"ok": true, ...}`` as the last line. Any failure raises and exits
@@ -759,20 +772,49 @@ def run_train(dev, key):
     return res
 
 
+def run_app(module, argv):
+    """``module.main(argv)`` with its printed lines captured; returns
+    (result, lines, seconds, launches of every kernel counter, reset to 0
+    just before)."""
+    import contextlib
+    import io
+
+    counters = {**inference_kernels(), **train_kernels()}
+    for fn in counters.values():
+        fn.launches = 0
+    out = io.StringIO()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    with contextlib.redirect_stdout(out):
+        result = module.main(argv)
+    torch.cuda.synchronize()
+    seconds = time.time() - t0
+    return result, out.getvalue().splitlines(), seconds, {k: fn.launches for k, fn in counters.items()}
+
+
+def train_kernels():
+    from pixelnerf_tpu_torch.ops.gather_rows import gather_rows_lerp, gather_rows_lerp_bwd
+
+    return {"gather_rows_lerp": gather_rows_lerp, "gather_rows_lerp_bwd": gather_rows_lerp_bwd}
+
+
+def vis_chunks():
+    """Ray chunks of the train app's visual: one IMAGE x IMAGE view in
+    chunks of ``VIS_RAY_CHUNK`` rays."""
+    from pixelnerf_tpu_torch.apps.train import VIS_RAY_CHUNK
+
+    return -(-IMAGE * IMAGE // VIS_RAY_CHUNK)
+
+
 def run_train_app(dev):
     """The user's entry point, ``python -m pixelnerf_tpu_torch.apps.train``,
     on the card: the SRN model in f32, 4 objects x 128 rays of the
     synthetic scenes (128^2, cameras at radius 1.3), 2 epochs x 2 batches,
     with the trainer's eval (kernel A's gather) and checkpoints, written to
     a temporary directory. Its printed metrics are captured, not echoed."""
-    import contextlib
-    import io
     import tempfile
 
     from pixelnerf_tpu_torch.apps import train as train_app
-    from pixelnerf_tpu_torch.ops.fused_mlp import fused_resnetfc_infer
-    from pixelnerf_tpu_torch.ops.gather import gather_bilerp
-    from pixelnerf_tpu_torch.ops.gather_rows import gather_rows_lerp, gather_rows_lerp_bwd
     from pixelnerf_tpu_torch.train import load_variables
 
     os.environ["PIXELNERF_NO_TB"] = "1"
@@ -782,39 +824,33 @@ def run_train_app(dev):
             "-n", "chip_smoke", "-c", os.path.join(REPO, "conf", "exp", "srn.conf"), "-F", "synthetic",
             "--epochs", str(epochs), "--epoch_batches", str(batches), "--device", str(dev), "--workers", "1",
             "--checkpoints_path", os.path.join(tmp, "ck"), "--logs_path", os.path.join(tmp, "logs"),
+            "--visual_path", os.path.join(tmp, "vis"),
             "--override", f"data.image_size=[{IMAGE}, {IMAGE}]", "--override", f"data.num_objects={TRAIN_SB}",
             "--override", "data.radius=1.3",
         ]
-        for fn in (gather_rows_lerp, gather_rows_lerp_bwd, gather_bilerp, fused_resnetfc_infer):
-            fn.launches = 0
-        out = io.StringIO()
-        t0 = time.time()
-        with contextlib.redirect_stdout(out):
-            trainer = train_app.main(argv)
-        torch.cuda.synchronize()
-        seconds = time.time() - t0
-        launches = {"gather_rows_lerp": gather_rows_lerp.launches,
-                    "gather_rows_lerp_bwd": gather_rows_lerp_bwd.launches,
-                    "gather_bilerp": gather_bilerp.launches,
-                    "fused_resnetfc_infer": fused_resnetfc_infer.launches}
+        trainer, lines, seconds, launches = run_app(train_app, argv)
         saved = load_variables(os.path.join(tmp, "ck", "chip_smoke"))
-    lines = out.getvalue().splitlines()
+        visuals = sorted(os.listdir(os.path.join(tmp, "vis", "chip_smoke")))
     losses = [float(l.split(" t:")[1].split()[0]) for l in lines if l.startswith("E")]
     evals = [l for l in lines if l.startswith("*** eval:")]
     steps = epochs * batches
-    # unchunked train steps: 2 gathers and 2 backwards each; the trainer's
-    # eval (batch 1 of each epoch) renders through kernel A, 2 launches
+    # unchunked train steps: 2 gathers and 2 backwards each; at batch 1 of
+    # each epoch the trainer's eval renders through kernel A (2 launches)
+    # and so does its visual, one full view in chunks of VIS_RAY_CHUNK rays
     expect = {"gather_rows_lerp": 2 * steps, "gather_rows_lerp_bwd": 2 * steps,
-              "gather_bilerp": 2 * epochs, "fused_resnetfc_infer": 0}
+              "gather_bilerp": (2 + 2 * vis_chunks()) * epochs, "fused_resnetfc_infer": 0,
+              "fused_gather_resnetfc_infer": 0}
     res = {"phase": "train_app", "argv": argv[2:], "seconds": seconds, "steps": trainer.step,
            "printed_losses": losses, "evals": len(evals), "checkpoint_step": saved and saved["step"],
-           "launches": launches, "expected_launches": expect}
+           "visuals": visuals, "launches": launches, "expected_launches": expect}
     emit(res)
     if launches != expect:
         raise AssertionError(f"train app: launch counts {launches} != expected {expect}")
     if trainer.step != steps or not saved or saved["step"] != steps or len(evals) != epochs:
         raise AssertionError(f"train app: steps {trainer.step}, checkpoint {saved and saved['step']}, "
                              f"evals {len(evals)}")
+    if len(visuals) != epochs:
+        raise AssertionError(f"train app: visuals {visuals}")
     if not losses or not all(math.isfinite(v) for v in losses):
         raise AssertionError(f"train app: printed losses {losses}")
     return res
@@ -872,6 +908,257 @@ def train_kernel_vs_plain(dev):
     if not (loss_err <= tol["loss"] and grad_err <= tol["grad_rel"] and clear_err <= tol["param_clear_sign"]
             and any_err <= tol["param_any"]):
         raise AssertionError(f"train step through the kernels disagrees with the plain step: {res['max_abs_err']}")
+    return res
+
+
+# the SRN evaluation workflow: SRN cars' test split has 251 views of each
+# object and its train split 50; 2 objects, 8 target views each, source
+# view 64 as in the reference's evaluation
+SRN_OBJECTS = 2
+SRN_VIEWS = {"train": 50, "val": 50, "test": 251}
+SRN_SOURCE = 64
+SRN_TARGETS = (0, 31, 63, 95, 127, 159, 191, 250)
+
+
+def write_srn_fixture(root):
+    """An SRN-layout ``cars`` dataset with train, val and test splits of
+    SRN_OBJECTS objects, SRN_VIEWS[split] views each at IMAGE^2, rendered by
+    the port's synthetic scenes (cameras at radius 1.3) and written by the
+    port's PNG writer with the five row filters in turn, so that reading
+    them takes the reader's wavefront path, as adaptively filtered files
+    (Pillow's) do; poses stored before the reader's coordinate flip, as SRN
+    stores them. Returns the dataset path (``-D``)."""
+    import numpy as np
+
+    from pixelnerf_tpu_torch.data import SyntheticSphereDataset
+    from pixelnerf_tpu_torch.utils import png
+
+    flip = np.diag([1.0, -1.0, -1.0, 1.0]).astype(np.float32)
+    for stage in ("train", "val", "test"):
+        ds = SyntheticSphereDataset(num_objects=SRN_OBJECTS, num_views=SRN_VIEWS[stage],
+                                    image_size=(IMAGE, IMAGE), radius=1.3, stage=stage, cache_cap=0)
+        for i in range(len(ds)):
+            d = ds[i]
+            obj = os.path.join(root, f"cars_{stage}", f"{stage}_{i:02d}")
+            os.makedirs(os.path.join(obj, "rgb"))
+            os.makedirs(os.path.join(obj, "pose"))
+            with open(os.path.join(obj, "intrinsics.txt"), "w") as f:
+                f.write(f"{d['focal']} {d['c'][0]} {d['c'][1]} 0.\n0. 0. 0.\n1.\n{IMAGE} {IMAGE}\n")
+            for v in range(SRN_VIEWS[stage]):
+                png.imwrite(os.path.join(obj, "rgb", f"{v:06d}.png"),
+                            ((d["images"][v] * 0.5 + 0.5) * 255).astype(np.uint8), filters=np.arange(IMAGE) % 5)
+                np.savetxt(os.path.join(obj, "pose", f"{v:06d}.txt"), (d["poses"][v] @ flip).reshape(1, 16))
+    return os.path.join(root, "cars")
+
+
+def png_decode_ms(paths, data):
+    """Host ms per image of reading the fixture's IMAGE^2 RGB files (five
+    row filters): 50 of them one at a time (``png.imread``) and all of one
+    object's views in one call (``png.imread_many``, as the SRN reader
+    reads them); and host ms of the SRN reader's ``__getitem__`` (decode,
+    poses, masks, bboxes) for the first object of each split. Both reads
+    must give the same pixels."""
+    import numpy as np
+
+    from pixelnerf_tpu_torch.data import get_split_dataset
+    from pixelnerf_tpu_torch.utils import png
+
+    t0 = time.perf_counter()
+    one = [png.imread(p) for p in paths[:50]]
+    single_ms = (time.perf_counter() - t0) * 1e3 / len(one)
+    t0 = time.perf_counter()
+    many = png.imread_many(paths)
+    many_ms = (time.perf_counter() - t0) * 1e3 / len(paths)
+    if not all(np.array_equal(a, b) for a, b in zip(one, many)):
+        raise AssertionError("png: imread_many differs from imread")
+    res = {"imread_rgb": single_ms, "imread_many_rgb": many_ms, "images": len(paths)}
+    for stage in ("train", "test"):
+        ds = get_split_dataset("srn", data, stage, image_size=(IMAGE, IMAGE))
+        t0 = time.perf_counter()
+        ds[0]
+        res[f"srn_item_ms_{stage}_{SRN_VIEWS[stage]}_views"] = (time.perf_counter() - t0) * 1e3
+    return res
+
+
+def psnr_interval_from_png(pred_u8, gt):
+    """The PSNR of a float render whose ``(x * 255).astype(uint8)`` is
+    ``pred_u8``, bounded from the written image: the float differs from
+    ``pred_u8 / 255`` by [0, 1/255) per value, so its MSE lies within
+    2 sqrt(mse) / 255 + 1/255^2 of the image's."""
+    import numpy as np
+
+    e = pred_u8.astype(np.float64) / 255.0 - np.asarray(gt, np.float64)
+    mse = float(np.mean(e * e))
+    d = 2.0 * math.sqrt(mse) / 255.0 + 1.0 / 255.0 ** 2
+    lo_mse, hi_mse = max(mse - d, 1e-30), mse + d
+    return -10.0 * math.log10(hi_mse), -10.0 * math.log10(lo_mse)
+
+
+def run_srn_workflow(dev):
+    """The user's SRN evaluation workflow on the card, on an SRN-layout
+    fixture: ``apps.train -F srn`` (kernels C and C-bwd; its eval and
+    visual through kernel A), ``apps.eval`` with depth and comparison
+    images (kernel A), ``apps.eval`` again (resumed from ``finish.txt``),
+    ``apps.eval_approx`` with two objects in one batch (kernel A on a
+    two-scene table). Each app's kernel counts are set to 0 just before it
+    and read just after, and held to the counts its chunking gives; one
+    object's eval render through kernel A is held bit for bit to the same
+    render through its plain version on the same draws; the PSNR in
+    ``finish.txt`` is held to the written images; file counts, finite
+    values and rgb in [0, 1] are checked."""
+    import contextlib
+    import io
+    import tempfile
+
+    import numpy as np
+
+    from pixelnerf_tpu_torch.apps import eval as eval_app
+    from pixelnerf_tpu_torch.apps import eval_approx
+    from pixelnerf_tpu_torch.apps import train as train_app
+    from pixelnerf_tpu_torch.apps.args import parse_args
+    from pixelnerf_tpu_torch.data import get_split_dataset
+    from pixelnerf_tpu_torch.eval import FullRenderer
+    from pixelnerf_tpu_torch.utils import png
+    from pixelnerf_tpu_torch.utils.exr import read_exr
+
+    os.environ["PIXELNERF_NO_TB"] = "1"
+    conf = os.path.join(REPO, "conf", "exp", "srn.conf")
+    seconds = {}
+    res = {"phase": "srn_workflow", "objects": SRN_OBJECTS, "views_per_object": SRN_VIEWS,
+           "image": IMAGE, "source": SRN_SOURCE, "targets": list(SRN_TARGETS)}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.time()
+        data = write_srn_fixture(os.path.join(tmp, "data"))
+        seconds["write_fixture"] = time.time() - t0
+        rgb_dir = os.path.join(tmp, "data", "cars_test", "test_00", "rgb")
+        res["png_decode_ms"] = png_decode_ms([os.path.join(rgb_dir, f) for f in sorted(os.listdir(rgb_dir))], data)
+        common = ["-c", conf, "-F", "srn", "-D", data, "--device", str(dev),
+                  "--checkpoints_path", os.path.join(tmp, "ck")]
+
+        # 1. train: 1 epoch x 2 batches of 2 objects x 128 rays (f32), with
+        # its eval, visual and checkpoint at batch 1 and a checkpoint at
+        # the epoch's end
+        argv = common + ["-B", "2", "--epochs", "1", "--epoch_batches", "2", "--workers", "1",
+                         "--logs_path", os.path.join(tmp, "logs"), "--visual_path", os.path.join(tmp, "vis")]
+        trainer, lines, seconds["train"], launches = run_app(train_app, argv)
+        expect = {"gather_rows_lerp": 2 * 2, "gather_rows_lerp_bwd": 2 * 2,
+                  "gather_bilerp": 2 + 2 * vis_chunks(), "fused_resnetfc_infer": 0,
+                  "fused_gather_resnetfc_infer": 0}
+        losses = [float(l.split(" t:")[1].split()[0]) for l in lines if l.startswith("E")]
+        visuals = os.listdir(os.path.join(tmp, "vis", "example"))
+        res["train"] = {"steps": trainer.step, "rays_per_object": trainer.train_pipeline.rays_per_object,
+                        "losses": losses, "visuals": visuals,
+                        "launches": launches, "expected_launches": expect}
+        if launches != expect:
+            raise AssertionError(f"srn_workflow train: launch counts {launches} != expected {expect}")
+        if trainer.step != 2 or not losses or not all(math.isfinite(v) for v in losses) or len(visuals) != 1:
+            raise AssertionError(f"srn_workflow train: steps {trainer.step}, losses {losses}, visuals {visuals}")
+
+        # 2. eval: 8 target views of each object from source view 64
+        view_list = os.path.join(tmp, "views.txt")
+        with open(view_list, "w") as f:
+            f.write(" ".join(str(v) for v in SRN_TARGETS) + "\n")
+        out_dir = os.path.join(tmp, "eval_out")
+        argv = common + ["-P", str(SRN_SOURCE), "--eval_view_list", view_list, "--write_depth",
+                         "--write_compare", "-O", out_dir]
+        _, lines, seconds["eval"], launches = run_app(eval_app, argv)
+        chunk = int(parse_args(eval_app.extra_args, argv=argv)[0].ray_batch_size)
+        per_object = 2 * -(-len(SRN_TARGETS) * IMAGE * IMAGE // chunk)
+        expect = {"gather_rows_lerp": 0, "gather_rows_lerp_bwd": 0, "gather_bilerp": per_object * SRN_OBJECTS,
+                  "fused_resnetfc_infer": 0, "fused_gather_resnetfc_infer": 0}
+        finish = open(os.path.join(out_dir, "finish.txt")).read().splitlines()
+        res["eval"] = {"ray_chunk": chunk, "printed": [l for l in lines if "psnr" in l], "finish": finish,
+                       "launches": launches, "expected_launches": expect,
+                       "gather_bilerp_launches_per_view": launches["gather_bilerp"] / (len(SRN_TARGETS) * SRN_OBJECTS)}
+        if launches != expect:
+            raise AssertionError(f"srn_workflow eval: launch counts {launches} != expected {expect}")
+        if len(finish) != SRN_OBJECTS or not any(l.startswith("FINAL psnr") for l in lines):
+            raise AssertionError(f"srn_workflow eval: finish.txt {finish}, printed {lines[-3:]}")
+        test_set = get_split_dataset("srn", data, "test", image_size=(IMAGE, IMAGE))
+        for obj_idx, line in enumerate(finish):
+            name, psnr, ssim, n = line.split()
+            obj_dir = os.path.join(out_dir, name)
+            files = sorted(os.listdir(obj_dir))
+            want = sorted(f"{v:06d}{suffix}" for v in SRN_TARGETS
+                          for suffix in (".png", "_compare.png", "_depth.exr", "_depth_norm.png"))
+            if files != want or int(n) != len(SRN_TARGETS):
+                raise AssertionError(f"srn_workflow eval: {name} holds {files}, n {n}")
+            gt = test_set[obj_idx]["images"] * 0.5 + 0.5
+            bounds = [psnr_interval_from_png(png.imread(os.path.join(obj_dir, f"{v:06d}.png")), gt[v])
+                      for v in SRN_TARGETS]
+            lo, hi = (sum(b[i] for b in bounds) / len(bounds) for i in (0, 1))
+            depth = read_exr(os.path.join(obj_dir, f"{SRN_TARGETS[0]:06d}_depth.exr"))
+            if not (lo <= float(psnr) <= hi and math.isfinite(float(ssim)) and np.isfinite(depth).all()):
+                raise AssertionError(f"srn_workflow eval: {name} psnr {psnr} outside [{lo}, {hi}] "
+                                     f"from its images, or non-finite ssim/depth")
+            res["eval"].setdefault("psnr_from_png", []).append([lo, hi])
+
+        # 3. resume: both objects are in finish.txt, nothing is rendered
+        _, lines, seconds["eval_resume"], launches = run_app(eval_app, argv)
+        resumed = open(os.path.join(out_dir, "finish.txt")).read().splitlines()
+        res["eval_resume"] = {"launches": launches, "finish_unchanged": resumed == finish}
+        if resumed != finish or any(launches.values()) or not any(l.startswith("FINAL psnr") for l in lines):
+            raise AssertionError(f"srn_workflow resume: finish {resumed}, launches {launches}")
+
+        # 4. eval_approx: both objects in one SB = 2 batch
+        argv = common + ["-P", str(SRN_SOURCE), "-B", str(SRN_OBJECTS)]
+        approx, lines, seconds["eval_approx"], launches = run_app(eval_approx, argv)
+        chunk = int(parse_args(eval_approx.extra_args, argv=argv)[0].ray_batch_size)
+        expect = {"gather_rows_lerp": 0, "gather_rows_lerp_bwd": 0,
+                  "gather_bilerp": 2 * -(-IMAGE * IMAGE // chunk), "fused_resnetfc_infer": 0,
+                  "fused_gather_resnetfc_infer": 0}
+        res["eval_approx"] = {"psnr_ssim": approx, "launches": launches, "expected_launches": expect}
+        if launches != expect:
+            raise AssertionError(f"srn_workflow eval_approx: launch counts {launches} != expected {expect}")
+        if approx is None or not all(math.isfinite(v) for v in approx):
+            raise AssertionError(f"srn_workflow eval_approx: {approx}")
+
+        # 5. one object's eval render through kernel A and through its plain
+        # version, the same checkpoint and draws: bit for bit
+        args, cfg_tree = parse_args(eval_app.extra_args, argv=common + ["-P", str(SRN_SOURCE)])
+        with contextlib.redirect_stdout(io.StringIO()):
+            net = eval_app.load_net_and_state(args, cfg_tree, dev)
+        cfg = eval_app.eval_render_config(cfg_tree, test_set, coarse=False)
+        d = test_set[0]
+        src, targets = np.array([SRN_SOURCE]), np.array(SRN_TARGETS)
+        renders = {}
+        for use_kernels in (True, False):
+            renderer = FullRenderer(net, cfg, ray_chunk=args.ray_batch_size, use_kernels=use_kernels)
+            gen = torch.Generator(device=dev).manual_seed(9)
+            torch.cuda.synchronize()
+            t0 = time.time()
+            renders[use_kernels] = eval_app.render_object(renderer, d, src, targets, test_set.z_near,
+                                                          test_set.z_far, generator=gen)
+            torch.cuda.synchronize()
+            seconds["render_" + ("kernels" if use_kernels else "plain")] = time.time() - t0
+        (rgb_k, depth_k), (rgb_p, depth_p) = renders[True], renders[False]
+        err = {"rgb": (rgb_k - rgb_p).abs().max().item(), "depth": (depth_k - depth_p).abs().max().item()}
+        res["kernel_vs_plain"] = {"max_abs_err": err, "tolerance": 0.0,
+                                  "rgb_range": [rgb_k.min().item(), rgb_k.max().item()],
+                                  "depth_range": [depth_k.min().item(), depth_k.max().item()]}
+        finite = bool(torch.isfinite(rgb_k).all() and torch.isfinite(depth_k).all())
+    views = len(SRN_TARGETS) * SRN_OBJECTS
+    res["seconds"] = seconds
+    # each of the 2 batches pulls 2 objects of the train split; batch 1 also
+    # runs the trainer's eval, its visual and a checkpoint
+    res["train_seconds_per_batch"] = seconds["train"] / 2
+    res["eval_ms_per_view"] = seconds["eval"] * 1e3 / views
+    res["render_ms_per_view"] = seconds["render_kernels"] * 1e3 / len(SRN_TARGETS)
+    res["launches"] = {k: sum(res[p]["launches"][k] for p in ("train", "eval", "eval_approx"))
+                       for k in ("gather_bilerp", "gather_rows_lerp", "gather_rows_lerp_bwd")}
+    # rgb = sum(w c) + (1 - sum(w)) over the fine pass's K samples is at
+    # most 1 in exact arithmetic; float32 rounds each K-term sum by at most
+    # (K - 1) 2^-24 and each of the two adds by 2^-24, so the render may
+    # pass 1 by that much (the app clips before it writes)
+    k = cfg.n_coarse + cfg.n_fine
+    rgb_rounding = 2 * k * 2.0 ** -24
+    res["kernel_vs_plain"]["rgb_rounding_allowance"] = rgb_rounding
+    res["card"] = nvidia_smi_line()
+    emit(res)
+    if max(err.values()) != 0.0:
+        raise AssertionError(f"srn_workflow: eval render through kernel A differs from plain: {err}")
+    if not (finite and rgb_k.min() >= 0 and rgb_k.max() <= 1 + rgb_rounding):
+        raise AssertionError(f"srn_workflow: render out of range: {res['kernel_vs_plain']}")
     return res
 
 
@@ -1057,6 +1344,11 @@ def main():
             train_launches[k] += res["launches"][k]
     train_kernel_vs_plain(dev)
 
+    # the SRN evaluation workflow: train, eval, resume, eval_approx
+    srn = run_srn_workflow(dev)
+    for k in train_launches:
+        train_launches[k] += srn["launches"][k]
+
     # the fused and baked field paths: their kernels at the paths' shapes
     with torch.inference_mode():
         res_b_tz = check_kernel_b_tz(dev, g, net.mlp_fine)
@@ -1101,10 +1393,11 @@ def main():
 
     keys = ("name", "route", "source", "replaces", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")
-    # launches: A and B over the staged inference path, B's z_is_tz variant
-    # over the baked path, D over the fused path, C and C-bwd over both
-    # training configs and the train app, the study's formulations over
-    # its bench script
+    # launches: A over the staged inference path and the SRN workflow, B
+    # over the staged path, B's z_is_tz variant over the baked path, D over
+    # the fused path, C and C-bwd over both training configs, the train app
+    # and the SRN workflow, the study's formulations over its bench script
+    launches["gather_bilerp"] += srn["launches"]["gather_bilerp"]
     launches.update(train_launches)
     launches["fused_resnetfc_infer[z_is_tz]"] = baked_res["launches"]["fused_resnetfc_infer"]
     launches["fused_gather_resnetfc_infer"] = fused_res["launches"]["fused_gather_resnetfc_infer"]

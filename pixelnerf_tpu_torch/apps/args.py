@@ -34,6 +34,7 @@ def parse_args(
     parser.add_argument("--exp_group_name", "-G", type=str, default=None)
     parser.add_argument("--logs_path", type=str, default="logs")
     parser.add_argument("--checkpoints_path", type=str, default="checkpoints")
+    parser.add_argument("--visual_path", type=str, default="visuals")
     parser.add_argument("--epochs", type=int, default=10000000)
     parser.add_argument("--datadir", "-D", type=str, default=None)
     parser.add_argument("--ray_batch_size", "-R", type=int, default=default_ray_batch_size)
@@ -50,6 +51,7 @@ def parse_args(
     if args.exp_group_name is not None:
         args.logs_path = os.path.join(args.logs_path, args.exp_group_name)
         args.checkpoints_path = os.path.join(args.checkpoints_path, args.exp_group_name)
+        args.visual_path = os.path.join(args.visual_path, args.exp_group_name)
 
     expconf_path = os.path.join(REPO_ROOT, "expconf.conf")
     expconf = load_config(expconf_path) if os.path.exists(expconf_path) else ConfigNode()

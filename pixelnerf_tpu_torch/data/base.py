@@ -1,5 +1,5 @@
-"""Dataset protocol + host-side helpers (numpy, NHWC; the port's own copy
-of ``pixelnerf_tpu/data/base.py``, without the image readers' helpers).
+"""Dataset protocol + host-side image helpers (numpy, NHWC; the port's own
+copy of ``pixelnerf_tpu/data/base.py``).
 
 Every adapter returns, per object, a dict with the same schema as the
 reference's datasets (SURVEY §2: src/data/*):
@@ -14,12 +14,28 @@ reference's datasets (SURVEY §2: src/data/*):
       "poses":  (NV, 4, 4) float32 camera-to-world,
     }
 
-plus dataset attributes ``z_near``, ``z_far``. Layout is NHWC,
-as in the JAX package.
+plus dataset attributes ``z_near``, ``z_far``, ``lindisp``. Layout is
+NHWC, as in the JAX package.
 """
 from __future__ import annotations
 
 import numpy as np
+
+from ..ops.resize import _area_matrix
+
+
+def image_to_tensor(img: np.ndarray) -> np.ndarray:
+    """uint8 (H, W, 3) -> float32 [-1, 1] (reference util.py:68-75 transform)."""
+    img = np.asarray(img, dtype=np.float32) / 255.0
+    return (img - 0.5) / 0.5
+
+
+def mask_to_tensor(mask: np.ndarray) -> np.ndarray:
+    """uint8 (H, W) or (H, W, 1) -> float32 (H, W, 1) in [0, 1]."""
+    mask = np.asarray(mask, dtype=np.float32) / 255.0
+    if mask.ndim == 2:
+        mask = mask[..., None]
+    return mask[..., :1]
 
 
 def mask_bbox(mask: np.ndarray) -> np.ndarray:
@@ -38,6 +54,17 @@ def mask_bbox(mask: np.ndarray) -> np.ndarray:
     return np.array([cmin, rmin, cmax, rmax], dtype=np.float32)
 
 
+def resize_area_np(images: np.ndarray, out_h: int, out_w: int) -> np.ndarray:
+    """Adaptive-average ('area') downscale of (N, H, W, C), torch-compatible."""
+    _, h, w, _ = images.shape
+    if (h, w) == (out_h, out_w):
+        return images
+    mh = _area_matrix(out_h, h)
+    mw = _area_matrix(out_w, w)
+    x = np.einsum("oh,nhwc->nowc", mh, images.astype(np.float32))
+    return np.einsum("pw,nowc->nopc", mw, x)
+
+
 class DatasetBase:
     """Minimal sequence protocol shared by all adapters, plus an optional
     bounded decoded-object cache (re-decoding every object on every pull
@@ -48,6 +75,7 @@ class DatasetBase:
 
     z_near: float
     z_far: float
+    lindisp: bool = False
 
     def __len__(self) -> int:  # pragma: no cover - abstract
         raise NotImplementedError

@@ -1,1 +1,1 @@
-from .common import FullRenderer  # noqa: F401
+from .common import FullRenderer, depth_cmap, resize_area_like_cv2  # noqa: F401

@@ -26,12 +26,18 @@ class PositionalEncoding:
     def d_out(self) -> int:
         return self.num_freqs * 2 * self.d_in + (self.d_in if self.include_input else 0)
 
-    def __call__(self, x: torch.Tensor) -> torch.Tensor:
-        """(..., d_in) -> (..., d_out)."""
+    def tables(self):
+        """(frequencies, phases), each (2 * num_freqs,) float32: the
+        reference module's ``_freqs`` and ``_phases`` buffers, flattened."""
         freqs = self.freq_factor * 2.0 ** np.arange(self.num_freqs, dtype=np.float32)
         freqs2 = np.repeat(freqs, 2).astype(np.float32)        # f1 f1 f2 f2 ...
         phases = np.zeros(2 * self.num_freqs, dtype=np.float32)
         phases[1::2] = math.pi * 0.5                            # sin, cos, ...
+        return freqs2, phases
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        """(..., d_in) -> (..., d_out)."""
+        freqs2, phases = self.tables()
         freqs2 = torch.as_tensor(freqs2, device=x.device, dtype=x.dtype)
         phases = torch.as_tensor(phases, device=x.device, dtype=x.dtype)
         embed = torch.sin(x[..., None, :] * freqs2[:, None] + phases[:, None])

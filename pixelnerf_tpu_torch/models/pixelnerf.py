@@ -291,6 +291,26 @@ def _heads(out: torch.Tensor) -> torch.Tensor:
     return torch.cat([torch.sigmoid(out[..., :3]), torch.relu(out[..., 3:4])], dim=-1)
 
 
+def coarse_only(net: PixelNeRFNet) -> PixelNeRFNet:
+    """A ``PixelNeRFNet`` that shares every module of ``net`` but has no
+    fine MLP, so the fine pass runs the coarse MLP (the eval apps'
+    ``--coarse``; the JAX package's ``net.clone(mlp_fine=None)``). ``net``
+    itself is left as it is."""
+    return PixelNeRFNet(
+        encoder=net.encoder,
+        mlp_coarse=net.mlp_coarse,
+        mlp_fine=None,
+        code=net.code,
+        use_encoder=net.use_encoder,
+        use_xyz=net.use_xyz,
+        normalize_z=net.normalize_z,
+        use_code_viewdirs=net.use_code_viewdirs,
+        use_viewdirs=net.use_viewdirs,
+        stop_encoder_grad=net.stop_encoder_grad,
+        latent_dtype=net.latent_dtype,
+    ).train(net.training)
+
+
 def pack_encoding(net: PixelNeRFNet, enc: SceneEncoding) -> SceneEncoding:
     """Prepare the feature rows read by the fused gather+MLP kernel
     (:meth:`PixelNeRFNet.query_fused`): the latent map rounded to bf16,

@@ -15,11 +15,16 @@ tree as nested dicts of numpy arrays. Layout transforms:
 
 :func:`from_jax_opt_state` carries an optax Adam state's moments through
 the same map into a ``torch.optim.Adam`` state dict.
+
+:func:`load_reference_state_dict` loads the reference implementation's
+``pixel_nerf_latest`` state_dict (the port's modules use its module paths),
+and :func:`load_pretrained_encoder` a torchvision ResNet state_dict into the
+encoder's trunk.
 """
 from __future__ import annotations
 
 import re
-from typing import Dict, Tuple
+from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -115,3 +120,75 @@ def from_jax_opt_state(adam, model: nn.Module, optimizer: torch.optim.Optimizer)
             state[index] = {"step": step.clone(), "exp_avg": mu[name], "exp_avg_sq": nu[name]}
             index += 1
     return {"state": state, "param_groups": sd["param_groups"]}
+
+
+# persistent buffers of the reference's modules that the port does not keep:
+# the positional code's tables (recomputed from the config, and held to it
+# below) and the conditioning state the reference caches on its modules
+REFERENCE_BUFFERS = {"poses", "image_shape", "focal", "c", "latent", "latent_scaling", "_freqs", "_phases"}
+_TRUNK_STAGE = re.compile(r"^encoder\.model\.(?:layer(\d+)|fc)\.")
+
+
+def load_reference_state_dict(model: nn.Module, state_dict: Dict[str, torch.Tensor]) -> List[str]:
+    """Load a reference ``pixel_nerf_latest`` state_dict into the port's
+    ``PixelNeRFNet`` (strictly: every parameter and running statistic must
+    be there with its shape). Keys the port has no place for are accounted
+    for by name and returned; any other raises:
+
+    - the reference's buffers in ``REFERENCE_BUFFERS`` (``code._freqs`` and
+      ``code._phases`` must equal the port's positional code);
+    - the trunk's stages the truncated encoder does not run (torchvision's
+      ``layer{k}`` for k >= ``num_layers``, ``fc``);
+    - ``num_batches_tracked`` the port's batch norms do not have.
+
+    ``num_batches_tracked`` missing from the file (a checkpoint exported
+    by the JAX package) keeps the model's value."""
+    own = model.state_dict()
+    load, skipped, unexpected = {}, [], []
+    for key, value in state_dict.items():
+        leaf = key.rsplit(".", 1)[-1]
+        stage = _TRUNK_STAGE.match(key)
+        if key in own:
+            load[key] = torch.as_tensor(value)
+        elif leaf in REFERENCE_BUFFERS or leaf == "num_batches_tracked":
+            if leaf in ("_freqs", "_phases"):
+                code = getattr(model, "code", None)
+                want = None if code is None else code.tables()[leaf == "_phases"]
+                got = np.asarray(torch.as_tensor(value).float().reshape(-1))
+                if want is None or got.shape != want.shape or not np.allclose(got, want, rtol=1e-6, atol=0):
+                    raise ValueError(f"{key} does not match the model's positional code")
+            skipped.append(key)
+        elif stage and (stage.group(1) is None or int(stage.group(1)) >= model.encoder.num_layers):
+            skipped.append(key)
+        else:
+            unexpected.append(key)
+    missing = [k for k in own if k not in load and not k.endswith("num_batches_tracked")]
+    if missing or unexpected:
+        raise ValueError(f"reference checkpoint mismatch: missing {missing}, unexpected {unexpected}")
+    model.load_state_dict({**own, **load}, strict=True)
+    return skipped
+
+
+def load_pretrained_encoder(model: nn.Module, state_dict: Dict[str, torch.Tensor]) -> None:
+    """Initialise the encoder's trunk (``model.encoder.model``) from a
+    torchvision ResNet state_dict (ImageNet weights, as the reference
+    starts from). Only the tensors the trunk has are taken (a
+    ``num_layers`` < 5 encoder ignores the deeper stages and ``fc``); a
+    missing tensor or a shape mismatch raises with its name."""
+    if "state_dict" in state_dict:         # a training script's {"state_dict": ...} wrapper
+        state_dict = state_dict["state_dict"]
+    trunk = model.encoder.model
+    own = trunk.state_dict()
+    new = {}
+    for key, value in own.items():
+        if key not in state_dict:
+            if key.endswith("num_batches_tracked"):
+                continue
+            raise ValueError(f"pretrained encoder missing tensor {key}")
+        src = torch.as_tensor(state_dict[key])
+        if tuple(src.shape) != tuple(value.shape):
+            raise ValueError(
+                f"pretrained encoder shape mismatch at {key}: {tuple(src.shape)} vs model {tuple(value.shape)}"
+            )
+        new[key] = src
+    trunk.load_state_dict({**own, **new}, strict=True)

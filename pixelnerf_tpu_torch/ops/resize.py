@@ -1,9 +1,10 @@
-"""Torch-compatible bilinear resizing as separable matmuls.
+"""Torch-compatible resizing as separable matmuls.
 
-Counterpart of ``pixelnerf_tpu/ops/resize.py`` ``resize_bilinear``: the
+Counterpart of ``pixelnerf_tpu/ops/resize.py``: ``resize_bilinear`` (the
 encoder upsamples each ResNet stage to the first stage's resolution with
-``align_corners=True`` before the channel concat. The same explicit 1-D
-interpolation matrices as the JAX package, contracted in float32.
+``align_corners=True`` before the channel concat) and the adaptive-average
+("area") matrix that the datasets' host-side downscale contracts. The same
+explicit 1-D matrices as the JAX package, contracted in float32.
 """
 from __future__ import annotations
 
@@ -28,6 +29,17 @@ def _bilinear_matrix(out_size: int, in_size: int, align_corners: bool) -> np.nda
         w = src - lo
         m[o, lo] += 1.0 - w
         m[o, hi] += w
+    return m
+
+
+@functools.lru_cache(maxsize=128)
+def _area_matrix(out_size: int, in_size: int) -> np.ndarray:
+    """(out_size, in_size) adaptive-average (torch 'area' mode) matrix."""
+    m = np.zeros((out_size, in_size), dtype=np.float32)
+    for o in range(out_size):
+        lo = (o * in_size) // out_size
+        hi = -(-((o + 1) * in_size) // out_size)  # ceil
+        m[o, lo:hi] = 1.0 / (hi - lo)
     return m
 
 

@@ -1,21 +1,25 @@
 """Training harness (counterpart of ``pixelnerf_tpu/train/trainer.py``).
 
-The epoch/batch loop with interval-driven side effects (print, eval, save),
-Adam with an optional staircase exponential LR decay per epoch, gradient
-accumulation, crash-tolerant checkpoints, TensorBoard scalars where
-available, resume, and the sample-count schedule. Hooks: ``post_batch``,
-``extra_save_state``.
+The epoch/batch loop with interval-driven side effects (print, eval, save,
+vis), Adam with an optional staircase exponential LR decay per epoch,
+gradient accumulation, crash-tolerant checkpoints, TensorBoard scalars
+where available, resume, and the sample-count schedule. Hooks:
+``post_batch``, ``extra_save_state``; ``vis_fn(generator, epoch,
+batch_idx) -> (image or None, metrics)`` renders the visual that is
+written as ``<visual_dir>/<epoch>_<batch>_vis.png``.
 """
 from __future__ import annotations
 
 import os
 import time
-from typing import Iterable, Optional
+from typing import Callable, Iterable, Optional
 
+import numpy as np
 import torch
 
 from ..config import ConfigNode
 from ..render.renderer import RenderConfig
+from ..utils import png
 from .loss import make_render_loss
 from .state import load_checkpoint, save_checkpoint
 from .step import make_eval_step, make_train_step
@@ -37,11 +41,13 @@ class Trainer:
         epoch_batches: int = 1000,
         train_encoder: bool = True,
         resume: bool = False,
+        vis_fn: Optional[Callable] = None,
         render_schedule=None,
         train_ray_chunk=None,
         train_remat=True,
         seed: int = 0,
         ckpt_dir: Optional[str] = None,
+        visual_dir: Optional[str] = None,
         log_dir: Optional[str] = None,
     ):
         self.net = net
@@ -50,18 +56,22 @@ class Trainer:
         self.name = name
         self.num_epochs = num_epochs
         self.epoch_batches = epoch_batches
+        self.vis_fn = vis_fn
 
         tconf = conf.get_config("train", None) or ConfigNode()
         get = tconf.get_int
         self.print_interval = get("print_interval", 2)
         self.save_interval = get("save_interval", 50)
+        self.vis_interval = get("vis_interval", 100)
         self.eval_interval = get("eval_interval", 50)
         self.accu_grad = get("accu_grad", 1)
         self.num_epoch_repeats = get("num_epoch_repeats", 1)
 
         self.ckpt_dir = ckpt_dir or os.path.join(out_dir, "checkpoints", name)
+        self.visual_dir = visual_dir or os.path.join(out_dir, "visuals", name)
         self._log_dir = log_dir or os.path.join(out_dir, "logs", name)
         os.makedirs(self.ckpt_dir, exist_ok=True)
+        os.makedirs(self.visual_dir, exist_ok=True)
 
         # per-epoch ExponentialLR as a staircase: an epoch is
         # epoch_batches * num_epoch_repeats optimizer updates
@@ -95,6 +105,7 @@ class Trainer:
         self._base_seed = int(seed) & 0x7FFFFFFF
         self._seed_counter = 0
         self._eval_gen = self._generator(0)
+        self._vis_gen = self._generator(0xFFFFFFFF)   # a counter the steps never reach
 
         self.writer = None
         if os.environ.get("PIXELNERF_NO_TB") != "1":
@@ -214,5 +225,16 @@ class Trainer:
                     save_checkpoint(self.ckpt_dir, self.net, self.optimizer, self.step)
                     self.extra_save_state()
 
+                if self.vis_fn is not None and batch_idx % self.vis_interval == 1:
+                    vis, vis_metrics = self.vis_fn(self._vis_gen, epoch, batch_idx)
+                    if vis is not None:
+                        self._save_visual(vis, epoch, batch_idx)
+                    if vis_metrics:
+                        self._log("vis", vis_metrics, self.step)
+
                 self.post_batch(epoch, batch_idx)
             save_checkpoint(self.ckpt_dir, self.net, self.optimizer, self.step)
+
+    def _save_visual(self, vis: np.ndarray, epoch: int, batch_idx: int):
+        path = os.path.join(self.visual_dir, f"{epoch:04d}_{batch_idx:04d}_vis.png")
+        png.imwrite(path, (np.clip(vis, 0, 1) * 255).astype(np.uint8))

@@ -130,7 +130,7 @@ def test_synthetic_dataset_and_pipeline_match_jax():
         for k in a:
             np.testing.assert_array_equal(np.asarray(a[k]), np.asarray(b[k]), err_msg=k)
     assert get_split_dataset("synthetic", None, "val", **kw).seed == JaxSynthetic(stage="val", **kw).seed
-    for fmt in ("srn", "dvr", "multi_obj"):
+    for fmt in ("dvr", "dvr_gen", "dvr_dtu", "multi_obj"):   # srn is ported: tests/test_torch_data.py
         with pytest.raises(NotImplementedError):
             get_split_dataset(fmt, "data", "train")
 
@@ -238,6 +238,7 @@ def test_train_app_synthetic_two_by_two_and_resume(tmp_path, capsys, monkeypatch
         "--device", "cpu", "-B", "2", "-R", "32", "--workers", "1",
         "--train_ray_chunk", "16", "--train_remat", "features",
         "--checkpoints_path", str(tmp_path / "ck"), "--logs_path", str(tmp_path / "logs"),
+        "--visual_path", str(tmp_path / "vis"),
         "--override", "model.encoder.num_layers=2", "--override", "model.mlp_coarse.d_hidden=32",
         "--override", "model.mlp_fine.d_hidden=32", "--override", "renderer.n_coarse=8",
         "--override", "renderer.n_fine=4", "--override", "renderer.n_fine_depth=2",

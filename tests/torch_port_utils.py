@@ -170,3 +170,36 @@ def jax_chunk_draws(key, SB, B, cfg, ray_chunk=None, train=True):
 
 def t(x, dtype=torch.float32):
     return torch.from_numpy(np.asarray(x, np.float32)).to(dtype)
+
+
+def write_srn_fixture(root, name="cars", stages=("train", "val", "test"), num_objects=2, num_views=3,
+                      size=32, nested=False):
+    """An SRN-layout dataset ``<root>/<name>_<stage>/<obj>/{intrinsics.txt,
+    rgb/*.png, pose/*.txt}`` made from the JAX package's synthetic scenes,
+    written with imageio; poses stored before the readers' coordinate flip,
+    as SRN stores them. ``nested`` puts the train split's objects one
+    level down, in ``chairs_2.0_train`` (SRN's public chairs). Returns the
+    dataset path to pass as ``-D``."""
+    import imageio.v2 as imageio
+
+    from pixelnerf_tpu.data import SyntheticSphereDataset as JaxSynthetic
+
+    flip = np.diag([1.0, -1.0, -1.0, 1.0]).astype(np.float32)
+    for stage in stages:
+        ds = JaxSynthetic(num_objects=num_objects, num_views=num_views, image_size=(size, size),
+                          radius=1.3, stage=stage)
+        base = os.path.join(root, f"{name}_{stage}")
+        if nested and stage == "train":
+            base = os.path.join(base, "chairs_2.0_train")
+        for i in range(num_objects):
+            d = ds[i]
+            obj = os.path.join(base, f"{stage}{i}")
+            os.makedirs(os.path.join(obj, "rgb"))
+            os.makedirs(os.path.join(obj, "pose"))
+            with open(os.path.join(obj, "intrinsics.txt"), "w") as f:
+                f.write(f"{d['focal']} {d['c'][0]} {d['c'][1]} 0.\n0. 0. 0.\n1.\n{size} {size}\n")
+            for v in range(num_views):
+                img = ((d["images"][v] * 0.5 + 0.5) * 255).astype(np.uint8)
+                imageio.imwrite(os.path.join(obj, "rgb", f"{v:06d}.png"), img)
+                np.savetxt(os.path.join(obj, "pose", f"{v:06d}.txt"), (d["poses"][v] @ flip).reshape(1, 16))
+    return os.path.join(root, name)
