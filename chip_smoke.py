@@ -22,7 +22,10 @@ blocks, 64 coarse + 32 fine samples), weights random from a seed:
   5 steps); and the training app itself for a few steps;
 - the SRN evaluation workflow, f32, through the apps a user calls:
   ``apps.train -F srn`` -> ``apps.eval`` (and its resume) ->
-  ``apps.eval_approx`` on an SRN-layout fixture.
+  ``apps.eval_approx`` on an SRN-layout fixture;
+- the DTU workflow, f32, at three source views and 400x300
+  (``conf/exp/dtu.conf``): ``apps.train -F dvr_dtu -V 3`` ->
+  ``apps.eval -F dvr_dtu -P "22 25 28"`` on a DTU-layout fixture.
 
 Phases, one JSON line each:
 
@@ -38,7 +41,8 @@ Phases, one JSON line each:
    through their plain versions, on the same noise
 7. kernel_c and 8. kernel_c_bwd: kernel C (weighted 4-row gather) and its
    backward against their plain versions at the training path's shapes
-   (the backward also at the fine gather's and at a skewed input)
+   (the backward also at the fine gather's and at a skewed input, and
+   two of its launches held bit-equal, on bf16 and float32 tables)
 9. train: both training configs, with C's and C-bwd's launch counts read
    around each
 10. train_app: ``apps.train.main`` for 2 x 2 batches (f32, 4 x 128 rays),
@@ -71,6 +75,17 @@ Phases, one JSON line each:
     through A bit-equal to its plain version, ``finish.txt``'s PSNR
     against the written PNGs, seconds per step, ms per view and PNG
     decode ms
+20. dtu_workflow (run after 19): a DTU-layout fixture (3 scans x 49 views
+    at 400x300, DTU-like cameras: fx, fy ~ 720, an off-centre principal
+    point, P of two positive scales, a scale_mat), ``apps.train -F dvr_dtu -V
+    3`` for 2 batches of 4 x 128 rays with colour jitter (C, C-bwd; its
+    eval and 400x300 visual through A), ``apps.eval -P "22 25 28"`` of two
+    target views (A), the eval render through A bit-equal to its plain
+    version, ``finish.txt``'s PSNR against the written PNGs, C-bwd at the
+    DTU train step's 360,000-row f32 table (against plain, two launches
+    bit-equal), the NMR (``-F dvr``) and multi-object readers pulled on
+    this host with no imaging library loaded; launch counts per view and
+    per step, seconds per batch, ms per view, the DTU item's ms
 
 then the ``kernels`` line, the card's name and power limit, and
 ``{"ok": true, ...}`` as the last line. Any failure raises and exits
@@ -615,9 +630,26 @@ def check_kernel_c(dev, inputs):
     return res
 
 
+def c_bwd_deterministic(table, idx, w, grad_out):
+    """Two C-bwd launches on one input: whether both outputs hold the same
+    bits, and whether grad_table is its mirror's (each row's taps
+    ascending, ``row_owner_bwd_plain``) bit for bit."""
+    from pixelnerf_tpu_torch.ops.gather_rows import gather_rows_lerp_bwd, row_owner_bwd_plain
+
+    sys.path.insert(0, os.path.join(REPO, "scripts"))
+    from bench_gather_rows_bwd_torch import same_bits
+
+    gt, gw = gather_rows_lerp_bwd(table, idx, w, grad_out)
+    gt2, gw2 = gather_rows_lerp_bwd(table, idx, w, grad_out)
+    mirror, _ = row_owner_bwd_plain(table, idx, w, grad_out, want_w=False)
+    torch.cuda.synchronize()
+    return {"two_launches_bit_equal": same_bits(gt, gt2) and same_bits(gw, gw2),
+            "grad_table_bit_equal_to_mirror": same_bits(gt, mirror)}
+
+
 def c_bwd_against_plain(table, idx, w, grad_out):
-    """C-bwd on one input against its plain version, timed; raises if the
-    two disagree."""
+    """C-bwd on one input against its plain version, timed, and two of its
+    launches against each other; raises if they disagree."""
     from pixelnerf_tpu_torch.ops.gather_rows import gather_rows_lerp_bwd, gather_rows_lerp_bwd_plain
 
     n, c = idx.shape[0], table.shape[1]
@@ -626,19 +658,27 @@ def c_bwd_against_plain(table, idx, w, grad_out):
     rt, rw = gather_rows_lerp_bwd_plain(table, idx, w, grad_out)
     err_t = (gt.float() - rt.float()).abs().max().item()
     err_w = (gw - rw).abs().max().item()
-    # float32 sums in another order (the index's order within a row, set by
-    # the fill's atomics; a warp's shuffle tree): a few float32 ulps of the
+    # float32 sums in another order (each row's taps ascending, against
+    # index_add_'s order; a warp's shuffle tree): a few float32 ulps of the
     # largest entry, plus one bf16 rounding of the table gradient that may
     # fall the other way (2^-8 of the entry)
     tol_t = 8e-3 * rt.float().abs().max().item()
     tol_w = 1e-5 * rw.abs().max().item()
     if not (err_t <= tol_t and err_w <= tol_w):
         raise AssertionError(f"kernel C-bwd disagrees with its plain version: {err_t} > {tol_t} or {err_w} > {tol_w}")
-    bytes_moved = n * c * 2 + table.numel() * 2 + n * 32 + table.numel() * 2 + n * 16
+    det = c_bwd_deterministic(table, idx, w, grad_out)
+    if not all(det.values()):
+        raise AssertionError(f"kernel C-bwd is not deterministic: {det}")
+    # bytes: grad_out, idx, w and the table rows a tap reads read once;
+    # grad_table and grad_w written once
+    row_bytes = c * table.element_size()
+    bytes_moved = (grad_out.numel() * grad_out.element_size() + torch.unique(idx).numel() * row_bytes
+                   + n * 32 + table.shape[0] * row_bytes + n * 16)
     bound_ms, bound_by = bound(bytes_moved, 16 * n * c, PEAK_F32_FLOPS)
     return {
-        "points": n, "max_abs_err": max(err_t, err_w), "max_abs_err_by_output": {"grad_table": err_t, "grad_w": err_w},
-        "tolerance": {"grad_table": tol_t, "grad_w": tol_w},
+        "points": n, "table": list(table.shape), "table_dtype": str(table.dtype).replace("torch.", ""),
+        "max_abs_err": max(err_t, err_w), "max_abs_err_by_output": {"grad_table": err_t, "grad_w": err_w},
+        "tolerance": {"grad_table": tol_t, "grad_w": tol_w}, **det,
         "ms": time_ms(lambda: gather_rows_lerp_bwd(table, idx, w, grad_out), reps=20),
         "plain_ms": time_ms(lambda: gather_rows_lerp_bwd_plain(table, idx, w, grad_out), reps=5),
         "bound_ms": bound_ms, "bound_by": bound_by,
@@ -649,7 +689,9 @@ def check_kernel_c_bwd(dev, g, inputs):
     """C-bwd at the coarse gather's shape (the kernels line's numbers), the
     fine gather's 32,768 points and a skewed input (a quarter of the points
     in one cell; ``scripts/bench_gather_rows_bwd_torch.py`` makes both),
-    each against its plain version; the library call at the coarse shape."""
+    each against its plain version and two launches against each other,
+    also on a float32 copy of each table (bit-equal launches, grad_table
+    bit-equal to its mirror); the library call at the coarse shape."""
     import torch.nn.functional as F
 
     sys.path.insert(0, os.path.join(REPO, "scripts"))
@@ -659,9 +701,14 @@ def check_kernel_c_bwd(dev, g, inputs):
     n, c = idx.shape[0], table.shape[1]
     grad_out = torch.randn((n, c), generator=g).to(torch.bfloat16).to(dev)
     by_input = {"uniform": c_bwd_against_plain(table, idx, w, grad_out)}
+    f32 = {"uniform": c_bwd_deterministic(table.float(), idx, w, grad_out)}
     g_more = torch.Generator().manual_seed(6)
     for kind in ("fine", "skewed"):
-        by_input[kind] = c_bwd_against_plain(*bench.make_inputs(dev, g_more, kind))
+        t_k, i_k, w_k, go_k = bench.make_inputs(dev, g_more, kind)
+        by_input[kind] = c_bwd_against_plain(t_k, i_k, w_k, go_k)
+        f32[kind] = c_bwd_deterministic(t_k.float(), i_k, w_k, go_k)
+    if not all(v for d in f32.values() for v in d.values()):
+        raise AssertionError(f"kernel C-bwd on float32 tables is not deterministic: {f32}")
     # yardstick: torch's grid-sampler backward for the same points, both
     # gradients (map and grid), timed on a retained graph
     fmap_g = fmap.detach().requires_grad_()
@@ -679,7 +726,7 @@ def check_kernel_c_bwd(dev, g, inputs):
         **{k: v for k, v in by_input["uniform"].items() if k != "points"},
         "library_ms": library_ms,
         "library_call": "torch.autograd.grad through F.grid_sample (NCHW bf16 map and grid)",
-        "inputs": by_input,
+        "inputs": by_input, "float32_tables": f32,
         "launches_per_train_step": train_launches_per_step(),
     }
     emit({"phase": "kernel_c_bwd", **res})
@@ -1162,6 +1209,306 @@ def run_srn_workflow(dev):
     return res
 
 
+# the DTU workflow (conf/exp/dtu.conf: the SRN model's widths, 64 + 32
+# samples, no white background, near 0.1, far 5.0): DTU's 49 views of
+# 400x300 RGB per scan, its three source views, two target views
+DTU_SPLITS = {"train": ("scan1", "scan2"), "val": ("scan3",), "test": ("scan3",)}
+DTU_VIEWS, DTU_H, DTU_W = 49, 300, 400
+DTU_SOURCE = "22 25 28"
+DTU_TARGETS = (10, 40)
+DTU_TRAIN_SB, DTU_TRAIN_RAYS = 4, 128
+# rays per chunk of the eval render: 10,000 rays x 96 fine samples x 3
+# views keep each f32 activation of the MLP chain near 6 GB
+DTU_RAY_CHUNK = 10000
+NMR_VIEWS, NMR_SIZE = 24, 64
+MULTI_FRAMES, MULTI_SIZE = 8, 128
+
+
+def _orbit_pose(i, n, radius, height):
+    """Camera-to-world pose of camera i of n on an arc about the object."""
+    from pixelnerf_tpu_torch.utils import geometry
+
+    a = 2.2 * i / max(n - 1, 1) - 1.1
+    return geometry.look_at([radius * math.sin(a), height, radius * math.cos(a)], [0.0, 0.0, 0.0])
+
+
+def _smooth_image(rng, h, w, channels, v):
+    """A uint8 image of smooth colour fields that change with the view,
+    plus a little noise."""
+    import numpy as np
+
+    yy, xx = np.mgrid[:h, :w].astype(np.float32)
+    fields = [np.sin(xx / (23 + 5 * k) + 0.3 * v + k) * np.cos(yy / (17 + 3 * k) - 0.2 * v) for k in range(channels)]
+    img = 127.5 + 100 * np.stack(fields, -1) + rng.uniform(-8, 8, (h, w, channels))
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def write_dtu_fixture(root):
+    """A DTU-layout dataset (``-D`` is ``root``): ``DTU/scan{1,2,3}/image/
+    0000NN.png`` (DTU_VIEWS views of DTU_W x DTU_H RGB, written by the
+    port's PNG writer with the five row filters in turn), ``cameras.npz``
+    with ``world_mat_i = s K [R | t]`` (DTU-like intrinsics: fx, fy ~ 720,
+    the principal point off the centre; s > 0 of two sizes) and the
+    ``scale_mat_i`` that normalises the object, and ``new_{train,val,
+    test}.lst``."""
+    import numpy as np
+
+    from pixelnerf_tpu_torch.utils import png
+
+    rng = np.random.default_rng(8)
+    flip = np.diag([1.0, -1.0, -1.0, 1.0])
+    scale, trans = 210.0, np.array([12.0, -25.0, 610.0])
+    cat = os.path.join(root, "DTU")
+    for scan in sorted({s for objs in DTU_SPLITS.values() for s in objs}):
+        os.makedirs(os.path.join(cat, scan, "image"))
+        cams = {}
+        for v in range(DTU_VIEWS):
+            png.imwrite(os.path.join(cat, scan, "image", f"{v:06d}.png"),
+                        _smooth_image(rng, DTU_H, DTU_W, 3, v), filters=np.arange(DTU_H) % 5)
+            K = np.array([[720.0 + rng.uniform(-4, 4), 0.0, DTU_W / 2 + 12 + rng.uniform(-1, 1)],
+                          [0.0, 718.0 + rng.uniform(-4, 4), DTU_H / 2 - 9 + rng.uniform(-1, 1)], [0.0, 0.0, 1.0]])
+            # OpenCV's camera (y down, z forward) in the unnormalised world
+            pose_cv = flip @ _orbit_pose(v, DTU_VIEWS, 2.4, 0.8) @ flip
+            centre = scale * pose_cv[:3, 3] + trans
+            r_w2c = pose_cv[:3, :3].T
+            P = (0.7 if v % 2 else 1.3) * K @ np.concatenate([r_w2c, (-r_w2c @ centre)[:, None]], 1)
+            scale_mat = np.eye(4)
+            scale_mat[:3, :3] *= scale
+            scale_mat[:3, 3] = trans
+            cams[f"world_mat_{v}"] = np.vstack([P, [0.0, 0.0, 0.0, 1.0]]).astype(np.float32)
+            cams[f"scale_mat_{v}"] = scale_mat.astype(np.float32)
+        np.savez(os.path.join(cat, scan, "cameras.npz"), **cams)
+    for split, objs in DTU_SPLITS.items():
+        with open(os.path.join(cat, f"new_{split}.lst"), "w") as f:
+            f.write("\n".join(objs) + "\n")
+    return root
+
+
+def write_nmr_and_multi_obj_fixtures(root):
+    """One NMR-layout object (``-F dvr``: NMR_VIEWS views of NMR_SIZE^2 RGB
+    with masks, ``world_mat``/``camera_mat`` cameras, ``softras_train.lst``)
+    and one multi-object scene (``-F multi_obj``: MULTI_FRAMES RGBA frames
+    of MULTI_SIZE^2, ``transforms.json``), written by the port's PNG writer.
+    Returns their ``-D`` paths."""
+    import json
+
+    import numpy as np
+
+    from pixelnerf_tpu_torch.utils import png
+
+    rng = np.random.default_rng(9)
+    world = np.array([[1, 0, 0, 0], [0, 0, -1, 0], [0, 1, 0, 0], [0, 0, 0, 1]], np.float64)
+    cam = np.diag([1.0, -1.0, -1.0, 1.0])
+    nmr = os.path.join(root, "nmr")
+    obj = os.path.join(nmr, "02958343", "obj0")
+    os.makedirs(os.path.join(obj, "image"))
+    os.makedirs(os.path.join(obj, "mask"))
+    cams = {}
+    yy, xx = np.mgrid[:NMR_SIZE, :NMR_SIZE]
+    for v in range(NMR_VIEWS):
+        png.imwrite(os.path.join(obj, "image", f"{v:04d}.png"), _smooth_image(rng, NMR_SIZE, NMR_SIZE, 3, v),
+                    filters=np.arange(NMR_SIZE) % 5)
+        disc = (xx - 32 - v % 5) ** 2 + (yy - 30) ** 2 < 18 ** 2
+        png.imwrite(os.path.join(obj, "mask", f"{v:04d}.png"), disc.astype(np.uint8) * 255)
+        c2w = _orbit_pose(v, NMR_VIEWS, 2.7, 0.9)
+        cams[f"world_mat_{v}"] = np.linalg.inv(np.linalg.inv(world) @ c2w @ np.linalg.inv(cam)).astype(np.float32)
+        cams[f"camera_mat_{v}"] = np.diag([1.75, 1.75, 1.0, 1.0]).astype(np.float32)
+    np.savez(os.path.join(obj, "cameras.npz"), **cams)
+    with open(os.path.join(nmr, "02958343", "softras_train.lst"), "w") as f:
+        f.write("obj0\n")
+    multi = os.path.join(root, "multi")
+    scene = os.path.join(multi, "train", "00000")
+    os.makedirs(scene)
+    frames = []
+    for k in range(MULTI_FRAMES):
+        rgba = _smooth_image(rng, MULTI_SIZE, MULTI_SIZE, 4, k)
+        rgba[..., 3] = np.where(rgba[..., 3] > 127, 255, 0)
+        png.imwrite(os.path.join(scene, f"r_{k}_obj.png"), rgba, filters=np.arange(MULTI_SIZE) % 5)
+        frames.append({"file_path": f"./r_{k}", "transform_matrix": _orbit_pose(k, MULTI_FRAMES, 7.0, 2.0).tolist()})
+    with open(os.path.join(scene, "transforms.json"), "w") as f:
+        json.dump({"camera_angle_x": 0.6911, "frames": frames}, f)
+    return nmr, multi
+
+
+def pull_dvr_and_multi_obj(root):
+    """Pull the NMR and multi-object fixtures' items on this host through
+    ``get_split_dataset`` (``-F dvr``, ``-F multi_obj``): shapes, finite
+    values, host ms; and that no imaging library was loaded."""
+    import numpy as np
+
+    from pixelnerf_tpu_torch.data import get_split_dataset
+
+    nmr, multi = write_nmr_and_multi_obj_fixtures(root)
+    res = {}
+    for fmt, path, shape in (("dvr", nmr, (NMR_VIEWS, NMR_SIZE, NMR_SIZE, 3)),
+                             ("multi_obj", multi, (MULTI_FRAMES, MULTI_SIZE, MULTI_SIZE, 3))):
+        dset = get_split_dataset(fmt, path, "train")
+        t0 = time.perf_counter()
+        d = dset[0]
+        ms = (time.perf_counter() - t0) * 1e3
+        ok = (d["images"].shape == shape and d["masks"].shape == shape[:3] + (1,) and d["bbox"].shape == (shape[0], 4)
+              and all(np.isfinite(d[k]).all() for k in ("images", "masks", "bbox", "poses", "focal")))
+        res[fmt] = {"type": type(dset).__name__, "images": list(d["images"].shape), "item_ms": ms,
+                    "focal": float(d["focal"]), "masks_mean": float(d["masks"].mean())}
+        if not ok or not 0.0 < d["masks"].mean() < 1.0:
+            raise AssertionError(f"dtu_workflow: the {fmt} reader's item is wrong: {res[fmt]}")
+    loaded = sorted(m for m in ("cv2", "imageio", "PIL") if m in sys.modules)
+    res["imaging_libraries_loaded"] = loaded
+    if loaded:
+        raise AssertionError(f"dtu_workflow: a reader loaded {loaded}")
+    return res
+
+
+def run_dtu_workflow(dev):
+    """The user's DTU workflow on the card, on a DTU-layout fixture at
+    400x300 with three source views (NS = 3), f32 as the JAX apps run:
+    ``apps.train -F dvr_dtu -V 3`` for 2 steps of 4 x 128 rays with colour
+    jitter (kernels C and C-bwd; its eval and visual through kernel A),
+    ``apps.eval -F dvr_dtu -P "22 25 28"`` of two target views of the test
+    scan (kernel A), its eval render through kernel A held bit for bit to
+    the same render through the plain gather, ``finish.txt``'s PSNR held to
+    the written images; C-bwd at the DTU train step's table (360,000 f32
+    rows), against its plain version and two launches bit-equal; the NMR
+    and multi-object readers pulled on this host. Each app's kernel counts
+    are set to 0 just before it and read just after."""
+    import contextlib
+    import io
+    import tempfile
+
+    import numpy as np
+
+    from pixelnerf_tpu_torch.apps import eval as eval_app
+    from pixelnerf_tpu_torch.apps import train as train_app
+    from pixelnerf_tpu_torch.apps.args import parse_args
+    from pixelnerf_tpu_torch.data import get_split_dataset
+    from pixelnerf_tpu_torch.eval import FullRenderer
+    from pixelnerf_tpu_torch.utils import png
+
+    sys.path.insert(0, os.path.join(REPO, "scripts"))
+    import bench_gather_rows_bwd_torch as bench
+
+    os.environ["PIXELNERF_NO_TB"] = "1"
+    conf = os.path.join(REPO, "conf", "exp", "dtu.conf")
+    seconds = {}
+    res = {"phase": "dtu_workflow", "config": "conf/exp/dtu.conf, float32", "views_per_scan": DTU_VIEWS,
+           "image": [DTU_W, DTU_H], "source": DTU_SOURCE, "targets": list(DTU_TARGETS), "splits": DTU_SPLITS}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.time()
+        data = write_dtu_fixture(os.path.join(tmp, "data"))
+        seconds["write_fixture"] = time.time() - t0
+        res["readers"] = pull_dvr_and_multi_obj(os.path.join(tmp, "small"))
+        test_set = get_split_dataset("dvr_dtu", data, "test", training=False)
+        train_set = get_split_dataset("dvr_dtu", data, "train")
+        t0 = time.perf_counter()
+        d = test_set[0]
+        res["dtu_item_ms"] = {"test_49_views": (time.perf_counter() - t0) * 1e3}
+        t0 = time.perf_counter()
+        train_set[0]
+        res["dtu_item_ms"]["train_49_views_jittered"] = (time.perf_counter() - t0) * 1e3
+        res["dtu_item"] = {"images": list(d["images"].shape), "focal": d["focal"].tolist(), "c": d["c"].tolist()}
+        if d["images"].shape != (DTU_VIEWS, DTU_H, DTU_W, 3) or d["focal"].shape != (2,):
+            raise AssertionError(f"dtu_workflow: DTU item {res['dtu_item']}")
+        common = ["-c", conf, "-F", "dvr_dtu", "-D", data, "--device", str(dev),
+                  "--checkpoints_path", os.path.join(tmp, "ck")]
+
+        # 1. train: 2 batches of 4 scans x 128 rays from 3 source views, its
+        # eval, visual and checkpoint at batch 1 (dtu.conf repeats an epoch
+        # 32 times: once here)
+        argv = common + ["-V", "3", "-B", str(DTU_TRAIN_SB), "-R", str(DTU_TRAIN_RAYS), "--epochs", "1",
+                         "--epoch_batches", "2", "--workers", "1", "--override", "train.num_epoch_repeats=1",
+                         "--logs_path", os.path.join(tmp, "logs"), "--visual_path", os.path.join(tmp, "vis")]
+        trainer, lines, seconds["train"], launches = run_app(train_app, argv)
+        from pixelnerf_tpu_torch.apps.train import VIS_RAY_CHUNK
+
+        vis_chunks = -(-DTU_H * DTU_W // VIS_RAY_CHUNK)
+        expect = {"gather_rows_lerp": 2 * 2, "gather_rows_lerp_bwd": 2 * 2, "gather_bilerp": 2 + 2 * vis_chunks,
+                  "fused_resnetfc_infer": 0, "fused_gather_resnetfc_infer": 0}
+        losses = [float(l.split(" t:")[1].split()[0]) for l in lines if l.startswith("E")]
+        visuals = os.listdir(os.path.join(tmp, "vis", "example"))
+        vis = png.imread(os.path.join(tmp, "vis", "example", visuals[0])) if visuals else None
+        res["train"] = {"steps": trainer.step, "launches": launches, "expected_launches": expect,
+                        "losses": losses, "visuals": visuals, "visual_shape": None if vis is None else list(vis.shape),
+                        "jitter": type(trainer.train_pipeline.dataset).__name__}
+        if launches != expect:
+            raise AssertionError(f"dtu_workflow train: launch counts {launches} != expected {expect}")
+        if (trainer.step != 2 or not losses or not all(math.isfinite(v) for v in losses) or vis is None
+                or vis.shape != (2 * DTU_H, 5 * DTU_W, 3) or res["train"]["jitter"] != "ColorJitterDataset"):
+            raise AssertionError(f"dtu_workflow train: {res['train']}")
+
+        # 2. eval: two target views of the test scan from views 22, 25, 28
+        view_list = os.path.join(tmp, "views.txt")
+        with open(view_list, "w") as f:
+            f.write(" ".join(str(v) for v in DTU_TARGETS) + "\n")
+        out_dir = os.path.join(tmp, "eval_out")
+        argv = common + ["-P", DTU_SOURCE, "--eval_view_list", view_list, "-R", str(DTU_RAY_CHUNK), "-O", out_dir]
+        _, lines, seconds["eval"], launches = run_app(eval_app, argv)
+        views = len(DTU_TARGETS) * len(DTU_SPLITS["test"])
+        chunks = -(-len(DTU_TARGETS) * DTU_H * DTU_W // DTU_RAY_CHUNK)
+        expect = {"gather_rows_lerp": 0, "gather_rows_lerp_bwd": 0, "gather_bilerp": 2 * chunks,
+                  "fused_resnetfc_infer": 0, "fused_gather_resnetfc_infer": 0}
+        finish = open(os.path.join(out_dir, "finish.txt")).read().splitlines()
+        res["eval"] = {"ray_chunk": DTU_RAY_CHUNK, "finish": finish, "launches": launches, "expected_launches": expect,
+                       "printed": [l for l in lines if "psnr" in l]}
+        if launches != expect:
+            raise AssertionError(f"dtu_workflow eval: launch counts {launches} != expected {expect}")
+        name, psnr, ssim, n = finish[0].split()
+        bounds = [psnr_interval_from_png(png.imread(os.path.join(out_dir, name, f"{v:06d}.png")),
+                                         d["images"][v] * 0.5 + 0.5) for v in DTU_TARGETS]
+        lo, hi = (sum(b[i] for b in bounds) / len(bounds) for i in (0, 1))
+        res["eval"]["psnr_from_png"] = [lo, hi]
+        if len(finish) != 1 or int(n) != len(DTU_TARGETS) or not (lo <= float(psnr) <= hi and math.isfinite(float(ssim))):
+            raise AssertionError(f"dtu_workflow eval: finish.txt {finish}, psnr from the images [{lo}, {hi}]")
+
+        # 3. the eval render through kernel A and through its plain version,
+        # the same checkpoint and draws: bit for bit
+        args, cfg_tree = parse_args(eval_app.extra_args, argv=common + ["-P", DTU_SOURCE, "-R", str(DTU_RAY_CHUNK)])
+        with contextlib.redirect_stdout(io.StringIO()):
+            net = eval_app.load_net_and_state(args, cfg_tree, dev)
+        cfg = eval_app.eval_render_config(cfg_tree, test_set, coarse=False)
+        src, targets = np.array([int(x) for x in DTU_SOURCE.split()]), np.array(DTU_TARGETS)
+        renders = {}
+        for use_kernels in (True, False):
+            renderer = FullRenderer(net, cfg, ray_chunk=DTU_RAY_CHUNK, use_kernels=use_kernels)
+            gen = torch.Generator(device=dev).manual_seed(9)
+            torch.cuda.synchronize()
+            t0 = time.time()
+            renders[use_kernels] = eval_app.render_object(renderer, d, src, targets, test_set.z_near,
+                                                          test_set.z_far, generator=gen)
+            torch.cuda.synchronize()
+            seconds["render_" + ("kernels" if use_kernels else "plain")] = time.time() - t0
+        (rgb_k, depth_k), (rgb_p, depth_p) = renders[True], renders[False]
+        err = {"rgb": (rgb_k - rgb_p).abs().max().item(), "depth": (depth_k - depth_p).abs().max().item()}
+        finite = bool(torch.isfinite(rgb_k).all() and torch.isfinite(depth_k).all())
+        k = cfg.n_coarse + cfg.n_fine
+        rgb_rounding = 2 * k * 2.0 ** -24      # as srn_workflow's bound, without the white background
+        res["kernel_vs_plain"] = {"max_abs_err": err, "tolerance": 0.0, "shape": list(rgb_k.shape),
+                                  "rgb_range": [rgb_k.min().item(), rgb_k.max().item()],
+                                  "depth_range": [depth_k.min().item(), depth_k.max().item()],
+                                  "rgb_rounding_allowance": rgb_rounding}
+        del renders, rgb_p, depth_p, net
+
+    # 4. C-bwd at the DTU train step's table, against its plain version,
+    # two launches bit-equal
+    res["c_bwd_dtu_table"] = c_bwd_against_plain(*bench.make_inputs(dev, torch.Generator().manual_seed(7), "dtu"))
+    res["seconds"] = seconds
+    res["train_seconds_per_batch"] = seconds["train"] / 2
+    res["eval_ms_per_view"] = seconds["eval"] * 1e3 / views
+    res["render_ms_per_view"] = seconds["render_kernels"] * 1e3 / len(DTU_TARGETS)
+    res["launches"] = {k: res["train"]["launches"][k] + res["eval"]["launches"][k]
+                       for k in ("gather_bilerp", "gather_rows_lerp", "gather_rows_lerp_bwd")}
+    res["launches_per"] = {"gather_bilerp_per_eval_view": res["eval"]["launches"]["gather_bilerp"] / views,
+                           "gather_rows_lerp_per_train_step": res["train"]["launches"]["gather_rows_lerp"] / 2,
+                           "gather_rows_lerp_bwd_per_train_step": res["train"]["launches"]["gather_rows_lerp_bwd"] / 2}
+    res["card"] = nvidia_smi_line()
+    emit(res)
+    if max(err.values()) != 0.0:
+        raise AssertionError(f"dtu_workflow: eval render through kernel A differs from plain: {err}")
+    if not (finite and rgb_k.shape == (len(DTU_TARGETS), DTU_H, DTU_W, 3) and rgb_k.min() >= 0
+            and rgb_k.max() <= 1 + rgb_rounding):
+        raise AssertionError(f"dtu_workflow: render out of range: {res['kernel_vs_plain']}")
+    return res
+
+
 def make_request(path, net, cfg, enc):
     """The render of one image through ``path`` as ``render(rays (H, W, 8),
     generator=None, noise=None) -> (rgb (H, W, 3), depth (H, W))``:
@@ -1344,10 +1691,12 @@ def main():
             train_launches[k] += res["launches"][k]
     train_kernel_vs_plain(dev)
 
-    # the SRN evaluation workflow: train, eval, resume, eval_approx
+    # the SRN evaluation workflow: train, eval, resume, eval_approx; then
+    # the DTU workflow at NS = 3 and 400x300
     srn = run_srn_workflow(dev)
+    dtu = run_dtu_workflow(dev)
     for k in train_launches:
-        train_launches[k] += srn["launches"][k]
+        train_launches[k] += srn["launches"][k] + dtu["launches"][k]
 
     # the fused and baked field paths: their kernels at the paths' shapes
     with torch.inference_mode():
@@ -1393,11 +1742,12 @@ def main():
 
     keys = ("name", "route", "source", "replaces", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")
-    # launches: A over the staged inference path and the SRN workflow, B
-    # over the staged path, B's z_is_tz variant over the baked path, D over
-    # the fused path, C and C-bwd over both training configs, the train app
-    # and the SRN workflow, the study's formulations over its bench script
-    launches["gather_bilerp"] += srn["launches"]["gather_bilerp"]
+    # launches: A over the staged inference path and the SRN and DTU
+    # workflows, B over the staged path, B's z_is_tz variant over the baked
+    # path, D over the fused path, C and C-bwd over both training configs,
+    # the train app and the two workflows, the study's formulations over
+    # its bench script
+    launches["gather_bilerp"] += srn["launches"]["gather_bilerp"] + dtu["launches"]["gather_bilerp"]
     launches.update(train_launches)
     launches["fused_resnetfc_infer[z_is_tz]"] = baked_res["launches"]["fused_resnetfc_infer"]
     launches["fused_gather_resnetfc_infer"] = fused_res["launches"]["fused_gather_resnetfc_infer"]

@@ -76,11 +76,10 @@ def load_net_and_state(args, conf, device):
 
 
 def eval_render_config(conf, dset, coarse: bool) -> RenderConfig:
-    """The renderer of the eval apps: at least 64 coarse samples, and with
-    ``coarse`` the 64/128 hierarchy (both passes through the coarse MLP)."""
-    if getattr(dset, "lindisp", False):
-        raise NotImplementedError("lindisp sampling is not ported yet")
-    cfg = RenderConfig.from_conf(conf.get_config("renderer", ConfigNode()))
+    """The renderer of the eval apps: the dataset's ``lindisp``, at least 64
+    coarse samples, and with ``coarse`` the 64/128 hierarchy (both passes
+    through the coarse MLP)."""
+    cfg = RenderConfig.from_conf(conf.get_config("renderer", ConfigNode()), lindisp=getattr(dset, "lindisp", False))
     if cfg.n_coarse < 64:
         cfg = dataclasses.replace(cfg, n_coarse=64)
     if coarse:

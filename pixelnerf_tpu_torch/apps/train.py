@@ -4,7 +4,9 @@
         --epochs 2 --epoch_batches 50 [--train_ray_chunk 256 --train_remat features]
 
 Runs on the GPU (``--device cuda``, the default) unless asked for the CPU.
-Datasets: ``-F srn`` (``-D <data>/cars``) and ``-F synthetic``.
+Datasets: ``-F srn`` (``-D <data>/cars``), ``-F dvr|dvr_gen`` (NMR
+ShapeNet), ``-F dvr_dtu`` (DTU, ``-V 3``), ``-F multi_obj`` and
+``-F synthetic``.
 """
 from __future__ import annotations
 
@@ -128,7 +130,8 @@ def main(argv=None):
         conf["model"], device=device, generator=torch.Generator().manual_seed(args.seed),
         stop_encoder_grad=args.freeze_enc,
     )
-    render_cfg = RenderConfig.from_conf(conf.get_config("renderer", ConfigNode()))
+    render_cfg = RenderConfig.from_conf(conf.get_config("renderer", ConfigNode()),
+                                        lindisp=getattr(train_dset, "lindisp", False))
     train_pipe = RayBatchPipeline(
         train_dset, batch_size=args.batch_size, rays_per_object=args.ray_batch_size,
         views=views, no_bbox_step=args.no_bbox_step, seed=args.seed, workers=args.workers,

@@ -27,27 +27,35 @@
 // is contracted: it is bit-equal to the plain PyTorch version.
 //
 // Design, backward: a scatter-add turned into a gather by rows, with no
-// float atomics and no float32 copy of the table. The E = 4N taps
-// (entry e = 4n + k) are indexed by row in three small launches (count:
-// integer atomics on R counters; scan: offsets and chunks, by blocks of
-// 1024 rows that add their predecessors' sums; fill: each entry takes its
-// place in its row), then a row's entries are cut into chunks of T = 64
-// (a row with none has one empty chunk, so its zeros are written). owner: one warp per chunk, in ascending row order,
-// streams its entries' grad_out rows through a small cp.async ring in
-// shared memory (bytes in flight that hold no registers, so that enough
-// warps fit on an SM to cover the latency), sums w * grad_out[n] into
-// float32 registers (up to 1024 channels; wider rows loop over blocks of
-// 1024) and takes each entry's dot with the row's table slice, loaded
-// once per chunk, so that every grad_w[e] is written by exactly one warp.
-// A row of one chunk is written in the table's dtype at once; a chunk of
-// a row of several writes a float32 partial, and combine adds a row's
-// partials in chunk order. A point's four taps are rows r, r+1, r+W,
-// r+W+1, whose chunks run close together, so grad_out comes from device
-// memory about once and from L2 after that: the owner reads ~4x grad_out
-// through L2, which bounds it, not the device memory. Summation order:
-// within a chunk, the entries' order in the index, which the fill's
-// atomics set and which may vary from run to run; then the chunks in
-// order. Without grad_table a warp per point takes the four dots alone
+// float atomics and no float32 copy of the table, in a fixed order of
+// summation. The E = 4N taps (entry e = 4n + k) are indexed by row in four
+// small launches (count: integer atomics on R counters; scan: offsets,
+// chunks and the list of rows of more than one chunk, by blocks of 1024
+// rows that add their predecessors' sums; fill: each entry takes a place
+// in its row, in an order that the fill's atomics set; sort: each row of
+// more than one chunk, one block a row, sorted ascending in shared memory
+// by a block merge sort, in tiles and merge passes if it is longer), then
+// a row's entries are cut into chunks of T = 64 (a row with none has one
+// empty chunk, so its zeros are written). owner: one warp per chunk, in
+// ascending row order, sorts its chunk's entries in registers (a bitonic
+// network: a row of one chunk, the common case, needs no other sort),
+// streams their grad_out rows
+// through a small cp.async ring in shared memory (bytes in flight that
+// hold no registers, so that enough warps fit on an SM to cover the
+// latency), sums w * grad_out[n] into float32 registers (up to 1024
+// channels; wider rows loop over blocks of 1024) and takes each entry's
+// dot with the row's table slice, loaded once per chunk, so that every
+// grad_w[e] is written by exactly one warp. A row of one chunk is written
+// in the table's dtype at once; a chunk of a row of several writes a
+// float32 partial, and combine adds a row's partials in chunk order. A
+// point's four taps are rows r, r+1, r+W, r+W+1, whose chunks run close
+// together, so grad_out comes from device memory about once and from L2
+// after that: the owner reads ~4x grad_out through L2, which bounds it,
+// not the device memory. Summation order, the same on every run: within a
+// chunk the entries ascending, each product rounded before its add (no
+// contracted multiply-add), then the chunks in order; this is
+// row_owner_bwd_plain (ops/gather_rows.py) bit for bit. Without
+// grad_table a warp per point takes the four dots alone
 // (gather_rows_bwd_kernel) and no index is built.
 #include "gather_common.cuh"
 
@@ -130,10 +138,12 @@ gather_rows_bwd_kernel(const TIn* __restrict__ table, const int32_t* __restrict_
 // allocates (ops/gather_rows.py, _plan_sections lists them): counts (R),
 // cursor (R), the scan's blocks' state (SCAN_WORDS), offsets (R+1),
 // chunk_start (R+1), multi_start (R+1), chunk_row (Q), chunk_first (Q),
-// perm (E), where Q = R + ceil(E/T) bounds the chunks. The first three
-// sections are zeroed by launch_plan.
+// multi_rows (1 + M), perm (E), perm_tmp (E), where Q = R + ceil(E/T)
+// bounds the chunks and M = floor(E/(T+1)) the rows of two chunks or
+// more. The first three sections are zeroed by launch_plan.
 constexpr int SCAN_MAX_BLOCKS = 128;
-constexpr int SCAN_WORDS = 1 + SCAN_MAX_BLOCKS + 3 * SCAN_MAX_BLOCKS;
+constexpr int SCAN_SUMS = 4;  // entries, chunks, chunks of rows of >= 2, rows of >= 2
+constexpr int SCAN_WORDS = 1 + SCAN_MAX_BLOCKS + SCAN_SUMS * SCAN_MAX_BLOCKS;
 
 struct Plan {
   int32_t* counts;
@@ -146,12 +156,18 @@ struct Plan {
   int32_t* multi_start;  // exclusive scan of the chunks of rows with >= 2
   int32_t* chunk_row;
   int32_t* chunk_first;  // the chunk's first position in perm
+  int32_t* multi_count;  // the number of rows of two chunks or more
+  int32_t* multi_rows;   // those rows, ascending
   int32_t* perm;         // entries grouped by row
+  int32_t* perm_tmp;     // the sort's merge passes' second buffer
 };
+
+int64_t max_multi_rows(int64_t entries, int chunk) { return entries / (chunk + 1); }
 
 int64_t plan_words(int rows, int64_t entries, int chunk) {
   const int64_t q = rows + (entries + chunk - 1) / chunk;
-  return 2 * (int64_t)rows + SCAN_WORDS + 3 * ((int64_t)rows + 1) + 2 * q + entries;
+  return 2 * (int64_t)rows + SCAN_WORDS + 3 * ((int64_t)rows + 1) + 2 * q +
+         (1 + max_multi_rows(entries, chunk)) + 2 * entries;
 }
 
 int64_t partials_offset(int rows, int64_t entries, int chunk) {
@@ -171,7 +187,10 @@ Plan plan_of(void* buf, int rows, int64_t entries, int chunk) {
   p.multi_start = p.chunk_start + rows + 1;
   p.chunk_row = p.multi_start + rows + 1;
   p.chunk_first = p.chunk_row + q;
-  p.perm = p.chunk_first + q;
+  p.multi_count = p.chunk_first + q;
+  p.multi_rows = p.multi_count + 1;
+  p.perm = p.multi_rows + max_multi_rows(entries, chunk);
+  p.perm_tmp = p.perm + entries;
   return p;
 }
 
@@ -190,19 +209,19 @@ gather_rows_bwd_count(const int32_t* __restrict__ idx, Plan p, int64_t entries) 
   if (r >= 0 && (threadIdx.x & 31) == __ffs(peers) - 1) atomicAdd(&p.counts[r], __popc(peers));
 }
 
-// The three sums of a block, in thread 0's v[] (the others' are partial).
-__device__ __forceinline__ void block_sum3(int v[3], int (*red)[32]) {
+// The SCAN_SUMS sums of a block, in thread 0's v[] (the others' are partial).
+__device__ __forceinline__ void block_sums(int v[SCAN_SUMS], int (*red)[32]) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 #pragma unroll
-  for (int k = 0; k < 3; ++k) v[k] = __reduce_add_sync(0xffffffffu, v[k]);
+  for (int k = 0; k < SCAN_SUMS; ++k) v[k] = __reduce_add_sync(0xffffffffu, v[k]);
   if (lane == 0) {
 #pragma unroll
-    for (int k = 0; k < 3; ++k) red[k][warp] = v[k];
+    for (int k = 0; k < SCAN_SUMS; ++k) red[k][warp] = v[k];
   }
   __syncthreads();
   if (warp == 0) {
 #pragma unroll
-    for (int k = 0; k < 3; ++k) v[k] = __reduce_add_sync(0xffffffffu, red[k][lane]);
+    for (int k = 0; k < SCAN_SUMS; ++k) v[k] = __reduce_add_sync(0xffffffffu, red[k][lane]);
   }
   __syncthreads();
 }
@@ -210,18 +229,19 @@ __device__ __forceinline__ void block_sum3(int v[3], int (*red)[32]) {
 // scan: the rows cut into contiguous ranges of whole tiles of
 // SCAN_THREADS rows, one block each (at most SCAN_MAX_BLOCKS). A block
 // takes a ticket, so that it only ever waits for blocks that run already;
-// sums its range's entries, chunks and chunks of rows of two or more;
-// publishes them; adds those of the blocks before it. Then it walks its
-// range in passes of SCAN_TILES tiles, thread t on row t of each tile,
-// their counts loaded at once (coalesced): the three sums of all the
-// pass's tiles are scanned together (within each warp by shuffles, then
-// the warps' totals, then the tiles') and carried to the next pass. Each
-// thread writes its rows' offsets and their chunks' rows and first
-// entries; a row of many chunks is one thread's loop of stores.
+// sums its range's entries, chunks, chunks of rows of two or more and rows
+// of two or more; publishes them; adds those of the blocks before it. Then
+// it walks its range in passes of SCAN_TILES tiles, thread t on row t of
+// each tile, their counts loaded at once (coalesced): the SCAN_SUMS sums
+// of all the pass's tiles are scanned together (within each warp by
+// shuffles, then the warps' totals, then the tiles') and carried to the
+// next pass. Each thread writes its rows' offsets and their chunks' rows
+// and first entries, and lists its rows of two chunks or more; a row of
+// many chunks is one thread's loop of stores.
 __global__ void __launch_bounds__(SCAN_THREADS, 1)
 gather_rows_bwd_scan(Plan p, int rows, int chunk, int rows_per_block) {
-  __shared__ int warp_tot[3][SCAN_TILES][32];
-  __shared__ int tile_base[3][SCAN_TILES + 1];
+  __shared__ int warp_tot[SCAN_SUMS][SCAN_TILES][32];
+  __shared__ int tile_base[SCAN_SUMS][SCAN_TILES + 1];
   __shared__ int ticket;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int shift = __ffs(chunk) - 1;  // chunk is a power of two
@@ -230,42 +250,43 @@ gather_rows_bwd_scan(Plan p, int rows, int chunk, int rows_per_block) {
   const int b = ticket;
   const int lo = b * rows_per_block, hi = min(rows, lo + rows_per_block);
   // the range's sums, published
-  int carry[3] = {0, 0, 0};
+  int carry[SCAN_SUMS] = {0, 0, 0, 0};
   for (int r = lo + threadIdx.x; r < hi; r += SCAN_THREADS) {
     const int cnt = p.counts[r];
     const int nch = max(1, (cnt + chunk - 1) >> shift);
     carry[0] += cnt;
     carry[1] += nch;
     carry[2] += nch >= 2 ? nch : 0;
+    carry[3] += nch >= 2 ? 1 : 0;
   }
-  block_sum3(carry, warp_tot[0]);
+  block_sums(carry, warp_tot[0]);
   if (threadIdx.x == 0) {
 #pragma unroll
-    for (int k = 0; k < 3; ++k) p.scan_sums[3 * b + k] = carry[k];
+    for (int k = 0; k < SCAN_SUMS; ++k) p.scan_sums[SCAN_SUMS * b + k] = carry[k];
     __threadfence();
     atomicExch(&p.scan_flags[b], 1);
   }
   // the sums of the blocks before this one (b <= SCAN_MAX_BLOCKS < SCAN_THREADS)
 #pragma unroll
-  for (int k = 0; k < 3; ++k) carry[k] = 0;
+  for (int k = 0; k < SCAN_SUMS; ++k) carry[k] = 0;
   if (threadIdx.x < b) {
     while (atomicAdd(&p.scan_flags[threadIdx.x], 0) == 0) {
     }
     __threadfence();
 #pragma unroll
-    for (int k = 0; k < 3; ++k) carry[k] = atomicAdd(&p.scan_sums[3 * threadIdx.x + k], 0);
+    for (int k = 0; k < SCAN_SUMS; ++k) carry[k] = atomicAdd(&p.scan_sums[SCAN_SUMS * threadIdx.x + k], 0);
   }
-  block_sum3(carry, warp_tot[0]);
+  block_sums(carry, warp_tot[0]);
   if (threadIdx.x == 0) {
 #pragma unroll
-    for (int k = 0; k < 3; ++k) tile_base[k][SCAN_TILES] = carry[k];
+    for (int k = 0; k < SCAN_SUMS; ++k) tile_base[k][SCAN_TILES] = carry[k];
   }
   __syncthreads();
 #pragma unroll
-  for (int k = 0; k < 3; ++k) carry[k] = tile_base[k][SCAN_TILES];
+  for (int k = 0; k < SCAN_SUMS; ++k) carry[k] = tile_base[k][SCAN_TILES];
   __syncthreads();
   for (int base = lo; base < hi; base += SCAN_TILES * SCAN_THREADS) {
-    int cnt[SCAN_TILES], nch[SCAN_TILES], v[3][SCAN_TILES];
+    int cnt[SCAN_TILES], v[SCAN_SUMS][SCAN_TILES];
 #pragma unroll
     for (int i = 0; i < SCAN_TILES; ++i) {
       const int r = base + i * SCAN_THREADS + threadIdx.x;
@@ -274,15 +295,16 @@ gather_rows_bwd_scan(Plan p, int rows, int chunk, int rows_per_block) {
 #pragma unroll
     for (int i = 0; i < SCAN_TILES; ++i) {
       const int r = base + i * SCAN_THREADS + threadIdx.x;
-      nch[i] = r < hi ? max(1, (cnt[i] + chunk - 1) >> shift) : 0;
+      const int nch = r < hi ? max(1, (cnt[i] + chunk - 1) >> shift) : 0;
       v[0][i] = cnt[i];
-      v[1][i] = nch[i];
-      v[2][i] = nch[i] >= 2 ? nch[i] : 0;
+      v[1][i] = nch;
+      v[2][i] = nch >= 2 ? nch : 0;
+      v[3][i] = nch >= 2 ? 1 : 0;
     }
 #pragma unroll
     for (int off = 1; off < 32; off <<= 1) {
 #pragma unroll
-      for (int k = 0; k < 3; ++k)
+      for (int k = 0; k < SCAN_SUMS; ++k)
 #pragma unroll
         for (int i = 0; i < SCAN_TILES; ++i) {
           const int u = __shfl_up_sync(0xffffffffu, v[k][i], off);
@@ -291,12 +313,12 @@ gather_rows_bwd_scan(Plan p, int rows, int chunk, int rows_per_block) {
     }
     if (lane == 31) {
 #pragma unroll
-      for (int k = 0; k < 3; ++k)
+      for (int k = 0; k < SCAN_SUMS; ++k)
 #pragma unroll
         for (int i = 0; i < SCAN_TILES; ++i) warp_tot[k][i][warp] = v[k][i];
     }
     __syncthreads();
-    for (int ki = warp; ki < 3 * SCAN_TILES; ki += SCAN_THREADS / 32) {
+    for (int ki = warp; ki < SCAN_SUMS * SCAN_TILES; ki += SCAN_THREADS / 32) {
       int* tot = warp_tot[ki / SCAN_TILES][ki % SCAN_TILES];
       int x = tot[lane];
 #pragma unroll
@@ -307,7 +329,7 @@ gather_rows_bwd_scan(Plan p, int rows, int chunk, int rows_per_block) {
       tot[lane] = x;
     }
     __syncthreads();
-    if (threadIdx.x < 3) {
+    if (threadIdx.x < SCAN_SUMS) {
       int acc = carry[threadIdx.x];
       for (int i = 0; i < SCAN_TILES; ++i) {
         tile_base[threadIdx.x][i] = acc;
@@ -320,34 +342,38 @@ gather_rows_bwd_scan(Plan p, int rows, int chunk, int rows_per_block) {
     for (int i = 0; i < SCAN_TILES; ++i) {
       const int r = base + i * SCAN_THREADS + threadIdx.x;
       if (r >= hi) break;
-      int excl[3];
+      int incl[SCAN_SUMS];
 #pragma unroll
-      for (int k = 0; k < 3; ++k)
-        excl[k] = tile_base[k][i] + (warp > 0 ? warp_tot[k][i][warp - 1] : 0) + v[k][i];
-      const int off = excl[0] - cnt[i], cs = excl[1] - nch[i];
+      for (int k = 0; k < SCAN_SUMS; ++k)
+        incl[k] = tile_base[k][i] + (warp > 0 ? warp_tot[k][i][warp - 1] : 0) + v[k][i];
+      const int nch = max(1, (cnt[i] + chunk - 1) >> shift);
+      const int off = incl[0] - cnt[i], cs = incl[1] - nch;
       p.offsets[r] = off;
       p.chunk_start[r] = cs;
-      p.multi_start[r] = excl[2] - (nch[i] >= 2 ? nch[i] : 0);
-      for (int j = 0; j < nch[i]; ++j) {
+      p.multi_start[r] = incl[2] - (nch >= 2 ? nch : 0);
+      if (nch >= 2) p.multi_rows[incl[3] - 1] = r;
+      for (int j = 0; j < nch; ++j) {
         p.chunk_row[cs + j] = r;
         p.chunk_first[cs + j] = off + j * chunk;
       }
     }
 #pragma unroll
-    for (int k = 0; k < 3; ++k) carry[k] = tile_base[k][SCAN_TILES];
+    for (int k = 0; k < SCAN_SUMS; ++k) carry[k] = tile_base[k][SCAN_TILES];
     __syncthreads();
   }
   if (hi == rows && threadIdx.x == 0) {
     p.offsets[rows] = carry[0];
     p.chunk_start[rows] = carry[1];
     p.multi_start[rows] = carry[2];
+    *p.multi_count = carry[3];
   }
 }
 
 // fill: one thread per entry takes the next place in its row: the lanes
 // of a warp that share a row take neighbouring places, in lane order, by
 // one atomic of their leader; the order between warps is the order in
-// which their atomics land
+// which their atomics land, so a row's entries are not in order yet: sort
+// orders the rows of several chunks, the owner each chunk of the others
 __global__ void __launch_bounds__(INDEX_THREADS)
 gather_rows_bwd_fill(const int32_t* __restrict__ idx, Plan p, int64_t entries) {
   const int lane = threadIdx.x & 31;
@@ -359,6 +385,151 @@ gather_rows_bwd_fill(const int32_t* __restrict__ idx, Plan p, int64_t entries) {
   if (r >= 0 && lane == leader) first = p.offsets[r] + atomicAdd(&p.cursor[r], __popc(peers));
   first = __shfl_sync(0xffffffffu, first, leader);
   if (r >= 0) p.perm[first + __popc(peers & ((1u << lane) - 1))] = (int32_t)e;
+}
+
+constexpr int SORT_THREADS = 512;
+constexpr int SORT_RUN = 32;                                  // entries a thread sorts in registers
+constexpr int SORT_TILE = SORT_THREADS * SORT_RUN;            // entries a block sorts in shared memory
+constexpr int SORT_TILE_WORDS = SORT_TILE + SORT_TILE / 32;   // the tile with a pad word every 32
+constexpr int SORT_MAX_BLOCKS = 264;  // two blocks an SM: the rows of several chunks are few
+constexpr int32_t NO_ENTRY = 0x7fffffff;  // sorts after every entry
+
+// the number of the n ascending values a[0..n) that are below v
+__device__ __forceinline__ int count_below(const int32_t* a, int n, int32_t v) {
+  int lo = 0, hi = n;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (a[mid] < v) lo = mid + 1;
+    else hi = mid;
+  }
+  return lo;
+}
+
+// position p of a tile in shared memory: a pad word after every 32, so
+// that the lanes of a warp, each at its own run (p = 32 l + c), fall in
+// 32 different banks
+__device__ __forceinline__ int padded(int p) { return p + (p >> 5); }
+
+// SORT_RUN values in registers, sorted ascending by a bitonic network
+// (15 steps, unrolled: no value leaves its register file)
+__device__ __forceinline__ void sort_run(int32_t v[SORT_RUN]) {
+#pragma unroll
+  for (int k = 2; k <= SORT_RUN; k <<= 1) {
+#pragma unroll
+    for (int j = k >> 1; j > 0; j >>= 1) {
+#pragma unroll
+      for (int i = 0; i < SORT_RUN; ++i) {
+        const int q = i ^ j;
+        if (q > i) {
+          const int32_t a = v[i], b = v[q];
+          const bool up = (i & k) == 0;
+          v[i] = up ? min(a, b) : max(a, b);
+          v[q] = up ? max(a, b) : min(a, b);
+        }
+      }
+    }
+  }
+}
+
+// Outputs [d, d + SORT_RUN) of the merge of the ascending runs at tile
+// positions [a0, a0 + w) and [a0 + w, a0 + 2w) of src (an entry of the
+// first before an equal one of the second), written to dst at a0 + d: the
+// merge path's split on diagonal d by a binary search, then SORT_RUN steps.
+__device__ __forceinline__ void merge_step(const int32_t* src, int32_t* dst, int a0, int w, int d) {
+  const int b0 = a0 + w;
+  int lo = max(0, d - w), hi = min(d, w);
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (src[padded(a0 + mid)] <= src[padded(b0 + d - 1 - mid)]) lo = mid + 1;
+    else hi = mid;
+  }
+  int i = lo, j = d - lo;
+  int32_t x = i < w ? src[padded(a0 + i)] : NO_ENTRY;
+  int32_t y = j < w ? src[padded(b0 + j)] : NO_ENTRY;
+#pragma unroll 4
+  for (int s = 0; s < SORT_RUN; ++s) {
+    const bool take_a = j >= w || (i < w && x <= y);
+    dst[padded(a0 + d + s)] = take_a ? x : y;
+    if (take_a) {
+      ++i;
+      x = i < w ? src[padded(a0 + i)] : NO_ENTRY;
+    } else {
+      ++j;
+      y = j < w ? src[padded(b0 + j)] : NO_ENTRY;
+    }
+  }
+}
+
+// sort: one block per row of two chunks or more (a row's entries are
+// distinct), a block merge sort of tiles of SORT_TILE entries in shared
+// memory: each thread sorts a run of SORT_RUN entries in registers, then
+// the runs are merged in pairs, two buffers in turn, each thread writing
+// SORT_RUN outputs of its pair (log2 of the runs rounds: 9 for a full
+// tile). A longer row's sorted tiles are then merged in pairs, between
+// perm and perm_tmp, each entry placed by its rank in the other run (a
+// binary search), one pass per doubling. The block's own stores are all it
+// reads back, after a __syncthreads, so perm is read through plain
+// (coherent) loads.
+__global__ void __launch_bounds__(SORT_THREADS)
+gather_rows_bwd_sort(Plan p) {
+  extern __shared__ int32_t smem[];  // two tiles of SORT_TILE_WORDS
+  const int n_multi = *p.multi_count;
+  for (int m = blockIdx.x; m < n_multi; m += gridDim.x) {
+    const int r = p.multi_rows[m];
+    const int off = p.offsets[r], n = p.offsets[r + 1] - off;
+    int32_t* const perm = p.perm + off;
+    for (int t0 = 0; t0 < n; t0 += SORT_TILE) {
+      const int len = min(SORT_TILE, n - t0);
+      int size = SORT_RUN;  // runs of SORT_RUN, a power of two of them
+      while (size < len) size <<= 1;
+      const int runs = size / SORT_RUN;
+      int32_t* buf = smem;
+      int32_t* other = smem + SORT_TILE_WORDS;
+      for (int i = threadIdx.x; i < size; i += SORT_THREADS) buf[padded(i)] = i < len ? perm[t0 + i] : NO_ENTRY;
+      __syncthreads();
+      if (threadIdx.x < runs) {
+        int32_t v[SORT_RUN];
+#pragma unroll
+        for (int c = 0; c < SORT_RUN; ++c) v[c] = buf[padded(threadIdx.x * SORT_RUN + c)];
+        sort_run(v);
+#pragma unroll
+        for (int c = 0; c < SORT_RUN; ++c) buf[padded(threadIdx.x * SORT_RUN + c)] = v[c];
+      }
+      __syncthreads();
+      for (int w = SORT_RUN; w < size; w <<= 1) {
+        if (threadIdx.x < runs) {
+          const int first = threadIdx.x * SORT_RUN;
+          const int a0 = first / (2 * w) * (2 * w);
+          merge_step(buf, other, a0, w, first - a0);
+        }
+        __syncthreads();
+        int32_t* const t = buf;
+        buf = other;
+        other = t;
+      }
+      for (int i = threadIdx.x; i < len; i += SORT_THREADS) perm[t0 + i] = buf[padded(i)];
+      __syncthreads();
+    }
+    int32_t* from = perm;
+    int32_t* to = p.perm_tmp + off;
+    for (int width = SORT_TILE; width < n; width <<= 1) {
+      for (int i = threadIdx.x; i < n; i += SORT_THREADS) {
+        const int lo = i / width * width;
+        const int mate = lo ^ width;  // the other run of the pair
+        const int mate_n = max(0, min(width, n - mate));
+        const int32_t v = from[i];
+        to[min(lo, mate) + (i - lo) + count_below(from + mate, mate_n, v)] = v;
+      }
+      __syncthreads();
+      int32_t* const t = from;
+      from = to;
+      to = t;
+    }
+    if (from != perm) {
+      for (int i = threadIdx.x; i < n; i += SORT_THREADS) perm[i] = from[i];
+      __syncthreads();
+    }
+  }
 }
 
 #define RETURN_IF_LAUNCH_FAILED()                 \
@@ -386,6 +557,18 @@ int launch_plan(const void* idx, const Plan& p, int rows, int64_t entries, int c
   RETURN_IF_LAUNCH_FAILED();
   if (entries > 0) {
     gather_rows_bwd_fill<<<blocks, INDEX_THREADS, 0, s>>>(ix, p, entries);
+    RETURN_IF_LAUNCH_FAILED();
+  }
+  // the grid covers the most rows of several chunks there can be, up to a
+  // cap (its blocks then loop); blocks past the true count leave at once
+  const int64_t most = max_multi_rows(entries, chunk);
+  if (most > 0) {
+    constexpr int smem = 2 * SORT_TILE_WORDS * sizeof(int32_t);
+    static const cudaError_t opted_in =
+        cudaFuncSetAttribute(gather_rows_bwd_sort, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (opted_in != cudaSuccess) return (int)opted_in;
+    const unsigned sort_blocks = (unsigned)(most < SORT_MAX_BLOCKS ? most : SORT_MAX_BLOCKS);
+    gather_rows_bwd_sort<<<sort_blocks, SORT_THREADS, smem, s>>>(p);
     RETURN_IF_LAUNCH_FAILED();
   }
   return 0;
@@ -422,12 +605,41 @@ constexpr int OWNER_STAGES = 2;
 constexpr int OWNER_STAGE_BYTES = 4096;  // a warp's stage: 8 KB a warp, 32 KB a block
 constexpr int MAX_CHUNK = 64;            // a chunk's entries sit in two registers a lane
 
+// The 64 values a warp holds, lane l at positions l (lo) and l + 32 (hi),
+// sorted ascending by a bitonic network: 21 compare-exchange steps, each a
+// shuffle (or, between a lane's own two values, none).
+__device__ __forceinline__ void warp_sort64(int32_t& lo, int32_t& hi) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int k = 2; k <= 64; k <<= 1) {
+#pragma unroll
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      if (j == 32) {  // k == 64: positions l and l + 32, ascending
+        const int32_t a = min(lo, hi), b = max(lo, hi);
+        lo = a;
+        hi = b;
+        continue;
+      }
+      // position i and its partner i ^ j: the lower takes the min where
+      // the run of k that holds them ascends (bit k of i clear)
+      const bool upper = (lane & j) != 0;
+      const int32_t olo = __shfl_xor_sync(0xffffffffu, lo, j);
+      const int32_t ohi = __shfl_xor_sync(0xffffffffu, hi, j);
+      const bool up_lo = (lane & k) == 0, up_hi = ((lane + 32) & k) == 0;
+      lo = up_lo != upper ? min(lo, olo) : max(lo, olo);
+      hi = up_hi != upper ? min(hi, ohi) : max(hi, ohi);
+    }
+  }
+}
+
 // owner: one warp per chunk (at most MAX_CHUNK entries), G groups of 256
 // channels a block of channels (lane l on channels l*8 + j*256). The
-// entries' grad_out slices stream through a ring of OWNER_STAGES stages in
-// shared memory, BATCH entries a stage, each lane copying and reading back
-// only its own 16-byte pieces: OWNER_STAGES - 1 batches are in flight
-// while one is summed, in entry order, into float32 registers. A row of
+// chunk's entries are sorted first (a row of several chunks is sorted
+// already: the chunk keeps its order). The entries' grad_out slices stream
+// through a ring of OWNER_STAGES stages in shared memory, BATCH entries a
+// stage, each lane copying and reading back only its own 16-byte pieces:
+// OWNER_STAGES - 1 batches are in flight while one is summed, in entry
+// order, into float32 registers, each product rounded before its add. A row of
 // one chunk is written in the table's dtype; a chunk of a row of several
 // writes its float32 partial to its slot. grad_w[e] is written by the one
 // warp whose chunk holds e: set in the first block of channels, added to
@@ -452,17 +664,13 @@ gather_rows_bwd_owner(const TIn* __restrict__ table, const float* __restrict__ w
   const int own_chunk = p.chunk_start[r];
   const bool single = p.chunk_start[r + 1] - own_chunk == 1;
   const int slot = p.multi_start[r] + q - own_chunk;
-  // the chunk's entries and their weights, lane l holding entries l and l+32
-  int e_lo = 0, e_hi = 0;
-  float w_lo = 0.f, w_hi = 0.f;
-  if (lane < n) {
-    e_lo = p.perm[first + lane];
-    w_lo = w[e_lo];
-  }
-  if (lane + 32 < n) {
-    e_hi = p.perm[first + 32 + lane];
-    w_hi = w[e_hi];
-  }
+  // the chunk's entries, ascending, and their weights, lane l holding
+  // entries l and l+32
+  int32_t e_lo = lane < n ? p.perm[first + lane] : NO_ENTRY;
+  int32_t e_hi = lane + 32 < n ? p.perm[first + 32 + lane] : NO_ENTRY;
+  warp_sort64(e_lo, e_hi);
+  const float w_lo = lane < n ? w[e_lo] : 0.f;
+  const float w_hi = lane + 32 < n ? w[e_hi] : 0.f;
   const int batches = (n + BATCH - 1) / BATCH;
   for (int cb = 0; cb < c; cb += G * 256) {
     // copies batch b of this block of channels into its stage (an empty
@@ -497,7 +705,7 @@ gather_rows_bwd_owner(const TIn* __restrict__ table, const float* __restrict__ w
       for (int i = 0; i < 8; ++i) acc[j][i] = 0.f;
 #pragma unroll
       for (int v = 0; v < VT; ++v)
-        t[j][v] = grad_w != nullptr && ch < c
+        t[j][v] = grad_w != nullptr && n > 0 && ch < c  // an empty row's dots are not taken
                       ? __ldg(reinterpret_cast<const uint4*>(table + (int64_t)r * c + ch) + v)
                       : make_uint4(0u, 0u, 0u, 0u);
     }
@@ -521,7 +729,7 @@ gather_rows_bwd_owner(const TIn* __restrict__ table, const float* __restrict__ w
 #pragma unroll
           for (int i = 0; i < 8; ++i) {
             const float gi = raw_at(g, i, static_cast<TOut*>(nullptr));
-            acc[j][i] = fmaf(wt, gi, acc[j][i]);
+            acc[j][i] = __fadd_rn(acc[j][i], __fmul_rn(wt, gi));
             dot[u] = fmaf(gi, raw_at(t[j], i, static_cast<TIn*>(nullptr)), dot[u]);
           }
         }

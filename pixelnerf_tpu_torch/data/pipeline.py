@@ -124,8 +124,9 @@ class RayBatchPipeline:
             "rgb_gt": rgb_gt.astype(np.float32),
         }
 
-    def _object_stream(self):
-        """Shuffled epoch stream of object dicts.
+    def _object_stream(self, halt: Optional[threading.Event] = None):
+        """Shuffled epoch stream of object dicts, ending once ``halt`` is set
+        (checked before each pull).
 
         Objects are fetched by a small thread pool with bounded lookahead —
         real datasets decode ~50 images per object (the reference used 8
@@ -137,8 +138,13 @@ class RayBatchPipeline:
             while True:
                 yield from self.rng.permutation(n)
 
+        def halted():
+            return halt is not None and halt.is_set()
+
         if self.workers <= 1:
             for i in indices():
+                if halted():
+                    return
                 data = self.dataset[int(i)]
                 if data:  # skip malformed-scene sentinel {}
                     yield data
@@ -147,13 +153,14 @@ class RayBatchPipeline:
         import concurrent.futures as cf
 
         idx_iter = indices()
-        with cf.ThreadPoolExecutor(max_workers=self.workers) as pool:
+        pool = cf.ThreadPoolExecutor(max_workers=self.workers)
+        try:
             pending = [
                 pool.submit(self.dataset.__getitem__, int(next(idx_iter)))
                 for _ in range(self.workers * 2)
             ]
             k = 0
-            while True:
+            while not halted():
                 fut = pending[k % len(pending)]
                 data = fut.result()
                 pending[k % len(pending)] = pool.submit(
@@ -162,15 +169,22 @@ class RayBatchPipeline:
                 k += 1
                 if data:
                     yield data
+        finally:
+            # pulls not started yet are dropped; the running ones finish
+            pool.shutdown(wait=False, cancel_futures=True)
 
-    def batches(self):
-        stream = self._object_stream()
+    def batches(self, halt: Optional[threading.Event] = None):
+        """Infinite batches, or until ``halt`` is set."""
+        stream = self._object_stream(halt)
         while True:
             num_source = int(self.rng.choice(self.views))
-            entries = [
-                self._object_entry(next(stream), num_source)
-                for _ in range(self.batch_size)
-            ]
+            try:
+                entries = [
+                    self._object_entry(next(stream), num_source)
+                    for _ in range(self.batch_size)
+                ]
+            except StopIteration:   # halted
+                return
             batch = {
                 k: np.stack([e[k] for e in entries]) for k in entries[0]
             }
@@ -181,24 +195,39 @@ class RayBatchPipeline:
             yield batch
 
     def __iter__(self):
-        """Prefetching iterator (daemon thread, bounded queue)."""
+        """Prefetching iterator (daemon thread, bounded queue). When the
+        iterator is closed or dropped, the thread stops before its next
+        object pull, so a finished consumer (a trainer that has returned)
+        leaves no decoding behind it."""
         if self.prefetch <= 0:
             yield from self.batches()
             return
         q: queue.Queue = queue.Queue(maxsize=self.prefetch)
         stop = object()
+        halt = threading.Event()
+
+        def put(item):
+            while not halt.is_set():
+                try:
+                    q.put(item, timeout=0.1)
+                    return
+                except queue.Full:
+                    pass
 
         def worker():
             try:
-                for b in self.batches():
-                    q.put(b)
+                for b in self.batches(halt):
+                    put(b)
             finally:
-                q.put(stop)
+                put(stop)
 
         t = threading.Thread(target=worker, daemon=True)
         t.start()
-        while True:
-            b = q.get()
-            if b is stop:
-                return
-            yield b
+        try:
+            while True:
+                b = q.get()
+                if b is stop:
+                    return
+                yield b
+        finally:
+            halt.set()

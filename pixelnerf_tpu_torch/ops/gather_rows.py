@@ -28,8 +28,8 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # two, at most MAX_CHUNK of csrc/gather_rows.cu)
 ROW_CHUNK = 64
 # the scan's state in the index buffer: SCAN_WORDS of csrc/gather_rows.cu
-# (a ticket, then a flag and three sums for each of 128 blocks)
-_SCAN_WORDS = 1 + 128 + 3 * 128
+# (a ticket, then a flag and four sums for each of 128 blocks)
+_SCAN_WORDS = 1 + 128 + 4 * 128
 
 
 def gather_rows_lerp_plain(
@@ -88,8 +88,10 @@ def row_owner_plan_plain(idx: torch.Tensor, rows: int, chunk: int = ROW_CHUNK) -
       with two chunks or more (0 for the others): their partials' slots;
     - ``chunk_row``, ``chunk_first`` (Q,): each chunk's row and the position
       of its first entry in ``perm``;
-    - ``perm`` (E,): the entries grouped by row, rows ascending (the kernel
-      orders the entries within a row as its atomics fall; this is stable).
+    - ``multi_rows``: the rows of two chunks or more, ascending;
+    - ``perm`` (E,): the entries grouped by row, rows ascending, and within
+      a row ascending (the order the kernel sums them in: its fill places
+      them as its atomics fall, then its sort and owner order them).
     """
     e_rows = idx.reshape(-1).long()
     counts = torch.bincount(e_rows, minlength=rows)
@@ -105,6 +107,7 @@ def row_owner_plan_plain(idx: torch.Tensor, rows: int, chunk: int = ROW_CHUNK) -
     plan = {
         "counts": counts, "offsets": offsets, "chunk_start": chunk_start, "multi_start": multi_start,
         "chunk_row": chunk_row, "chunk_first": offsets[chunk_row] + within * chunk,
+        "multi_rows": torch.nonzero(n_chunks >= 2).flatten(),
         "perm": torch.argsort(e_rows, stable=True),
     }
     return {k: v.to(torch.int32) for k, v in plan.items()}
@@ -116,10 +119,13 @@ def row_owner_bwd_plain(
 ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
     """The backward as the kernel computes it, in plain PyTorch, for the
     tests: the index of :func:`row_owner_plan_plain`; each chunk's float32
-    partial, its entries' ``w * grad_out`` summed in their order; a row of
-    one chunk takes its partial, a row of several the sum of its partials
-    in chunk order; rounded once to the table's dtype. ``grad_w`` is each
-    entry's dot of its ``grad_out`` and table rows, in float32.
+    partial, its entries' ``w * grad_out`` summed in ascending order, each
+    product rounded before its add; a row of one chunk takes its partial, a
+    row of several the sum of its partials in chunk order; rounded once to
+    the table's dtype. This ``grad_table`` is the kernel's bit for bit.
+    ``grad_w`` is each entry's dot of its ``grad_out`` and table rows, in
+    float32 (the kernel's within float32 rounding: its sums run in another
+    order).
 
     :return: as :func:`gather_rows_lerp_bwd_plain`
     """
@@ -230,19 +236,21 @@ gather_rows_lerp.launches = 0
 def _plan_sections(rows: int, entries: int, chunk: int):
     """The sections of the index's int32 buffer, in the order of ``Plan`` in
     ``csrc/gather_rows.cu``: (name, length) each. Q = R + ceil(E/chunk)
-    bounds the chunks."""
+    bounds the chunks, floor(E/(chunk+1)) the rows of two chunks or more."""
     q = rows + -(-entries // chunk)
     return [("counts", rows), ("cursor", rows), ("scan", _SCAN_WORDS), ("offsets", rows + 1),
             ("chunk_start", rows + 1), ("multi_start", rows + 1), ("chunk_row", q), ("chunk_first", q),
-            ("perm", entries)]
+            ("multi_count", 1), ("multi_rows", entries // (chunk + 1)), ("perm", entries),
+            ("perm_tmp", entries)]
 
 
 def row_owner_plan(idx: torch.Tensor, rows: int, chunk: int = ROW_CHUNK) -> Dict[str, torch.Tensor]:
-    """The backward kernel's index launches alone (count, scan, fill) on a
-    CUDA ``idx``, for the tests: the sections of
-    :func:`row_owner_plan_plain`, ``chunk_row`` and ``chunk_first`` cut to
-    the true chunk count, ``perm`` ordered within each row as the atomics
-    fell. Counts no launch."""
+    """The backward kernel's index launches alone (count, scan, fill, sort)
+    on a CUDA ``idx``, for the tests: the sections of
+    :func:`row_owner_plan_plain`, ``chunk_row``, ``chunk_first`` and
+    ``multi_rows`` cut to their true counts, ``perm`` ascending within each
+    row of two chunks or more and, within the others, in the order the
+    fill's atomics fell (the owner sorts those). Counts no launch."""
     _check_cuda((("idx", idx),))
     entries = idx.numel()
     sections = _plan_sections(rows, entries, chunk)
@@ -252,9 +260,11 @@ def row_owner_plan(idx: torch.Tensor, rows: int, chunk: int = ROW_CHUNK) -> Dict
         err = _fn("gather_rows_bwd_plan")(idx.data_ptr(), plan.data_ptr(), idx.shape[0], rows, chunk, stream)
     _build.check(err, "gather_rows_bwd_plan launch")
     out = dict(zip([k for k, _ in sections], torch.split(plan, [n for _, n in sections])))
-    del out["cursor"], out["scan"]
     n_chunks = int(out["chunk_start"][-1])
     out["chunk_row"], out["chunk_first"] = out["chunk_row"][:n_chunks], out["chunk_first"][:n_chunks]
+    out["multi_rows"] = out["multi_rows"][: int(out["multi_count"][0])]
+    for k in ("cursor", "scan", "multi_count", "perm_tmp"):
+        del out[k]
     return out
 
 
@@ -265,16 +275,17 @@ def gather_rows_lerp_bwd(
     """The backward of :func:`gather_rows_lerp` (see
     :func:`gather_rows_lerp_bwd_plain`). CPU tensors run the plain version.
     CUDA tensors launch the row-owner pass (``csrc/gather_rows.cu``): an
-    index of the 4N taps by row (count, scan, fill), then one warp per
-    chunk of ``ROW_CHUNK`` of a row's taps sums ``w * grad_out`` in float32
-    in the order of the index (which varies between runs: the fill's
-    atomics place the taps) and takes ``grad_w``'s dots; a row of one chunk
-    is written in the table's dtype, a row of several by a last launch that
-    adds its chunks' partials in chunk order (:func:`row_owner_bwd_plain`
-    is this order in plain PyTorch). Without ``want_table`` one warp per
-    point takes the dots alone and no index is built. No float atomics and
-    no float32 copy of the table; each call makes six device launches
-    (the index's zeroed counters, count, scan, fill, owner, combine). Its
+    index of the 4N taps by row, each row's taps ascending (count, scan,
+    fill, and a sort of the rows of more than one chunk), then one warp per
+    chunk of ``ROW_CHUNK`` of a row's taps sorts them (if the sort has not)
+    and sums ``w * grad_out`` in float32 in that order and takes
+    ``grad_w``'s dots; a row of one chunk is written in the table's dtype,
+    a row of several by a last launch that adds its chunks' partials in
+    chunk order. ``grad_table`` is :func:`row_owner_bwd_plain`'s bit for
+    bit, the same on every run. Without ``want_table`` one warp per point
+    takes the dots alone and no index is built. No float atomics and no
+    float32 copy of the table; each call makes seven device launches (the
+    index's zeroed counters, count, scan, fill, sort, owner, combine). Its
     bound is the bytes: grad_out, the table, idx and w read once, the two
     gradients written once; the owner reads grad_out ~4 times through L2."""
     _check(table, idx, w, grad_out.dtype)

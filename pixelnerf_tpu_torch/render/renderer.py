@@ -53,13 +53,15 @@ class RenderConfig:
     noise_std: float = 0.0
     depth_std: float = 0.01
     white_bkgd: bool = False
+    # samples linear in disparity (1/z) between near and far, not in depth
+    lindisp: bool = False
 
     @property
     def using_fine(self) -> bool:
         return self.n_fine > 0
 
     @classmethod
-    def from_conf(cls, conf, white_bkgd: bool = False) -> "RenderConfig":
+    def from_conf(cls, conf, white_bkgd: bool = False, lindisp: bool = False) -> "RenderConfig":
         return cls(
             n_coarse=conf.get_int("n_coarse", 128),
             n_fine=conf.get_int("n_fine", 0),
@@ -67,6 +69,7 @@ class RenderConfig:
             noise_std=conf.get_float("noise_std", 0.0),
             depth_std=conf.get_float("depth_std", 0.01),
             white_bkgd=bool(conf.get_float("white_bkgd", white_bkgd)),
+            lindisp=lindisp,
         )
 
 
@@ -118,16 +121,18 @@ def draw_noise(
     return noise
 
 
-def _z_from_steps(rays: torch.Tensor, z_steps: torch.Tensor) -> torch.Tensor:
+def _z_from_steps(rays: torch.Tensor, z_steps: torch.Tensor, lindisp: bool) -> torch.Tensor:
     near, far = rays[..., 6:7], rays[..., 7:8]
-    return near * (1 - z_steps) + far * z_steps
+    if not lindisp:
+        return near * (1 - z_steps) + far * z_steps
+    return 1.0 / (1.0 / near * (1 - z_steps) + 1.0 / far * z_steps)
 
 
 def sample_coarse(rays: torch.Tensor, cfg: RenderConfig, u: torch.Tensor) -> torch.Tensor:
     """Stratified samples: (..., B, 8) rays -> (..., B, Kc) depths."""
     step = 1.0 / cfg.n_coarse
     z_steps = torch.linspace(0.0, 1.0 - step, cfg.n_coarse, device=rays.device, dtype=rays.dtype)
-    return _z_from_steps(rays, z_steps + u * step)
+    return _z_from_steps(rays, z_steps + u * step, cfg.lindisp)
 
 
 def sample_fine(
@@ -143,7 +148,7 @@ def sample_fine(
     inds = torch.sum((cdf[..., None, :] <= u[..., :, None]).to(rays.dtype), dim=-1) - 1.0
     inds = torch.clamp(inds, min=0.0)
     z_steps = (inds + jitter) / cfg.n_coarse
-    return _z_from_steps(rays, z_steps)
+    return _z_from_steps(rays, z_steps, cfg.lindisp)
 
 
 def sample_fine_depth(
@@ -381,8 +386,8 @@ class NeRFRenderer:
         self.cfg = cfg
 
     @classmethod
-    def from_conf(cls, conf, white_bkgd: bool = False) -> "NeRFRenderer":
-        return cls(RenderConfig.from_conf(conf, white_bkgd))
+    def from_conf(cls, conf, white_bkgd: bool = False, lindisp: bool = False) -> "NeRFRenderer":
+        return cls(RenderConfig.from_conf(conf, white_bkgd, lindisp))
 
     def __call__(
         self, query_fn: QueryFn, rays: torch.Tensor, generator=None, noise=None, train: bool = False,

@@ -185,6 +185,10 @@ class Trainer:
         try:
             self._run_epochs(train_iter, test_iter)
         finally:
+            # the pipelines' prefetch threads stop before their next pull
+            train_iter.close()
+            if test_iter is not None:
+                test_iter.close()
             # the run's last interval (a short run's only one)
             if self._pending is not None:
                 self._print_pending()

@@ -8,11 +8,13 @@ returns what ``imageio.v2.imread`` (Pillow) returns for the same file:
 - 16-bit gray (H, W) uint16; 16-bit gray + alpha (H, W, 4) uint8 RGBA (gray
   in each colour channel), RGB (H, W, 3) and RGBA (H, W, 4) uint8, each
   sample its high byte (Pillow reduces 16-bit colour to 8 bits);
+- 1-bit gray (H, W) bool; 2- and 4-bit gray (H, W) uint8, each level
+  scaled to 0-255 (x 85, x 17), as Pillow unpacks them;
 - 8-bit palette: (H, W, 3) uint8 RGB. A ``tRNS`` chunk is read and not
   applied, as Pillow's conversion of a palette image to its palette's mode
   does not apply it.
 
-Bit depths below 8 and interlaced files raise ``NotImplementedError``.
+Palettes below 8 bits and interlaced files raise ``NotImplementedError``.
 
 Rows are unfiltered with numpy: None, Sub (a cumulative sum per channel)
 and Up rows one row at a time; when a file has an Average or Paeth row,
@@ -165,13 +167,20 @@ def _parse(path: str):
         raise NotImplementedError(f"{path}: interlaced PNG is not supported")
     if ctype not in _CHANNELS:
         raise ValueError(f"{path}: unknown colour type {ctype}")
-    if depth not in (8, 16) or (ctype == 3 and depth != 8):
+    supported = depth == 8 or (depth == 16 and ctype != 3) or (depth in (1, 2, 4) and ctype == 0)
+    if not supported:
         raise NotImplementedError(f"{path}: bit depth {depth} (colour type {ctype}) is not supported")
     if ctype == 3 and palette is None:
         raise ValueError(f"{path}: palette image without PLTE")
-    bpp = _CHANNELS[ctype] * depth // 8
-    ft, x = _scanlines(zlib.decompress(b"".join(idat)), height, width * bpp, path)
+    row_bytes = -(-width * _CHANNELS[ctype] * depth // 8)
+    ft, x = _scanlines(zlib.decompress(b"".join(idat)), height, row_bytes, path)
     return (width, height, depth, ctype), palette, ft, x
+
+
+def _filter_bpp(depth: int, ctype: int) -> int:
+    """The byte distance of the Sub, Average and Paeth filters' left
+    neighbour: the bytes of a pixel, at least 1."""
+    return max(1, _CHANNELS[ctype] * depth // 8)
 
 
 def _pixels(fields, palette, rows: np.ndarray) -> np.ndarray:
@@ -180,6 +189,13 @@ def _pixels(fields, palette, rows: np.ndarray) -> np.ndarray:
     channels = _CHANNELS[ctype]
     if ctype == 3:
         return palette[rows.reshape(height, width)]
+    if depth < 8:
+        # gray, packed most significant bits first; a row ends on a byte
+        bits = np.unpackbits(rows, axis=1)[:, : width * depth].reshape(height, width, depth)
+        level = np.zeros((height, width), np.uint8)
+        for b in range(depth):
+            level = (level << 1) | bits[..., b]
+        return level.astype(bool) if depth == 1 else level * np.uint8(255 // ((1 << depth) - 1))
     if depth == 16:
         px = rows.reshape(height, width, channels, 2)
         if ctype == 0:
@@ -204,8 +220,8 @@ def imread_many(paths: Sequence[str]) -> list:
     rows = [None] * len(parsed)
     groups = {}
     for i, (fields, _, ft, x) in enumerate(parsed):
-        width, _, depth, ctype = fields
-        bpp = _CHANNELS[ctype] * depth // 8
+        _, _, depth, ctype = fields
+        bpp = _filter_bpp(depth, ctype)
         if np.all(ft <= 2):
             rows[i] = _unfilter_rows(ft, x, bpp)
         else:

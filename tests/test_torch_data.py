@@ -62,8 +62,18 @@ def _chunk(kind, data):
 def _png_bytes(samples, depth, ctype, filters, extra=b"", interlace=0):
     """samples: (H, W, C) integers; each row filtered with filters[y]."""
     h, w, c = samples.shape
-    raw = samples.astype(">u2" if depth == 16 else np.uint8).tobytes()
-    row_bytes = w * c * depth // 8
+    if depth < 8:
+        # most significant bits first, each row padded to a whole byte
+        per = 8 // depth
+        s = samples.reshape(h, w * c).astype(np.uint8)
+        s = np.pad(s, ((0, 0), (0, -s.shape[1] % per))).reshape(h, -1, per)
+        packed = np.zeros(s.shape[:2], np.uint8)
+        for j in range(per):
+            packed = (packed << depth) | s[..., j]
+        raw, row_bytes = packed.tobytes(), packed.shape[1]
+    else:
+        raw = samples.astype(">u2" if depth == 16 else np.uint8).tobytes()
+        row_bytes = w * c * depth // 8
     bpp = max(1, c * depth // 8)
     prev = bytes(row_bytes)
     data = b""
@@ -80,6 +90,7 @@ COLOUR_TYPES = {
     "gray8": (0, 8, 1), "gray_alpha8": (4, 8, 2), "rgb8": (2, 8, 3), "rgba8": (6, 8, 4),
     "gray16": (0, 16, 1), "gray_alpha16": (4, 16, 2), "rgb16": (2, 16, 3), "rgba16": (6, 16, 4),
     "palette": (3, 8, 1), "palette_trns": (3, 8, 1),
+    "gray1": (0, 1, 1), "gray2": (0, 2, 1), "gray4": (0, 4, 1),
 }
 FILTERS = {"none": [0], "sub": [1], "up": [2], "average": [3], "paeth": [4], "mixed": [4, 0, 3, 1, 2, 4, 3]}
 
@@ -139,6 +150,18 @@ def test_png_read_many_matches_imageio(tmp_path, monkeypatch):
             np.testing.assert_array_equal(img, ref)
 
 
+@pytest.mark.parametrize("shape", [(5, 13), (17, 8), (1, 1), (9, 33)])
+def test_png_reader_matches_imageio_on_pillow_1_bit_files(tmp_path, shape):
+    """Masks saved by Pillow in mode "1" (1-bit gray, rows ending inside a
+    byte): bool, as imageio returns them."""
+    from PIL import Image
+
+    path = str(tmp_path / "mask.png")
+    Image.fromarray(np.random.default_rng(sum(shape)).uniform(size=shape) > 0.5).save(path)
+    _assert_same_read(path)
+    assert png.imread(path).dtype == np.bool_
+
+
 @pytest.mark.parametrize("shape,dtype", [((17, 9), np.uint8), ((17, 9, 2), np.uint8), ((17, 9, 3), np.uint8),
                                          ((17, 9, 4), np.uint8), ((17, 9), np.uint16)])
 def test_png_reader_matches_imageio_on_imageio_files(tmp_path, shape, dtype):
@@ -175,11 +198,13 @@ def test_png_reader_refuses_what_it_does_not_read(tmp_path):
         f.write(_png_bytes(samples, 8, 2, [0], interlace=1))
     with pytest.raises(NotImplementedError, match="interlaced.png"):
         png.imread(path)
-    path = str(tmp_path / "gray4.png")
+    # palettes below 8 bits (gray of 1, 2 and 4 bits is read)
+    path = str(tmp_path / "palette4.png")
     with open(path, "wb") as f:
-        f.write(png.SIGNATURE + _chunk(b"IHDR", struct.pack(">IIBBBBB", 4, 4, 4, 0, 0, 0, 0))
-                + _chunk(b"IDAT", zlib.compress(bytes(4 * 3))) + _chunk(b"IEND", b""))
-    with pytest.raises(NotImplementedError, match="gray4.png"):
+        f.write(png.SIGNATURE + _chunk(b"IHDR", struct.pack(">IIBBBBB", 4, 4, 4, 3, 0, 0, 0))
+                + _chunk(b"PLTE", bytes(16 * 3)) + _chunk(b"IDAT", zlib.compress(bytes(4 * 3)))
+                + _chunk(b"IEND", b""))
+    with pytest.raises(NotImplementedError, match="palette4.png"):
         png.imread(path)
     good = str(tmp_path / "good.png")
     png.imwrite(good, np.zeros((4, 4, 3), np.uint8))
@@ -244,8 +269,9 @@ def test_get_split_dataset_srn_matches_jax(tmp_path):
         assert t.stage == j.stage and len(t) == len(j)
         _assert_items_equal(j[1], t[1])
     assert get_split_dataset("srn", path, "val", image_size=(32, 32)).stage == "val"
-    with pytest.raises(NotImplementedError):
-        get_split_dataset("dvr", path, "train")
+    for factory in (get_split_dataset, jax_get_split_dataset):
+        with pytest.raises(NotImplementedError):
+            factory("nerf_llff", path, "train")
 
 
 # ---------------------------------------------------------------------------

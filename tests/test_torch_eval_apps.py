@@ -8,6 +8,8 @@ fixture, beside the JAX package's apps on the same fixture and weights:
 - ``apps.eval_approx``: the same seeded target per object as the JAX app;
 - ``apps.train -F srn``: trains, writes the visual in the JAX layout, and
   takes ``--pretrained_encoder``;
+- ``apps.train`` and ``apps.eval`` on the DTU (``-V 3``), NMR and
+  multi-object readers;
 - the import rule: the port's apps run with ``imageio``, ``PIL``, ``cv2``
   and ``jax`` blocked, and no module of the port names them.
 """
@@ -23,7 +25,14 @@ import numpy as np
 import pytest
 import torch
 
-from torch_port_utils import REPO, SRN_CONF, write_srn_fixture
+from torch_port_utils import (
+    REPO,
+    SRN_CONF,
+    write_dtu_fixture,
+    write_multi_obj_fixture,
+    write_nmr_fixture,
+    write_srn_fixture,
+)
 
 OVERRIDES = {
     "model.encoder.num_layers": "2", "model.mlp_coarse.d_hidden": "32", "model.mlp_fine.d_hidden": "32",
@@ -220,6 +229,46 @@ def test_train_app_takes_pretrained_encoder(work, tmp_path, capsys, monkeypatch)
     assert f"Encoder initialized from {good}" in capsys.readouterr().out
     with pytest.raises(ValueError, match="pretrained encoder missing tensor"):
         train.main(argv + ["--pretrained_encoder", bad])
+
+
+# -F, its config, -V, -P, its fixture writer
+READER_APPS = {
+    "dvr_dtu": ("dtu.conf", "3", "0 2 4", write_dtu_fixture),
+    "dvr": ("sn64.conf", "1", "0", write_nmr_fixture),
+    "multi_obj": ("multi_obj.conf", "1", "0", write_multi_obj_fixture),
+}
+
+
+@pytest.mark.parametrize("fmt", list(READER_APPS))
+def test_apps_train_and_eval_on_the_dvr_and_multi_object_readers(fmt, tmp_path, capsys, monkeypatch):
+    """``apps.train`` (2 batches, its eval and visual at batch 1) and
+    ``apps.eval`` on the DTU (``-V 3``, 40x30, off-centre c, (fx, fy)), NMR
+    and multi-object readers, on the CPU with the TINY model: the steps run,
+    the visual has the view's shape, ``finish.txt`` gets the object."""
+    from pixelnerf_tpu_torch.apps import eval as eval_app
+    from pixelnerf_tpu_torch.apps import train
+    from pixelnerf_tpu_torch.utils import png
+
+    monkeypatch.setenv("PIXELNERF_NO_TB", "1")
+    conf, views, source, write = READER_APPS[fmt]
+    data = write(str(tmp_path / "data"), np.random.default_rng(0))
+    # the readers take no image size but DVR's; DTU's conf repeats an epoch 32 times
+    tiny = [a for k, v in OVERRIDES.items() if k != "data.image_size" for a in ("--override", f"{k}={v}")]
+    common = ["-c", os.path.join(REPO, "conf", "exp", conf), "-F", fmt, "-D", data, "--device", "cpu",
+              "--checkpoints_path", str(tmp_path / "ck"), "--override", "train.num_epoch_repeats=1"] + tiny
+    trainer = train.main(common + ["-B", "2", "-R", "16", "-V", views, "--epochs", "1", "--epoch_batches", "2",
+                                   "--workers", "1", "--logs_path", str(tmp_path / "logs"),
+                                   "--visual_path", str(tmp_path / "vis")])
+    out = capsys.readouterr().out
+    assert trainer.step == 2 and "*** vis psnr" in out
+    vis = png.imread(str(tmp_path / "vis" / "example" / "0000_0001_vis.png"))
+    h, w = {"dvr_dtu": (30, 40), "dvr": (16, 16), "multi_obj": (12, 12)}[fmt]
+    assert vis.shape == (2 * h, 5 * w, 3)
+    out_dir = str(tmp_path / "eval")
+    eval_app.main(common + ["-P", source, "-R", "256", "--limit", "1", "-O", out_dir])
+    assert "FINAL psnr" in capsys.readouterr().out
+    finish = open(os.path.join(out_dir, "finish.txt")).read().splitlines()
+    assert len(finish) == 1 and np.isfinite(float(finish[0].split()[1]))
 
 
 BLOCKED = ("imageio", "PIL", "cv2", "jax", "jaxlib", "flax", "optax", "pixelnerf_tpu")

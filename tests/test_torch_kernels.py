@@ -489,6 +489,9 @@ def test_row_owner_plan_covers_each_entry_once(case, chunk):
     multi = plan["multi_start"][1:] - plan["multi_start"][:-1]
     assert (multi == torch.where(n_chunks >= 2, n_chunks, 0)).all()
     assert plan["multi_start"][-1] <= 2 * -(-e_rows.numel() // chunk)
+    # the rows the sort launch takes, at most floor(E/(chunk+1)) of them
+    assert plan["multi_rows"].tolist() == torch.nonzero(n_chunks >= 2).flatten().tolist()
+    assert plan["multi_rows"].numel() <= e_rows.numel() // (chunk + 1)
 
 
 @pytest.fixture
@@ -648,14 +651,57 @@ def test_row_owner_plan_matches_mirror_cuda(cuda_device, case, chunk):
     rows = table.shape[0]
     got = row_owner_plan(idx.to(cuda_device), rows, chunk)
     want = row_owner_plan_plain(idx, rows, chunk)
-    for key in ("counts", "offsets", "chunk_start", "multi_start", "chunk_row", "chunk_first"):
+    for key in ("counts", "offsets", "chunk_start", "multi_start", "chunk_row", "chunk_first", "multi_rows"):
         assert got[key].cpu().tolist() == want[key].tolist(), key
-    # within a row the entries fall in the order of the fill's atomics:
-    # sorted within each row, they are the mirror's
+    # a row of several chunks comes out sorted; within the others the
+    # entries fall in the order of the fill's atomics (the owner sorts
+    # those): sorted within each row, they are the mirror's
     perm = got["perm"].cpu().long()
     row_of_place = torch.repeat_interleave(torch.arange(rows), want["counts"].long())
     in_row_order = perm[torch.argsort(row_of_place * perm.numel() + perm)]
     assert torch.equal(in_row_order, want["perm"].long())
+    sorted_place = torch.isin(row_of_place, want["multi_rows"].long())
+    assert torch.equal(perm[sorted_place], want["perm"].long()[sorted_place])
+
+
+def _bench_rows_bwd():
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "scripts"))
+    import bench_gather_rows_bwd_torch as bench
+
+    return bench
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("table_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("kind", ["uniform", "fine", "skewed", "one_cell"])
+def test_gather_rows_bwd_kernel_is_deterministic_cuda(cuda_device, kind, table_dtype):
+    """Two launches give the same bits, and grad_table is the mirror's (each
+    row's taps ascending, chunks in order) bit for bit: on the bench
+    script's training-path inputs, where the skewed one's hot rows take
+    16,384 taps (one tile of the sort) and ``one_cell``'s take 65,536 (four
+    tiles and two merge passes)."""
+    bench = _bench_rows_bwd()
+    if kind == "one_cell":
+        table, idx, w, grad_out = bench.make_inputs(cuda_device, torch.Generator().manual_seed(1), "skewed")
+        # every point of every view into the same cell of view 0
+        hot = idx[: idx.shape[0] // 4]
+        idx = hot.repeat(4, 1).contiguous()
+        w = w[: w.shape[0] // 4].repeat(4, 1).contiguous()
+    else:
+        table, idx, w, grad_out = bench.make_inputs(cuda_device, torch.Generator().manual_seed(1), kind)
+    table = table.to(table_dtype)
+    gt, gw = gather_rows_lerp_bwd(table, idx, w, grad_out)
+    gt2, gw2 = gather_rows_lerp_bwd(table, idx, w, grad_out)
+    torch.cuda.synchronize()
+    assert torch.equal(gt.view(torch.int16 if table_dtype == torch.bfloat16 else torch.int32),
+                       gt2.view(torch.int16 if table_dtype == torch.bfloat16 else torch.int32))
+    assert torch.equal(gw.view(torch.int32), gw2.view(torch.int32))
+    mt, mw = row_owner_bwd_plain(table, idx, w, grad_out)
+    assert torch.equal(gt.float(), mt.float())
+    assert (gw - mw).abs().max().item() <= 1e-5 * mw.abs().max().item()
 
 
 @pytest.mark.cuda

@@ -130,9 +130,37 @@ def test_synthetic_dataset_and_pipeline_match_jax():
         for k in a:
             np.testing.assert_array_equal(np.asarray(a[k]), np.asarray(b[k]), err_msg=k)
     assert get_split_dataset("synthetic", None, "val", **kw).seed == JaxSynthetic(stage="val", **kw).seed
-    for fmt in ("dvr", "dvr_gen", "dvr_dtu", "multi_obj"):   # srn is ported: tests/test_torch_data.py
-        with pytest.raises(NotImplementedError):
-            get_split_dataset(fmt, "data", "train")
+    # the other formats' readers: tests/test_torch_data.py, test_torch_readers.py
+    with pytest.raises(NotImplementedError):
+        get_split_dataset("nerf_llff", "data", "train")
+
+
+@pytest.mark.parametrize("workers", [1, 2])
+def test_pipeline_prefetch_stops_when_its_iterator_closes(workers):
+    """A closed prefetching iterator (a trainer that has returned) leaves no
+    thread pulling objects: at most the pulls already running finish."""
+    import threading
+    import time
+
+    class Counting(SyntheticSphereDataset):
+        pulls = 0
+
+        def __getitem__(self, i):
+            Counting.pulls += 1
+            time.sleep(0.01)
+            return super().__getitem__(i)
+
+    before = threading.active_count()
+    pipe = RayBatchPipeline(Counting(num_objects=3, num_views=2, image_size=(8, 8)), batch_size=2,
+                            rays_per_object=4, prefetch=2, workers=workers)
+    it = iter(pipe)
+    next(it)
+    it.close()
+    time.sleep(1.0)        # the pulls already running (10 ms each) finish
+    pulls = Counting.pulls
+    time.sleep(0.5)
+    assert Counting.pulls == pulls
+    assert threading.active_count() <= before
 
 
 def test_loss_matches_jax():

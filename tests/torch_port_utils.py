@@ -9,12 +9,15 @@ renderer makes them and injected into the port.
 """
 from __future__ import annotations
 
+import json
 import os
 
+import imageio.v2 as imageio
 import jax
 import jax.numpy as jnp
 import numpy as np
 import torch
+from PIL import Image
 
 from pixelnerf_tpu.config import load_config as jax_load_config
 from pixelnerf_tpu.models import make_model as jax_make_model
@@ -180,8 +183,6 @@ def write_srn_fixture(root, name="cars", stages=("train", "val", "test"), num_ob
     as SRN stores them. ``nested`` puts the train split's objects one
     level down, in ``chairs_2.0_train`` (SRN's public chairs). Returns the
     dataset path to pass as ``-D``."""
-    import imageio.v2 as imageio
-
     from pixelnerf_tpu.data import SyntheticSphereDataset as JaxSynthetic
 
     flip = np.diag([1.0, -1.0, -1.0, 1.0]).astype(np.float32)
@@ -203,3 +204,129 @@ def write_srn_fixture(root, name="cars", stages=("train", "val", "test"), num_ob
                 imageio.imwrite(os.path.join(obj, "rgb", f"{v:06d}.png"), img)
                 np.savetxt(os.path.join(obj, "pose", f"{v:06d}.txt"), (d["poses"][v] @ flip).reshape(1, 16))
     return os.path.join(root, name)
+
+
+# --- DVR (NMR, DTU) and multi-object fixtures, written with imageio and Pillow ---
+
+_FLIP = np.diag([1.0, -1.0, -1.0, 1.0]).astype(np.float32)
+_SHAPENET_WORLD = np.array([[1, 0, 0, 0], [0, 0, -1, 0], [0, 1, 0, 0], [0, 0, 0, 1]], np.float32)
+_SHAPENET_CAM = np.diag([1.0, -1.0, -1.0, 1.0]).astype(np.float32)
+
+DTU_H, DTU_W, DTU_VIEWS = 30, 40, 6
+NMR_SIZE, NMR_VIEWS = 16, 4
+
+
+def _image(rng, h, w):
+    """A uint8 RGB image: a gradient (so the row filters matter) and noise."""
+    yy, xx = np.mgrid[:h, :w]
+    base = np.stack([xx * 5, yy * 7, (xx + yy) * 3], -1)
+    return ((base + rng.integers(0, 40, (h, w, 3))) % 256).astype(np.uint8)
+
+
+def _blob(rng, h, w):
+    """A non-empty boolean mask: a random rectangle."""
+    m = np.zeros((h, w), bool)
+    y0, x0 = rng.integers(0, h // 2), rng.integers(0, w // 2)
+    m[y0 : y0 + rng.integers(2, h // 2), x0 : x0 + rng.integers(2, w // 2)] = True
+    return m
+
+
+def orbit(i, n, radius):
+    """The position of camera i of n on a circle about the y axis, a little
+    above the object."""
+    return np.array([radius * np.cos(2 * np.pi * i / n), 0.4 * radius, radius * np.sin(2 * np.pi * i / n)],
+                    np.float32)
+
+
+def write_nmr_fixture(root, rng):
+    """An NMR-layout category of 4 objects x NMR_VIEWS views: 8-bit masks
+    for even objects, Pillow 1-bit masks for odd ones; ``world_mat`` (3x4
+    or 4x4) or ``world_mat_inv``; the softras_ and gen_ split lists."""
+    cat = os.path.join(root, "02958343")
+    names = [f"obj{i}" for i in range(4)]
+    for i, name in enumerate(names):
+        obj = os.path.join(cat, name)
+        os.makedirs(os.path.join(obj, "image"))
+        os.makedirs(os.path.join(obj, "mask"))
+        cams = {}
+        for v in range(NMR_VIEWS):
+            imageio.imwrite(os.path.join(obj, "image", f"{v:04d}.png"), _image(rng, NMR_SIZE, NMR_SIZE))
+            m = _blob(rng, NMR_SIZE, NMR_SIZE)
+            mask_path = os.path.join(obj, "mask", f"{v:04d}.png")
+            if i % 2:
+                Image.fromarray(m).save(mask_path)
+            else:
+                imageio.imwrite(mask_path, m.astype(np.uint8) * 255)
+            c2w = jax_geometry.look_at(orbit(v, NMR_VIEWS, 2.0), np.zeros(3))
+            world_mat = np.linalg.inv(np.linalg.inv(_SHAPENET_WORLD) @ c2w @ np.linalg.inv(_SHAPENET_CAM))
+            if i == 1:
+                cams[f"world_mat_inv_{v}"] = np.linalg.inv(world_mat).astype(np.float32)
+            cams[f"world_mat_{v}"] = (world_mat[:3] if i == 2 else world_mat).astype(np.float32)
+            f_norm = 1.75
+            cams[f"camera_mat_{v}"] = np.diag([f_norm, f_norm, 1.0, 1.0]).astype(np.float32)
+        np.savez(os.path.join(obj, "cameras.npz"), **cams)
+    for prefix in ("softras_", "gen_"):
+        for split, objs in (("train", names[:2]), ("val", names[2:3]), ("test", names[1:])):
+            if prefix == "gen_":
+                objs = objs[::-1]
+            with open(os.path.join(cat, f"{prefix}{split}.lst"), "w") as f:
+                f.write("\n".join(objs) + "\n")
+    return root
+
+
+def dtu_camera(rng, v, n_views, s):
+    """One DTU-like view: P = s K [R | t] (K off-centre, fx != fy) and its
+    scale_mat, from a camera orbiting the normalised object. A negative s
+    gives K a negative K[2, 2] in the decomposition (cv2's and the port's
+    alike), so the reader's fx and fy change sign."""
+    K = np.array([[36.0 + rng.uniform(-1, 1), 0.2, DTU_W / 2 + 3.5 + rng.uniform(-0.5, 0.5)],
+                  [0, 35.0 + rng.uniform(-1, 1), DTU_H / 2 - 2.5 + rng.uniform(-0.5, 0.5)], [0, 0, 1]])
+    scale, trans = 200.0, np.array([10.0, -20.0, 600.0])
+    pose_cv = _FLIP @ jax_geometry.look_at(orbit(v, n_views, 2.5), np.zeros(3)) @ _FLIP
+    centre = scale * pose_cv[:3, 3] + trans
+    r_w2c = pose_cv[:3, :3].T
+    P = s * K @ np.concatenate([r_w2c, (-r_w2c @ centre)[:, None]], 1)
+    scale_mat = np.eye(4)
+    scale_mat[:3, :3] *= scale
+    scale_mat[:3, 3] = trans
+    return np.vstack([P, [0, 0, 0, 1]]).astype(np.float32), scale_mat.astype(np.float32)
+
+
+def write_dtu_fixture(root, rng, scans=3, views=DTU_VIEWS):
+    """A DTU-layout ``DTU`` directory: ``scanN/image/*.png`` (DTU_W x DTU_H
+    RGB), ``cameras.npz`` (world_mat_i, scale_mat_i) and new_*.lst; the
+    last scan (val and test) has projection matrices of negative scale."""
+    cat = os.path.join(root, "DTU")
+    names = [f"scan{i + 1}" for i in range(scans)]
+    for n, name in enumerate(names):
+        os.makedirs(os.path.join(cat, name, "image"))
+        cams = {}
+        for v in range(views):
+            imageio.imwrite(os.path.join(cat, name, "image", f"{v:06d}.png"), _image(rng, DTU_H, DTU_W))
+            s = -1.3 if n == scans - 1 else 0.8 + 0.1 * (v % 3)
+            cams[f"world_mat_{v}"], cams[f"scale_mat_{v}"] = dtu_camera(rng, v, views, s)
+        np.savez(os.path.join(cat, name, "cameras.npz"), **cams)
+    for split, objs in (("train", names[:2]), ("val", names[2:]), ("test", names[2:])):
+        with open(os.path.join(cat, f"new_{split}.lst"), "w") as f:
+            f.write("\n".join(objs) + "\n")
+    return root
+
+
+def write_multi_obj_fixture(root, rng):
+    """Multi-object scenes: in train/ two of 3 frames (one frame fully
+    transparent) and one of 2 frames (the n_views sentinel's case); in
+    test/ one of 3 frames."""
+    for stage, k, n_frames in (("train", 0, 3), ("train", 1, 2), ("train", 2, 3), ("test", 3, 3)):
+        scene = os.path.join(root, stage, f"{k:05d}")
+        os.makedirs(scene)
+        frames = []
+        for f in range(n_frames):
+            rgba = np.concatenate([_image(rng, 12, 12), (_blob(rng, 12, 12) * 255).astype(np.uint8)[..., None]], -1)
+            if k == 2 and f == 1:
+                rgba[:] = 0
+            imageio.imwrite(os.path.join(scene, f"r_{f}_obj.png"), rgba)
+            frames.append({"file_path": f"./r_{f}", "transform_matrix": jax_geometry.look_at(
+                orbit(f, n_frames, 6.0), np.zeros(3)).tolist()})
+        with open(os.path.join(scene, "transforms.json"), "w") as fh:
+            json.dump({"camera_angle_x": 0.69 + 0.01 * k, "frames": frames}, fh)
+    return root
