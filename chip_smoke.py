@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's main paths on one NVIDIA GPU and check them.
 
-Five paths at the full width and depth of the SRN model
+Its paths, at the full width and depth of the SRN model
 (``conf/exp/srn.conf``: ResNet34 to a 512-channel latent, ResnetFC 512 x 5
 blocks, 64 coarse + 32 fine samples), weights random from a seed:
 
@@ -23,6 +23,10 @@ blocks, 64 coarse + 32 fine samples), weights random from a seed:
 - the SRN evaluation workflow, f32, through the apps a user calls:
   ``apps.train -F srn`` -> ``apps.eval`` (and its resume) ->
   ``apps.eval_approx`` on an SRN-layout fixture;
+- the apps that consume the SRN workflow's model, f32: ``apps.gen_video``,
+  ``apps.eval_real``, ``apps.calc_metrics`` with LPIPS,
+  ``apps.export_torch``, and the train app's ``--train_remat dots`` and
+  ``--profile_dir``;
 - the DTU workflow, f32, at three source views and 400x300
   (``conf/exp/dtu.conf``): ``apps.train -F dvr_dtu -V 3`` ->
   ``apps.eval -F dvr_dtu -P "22 25 28"`` on a DTU-layout fixture.
@@ -87,6 +91,20 @@ Phases, one JSON line each:
     this host with no imaging library loaded; launch counts per view and
     per step, seconds per batch, ms per view, the DTU item's ms
 
+21. apps_workflow (run after 19, on its fixture, checkpoint and eval
+    output; SRN model, f32): ``apps.gen_video`` (8 frames of a spherical
+    orbit, 4 of a spline; A), one video frame through A and through its
+    plain version, bit for bit, the GIFs' structure and write time,
+    ``apps.eval_real`` (a 128x128 and a 256x256 input, 4 views each; A),
+    ``apps.calc_metrics --require_lpips`` (seeded VGG-LPIPS weights in the
+    lpips package's format; the card's LPIPS held to the CPU module's
+    within rtol 2e-4 with TF32 allowed in the process; LPIPS ms per
+    128x128 and 400x300 pair), ``apps.export_torch`` (loaded strictly
+    into a fresh model, bit-equal), train config (b) with ``remat="dots"``
+    (C, C-bwd; its first loss held to the "features" run's), and
+    ``apps.train --profile_dir`` for 2 steps (C, C-bwd; the trace names the
+    port's kernels)
+
 then the ``kernels`` line, the card's name and power limit, and
 ``{"ok": true, ...}`` as the last line. Any failure raises and exits
 non-zero; without a GPU it exits non-zero before printing anything.
@@ -99,6 +117,7 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -758,17 +777,18 @@ def train_setup(dev, key, seed=0):
     return net, cfg, conf, batches
 
 
-def run_train(dev, key):
-    """Train config ``key`` on the card: per-step host time around work
-    ending in a synchronize, the loss and gradient norm of every step,
-    peak memory, and the launch counts of C and C-bwd (reset just before
-    the steps, read just after)."""
+def run_train(dev, key, remat=None):
+    """Train config ``key`` on the card (with ``remat`` in place of its
+    policy where given; the same weights, batches and draws): per-step host
+    time around work ending in a synchronize, the loss and gradient norm of
+    every step, peak memory, and the launch counts of C and C-bwd (reset
+    just before the steps, read just after)."""
     from pixelnerf_tpu_torch.ops.fused_mlp import fused_resnetfc_infer
     from pixelnerf_tpu_torch.ops.gather import gather_bilerp
     from pixelnerf_tpu_torch.ops.gather_rows import gather_rows_lerp, gather_rows_lerp_bwd
     from pixelnerf_tpu_torch.train import make_render_loss, make_train_step
 
-    tc = TRAIN_CONFIGS[key]
+    tc = TRAIN_CONFIGS[key] if remat is None else {**TRAIN_CONFIGS[key], "remat": remat}
     net, cfg, conf, batches = train_setup(dev, key)
     opt = torch.optim.Adam(net.parameters(), lr=TRAIN_LR, betas=(0.9, 0.999), eps=1e-8)
     step = make_train_step(net, cfg, opt, make_render_loss(conf["loss"]),
@@ -793,9 +813,11 @@ def run_train(dev, key):
     # the prediction: each chunk gathers twice (the coarse samples, the new
     # fine samples; the fine MLP reuses the coarse features), and each
     # gather has one backward; "features" remat recomputes only the MLPs,
-    # so no gather runs again. No inference kernel runs.
+    # so no gather runs again, while "dots" recomputes all but the matrix
+    # products, the gathers too. No inference kernel runs.
     per_step = train_launches_per_step()[key]
-    expect = {"gather_rows_lerp": per_step * tc["steps"], "gather_rows_lerp_bwd": per_step * tc["steps"],
+    fwd_per_step = per_step * (2 if tc["ray_chunk"] and tc["remat"] in (True, "dots") else 1)
+    expect = {"gather_rows_lerp": fwd_per_step * tc["steps"], "gather_rows_lerp_bwd": per_step * tc["steps"],
               "gather_bilerp": 0, "fused_resnetfc_infer": 0}
     if launches != expect:
         raise AssertionError(f"train {key}: launch counts {launches} != expected {expect}")
@@ -813,7 +835,7 @@ def run_train(dev, key):
         "train_rays_per_s_steady": steps_per_s * TRAIN_SB * tc["rays"],
         "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
         "loss": losses, "gnorm": gnorms,
-        "launches": launches, "launches_per_step": {"gather_rows_lerp": per_step, "gather_rows_lerp_bwd": per_step},
+        "launches": launches, "launches_per_step": {"gather_rows_lerp": fwd_per_step, "gather_rows_lerp_bwd": per_step},
     }
     emit({"phase": "train", **res})
     return res
@@ -1041,7 +1063,7 @@ def psnr_interval_from_png(pred_u8, gt):
     return -10.0 * math.log10(hi_mse), -10.0 * math.log10(lo_mse)
 
 
-def run_srn_workflow(dev):
+def run_srn_workflow(dev, tmp):
     """The user's SRN evaluation workflow on the card, on an SRN-layout
     fixture: ``apps.train -F srn`` (kernels C and C-bwd; its eval and
     visual through kernel A), ``apps.eval`` with depth and comparison
@@ -1052,10 +1074,11 @@ def run_srn_workflow(dev):
     object's eval render through kernel A is held bit for bit to the same
     render through its plain version on the same draws; the PSNR in
     ``finish.txt`` is held to the written images; file counts, finite
-    values and rgb in [0, 1] are checked."""
+    values and rgb in [0, 1] are checked. Everything is written under
+    ``tmp``, where ``run_apps_workflow`` finds the fixture, the checkpoint
+    and the eval output."""
     import contextlib
     import io
-    import tempfile
 
     import numpy as np
 
@@ -1073,117 +1096,116 @@ def run_srn_workflow(dev):
     seconds = {}
     res = {"phase": "srn_workflow", "objects": SRN_OBJECTS, "views_per_object": SRN_VIEWS,
            "image": IMAGE, "source": SRN_SOURCE, "targets": list(SRN_TARGETS)}
-    with tempfile.TemporaryDirectory() as tmp:
+    t0 = time.time()
+    data = write_srn_fixture(os.path.join(tmp, "data"))
+    seconds["write_fixture"] = time.time() - t0
+    rgb_dir = os.path.join(tmp, "data", "cars_test", "test_00", "rgb")
+    res["png_decode_ms"] = png_decode_ms([os.path.join(rgb_dir, f) for f in sorted(os.listdir(rgb_dir))], data)
+    common = ["-c", conf, "-F", "srn", "-D", data, "--device", str(dev),
+              "--checkpoints_path", os.path.join(tmp, "ck")]
+
+    # 1. train: 1 epoch x 2 batches of 2 objects x 128 rays (f32), with
+    # its eval, visual and checkpoint at batch 1 and a checkpoint at
+    # the epoch's end
+    argv = common + ["-B", "2", "--epochs", "1", "--epoch_batches", "2", "--workers", "1",
+                     "--logs_path", os.path.join(tmp, "logs"), "--visual_path", os.path.join(tmp, "vis")]
+    trainer, lines, seconds["train"], launches = run_app(train_app, argv)
+    expect = {"gather_rows_lerp": 2 * 2, "gather_rows_lerp_bwd": 2 * 2,
+              "gather_bilerp": 2 + 2 * vis_chunks(), "fused_resnetfc_infer": 0,
+              "fused_gather_resnetfc_infer": 0}
+    losses = [float(l.split(" t:")[1].split()[0]) for l in lines if l.startswith("E")]
+    visuals = os.listdir(os.path.join(tmp, "vis", "example"))
+    res["train"] = {"steps": trainer.step, "rays_per_object": trainer.train_pipeline.rays_per_object,
+                    "losses": losses, "visuals": visuals,
+                    "launches": launches, "expected_launches": expect}
+    if launches != expect:
+        raise AssertionError(f"srn_workflow train: launch counts {launches} != expected {expect}")
+    if trainer.step != 2 or not losses or not all(math.isfinite(v) for v in losses) or len(visuals) != 1:
+        raise AssertionError(f"srn_workflow train: steps {trainer.step}, losses {losses}, visuals {visuals}")
+
+    # 2. eval: 8 target views of each object from source view 64
+    view_list = os.path.join(tmp, "views.txt")
+    with open(view_list, "w") as f:
+        f.write(" ".join(str(v) for v in SRN_TARGETS) + "\n")
+    out_dir = os.path.join(tmp, "eval_out")
+    argv = common + ["-P", str(SRN_SOURCE), "--eval_view_list", view_list, "--write_depth",
+                     "--write_compare", "-O", out_dir]
+    _, lines, seconds["eval"], launches = run_app(eval_app, argv)
+    chunk = int(parse_args(eval_app.extra_args, argv=argv)[0].ray_batch_size)
+    per_object = 2 * -(-len(SRN_TARGETS) * IMAGE * IMAGE // chunk)
+    expect = {"gather_rows_lerp": 0, "gather_rows_lerp_bwd": 0, "gather_bilerp": per_object * SRN_OBJECTS,
+              "fused_resnetfc_infer": 0, "fused_gather_resnetfc_infer": 0}
+    finish = open(os.path.join(out_dir, "finish.txt")).read().splitlines()
+    res["eval"] = {"ray_chunk": chunk, "printed": [l for l in lines if "psnr" in l], "finish": finish,
+                   "launches": launches, "expected_launches": expect,
+                   "gather_bilerp_launches_per_view": launches["gather_bilerp"] / (len(SRN_TARGETS) * SRN_OBJECTS)}
+    if launches != expect:
+        raise AssertionError(f"srn_workflow eval: launch counts {launches} != expected {expect}")
+    if len(finish) != SRN_OBJECTS or not any(l.startswith("FINAL psnr") for l in lines):
+        raise AssertionError(f"srn_workflow eval: finish.txt {finish}, printed {lines[-3:]}")
+    test_set = get_split_dataset("srn", data, "test", image_size=(IMAGE, IMAGE))
+    for obj_idx, line in enumerate(finish):
+        name, psnr, ssim, n = line.split()
+        obj_dir = os.path.join(out_dir, name)
+        files = sorted(os.listdir(obj_dir))
+        want = sorted(f"{v:06d}{suffix}" for v in SRN_TARGETS
+                      for suffix in (".png", "_compare.png", "_depth.exr", "_depth_norm.png"))
+        if files != want or int(n) != len(SRN_TARGETS):
+            raise AssertionError(f"srn_workflow eval: {name} holds {files}, n {n}")
+        gt = test_set[obj_idx]["images"] * 0.5 + 0.5
+        bounds = [psnr_interval_from_png(png.imread(os.path.join(obj_dir, f"{v:06d}.png")), gt[v])
+                  for v in SRN_TARGETS]
+        lo, hi = (sum(b[i] for b in bounds) / len(bounds) for i in (0, 1))
+        depth = read_exr(os.path.join(obj_dir, f"{SRN_TARGETS[0]:06d}_depth.exr"))
+        if not (lo <= float(psnr) <= hi and math.isfinite(float(ssim)) and np.isfinite(depth).all()):
+            raise AssertionError(f"srn_workflow eval: {name} psnr {psnr} outside [{lo}, {hi}] "
+                                 f"from its images, or non-finite ssim/depth")
+        res["eval"].setdefault("psnr_from_png", []).append([lo, hi])
+
+    # 3. resume: both objects are in finish.txt, nothing is rendered
+    _, lines, seconds["eval_resume"], launches = run_app(eval_app, argv)
+    resumed = open(os.path.join(out_dir, "finish.txt")).read().splitlines()
+    res["eval_resume"] = {"launches": launches, "finish_unchanged": resumed == finish}
+    if resumed != finish or any(launches.values()) or not any(l.startswith("FINAL psnr") for l in lines):
+        raise AssertionError(f"srn_workflow resume: finish {resumed}, launches {launches}")
+
+    # 4. eval_approx: both objects in one SB = 2 batch
+    argv = common + ["-P", str(SRN_SOURCE), "-B", str(SRN_OBJECTS)]
+    approx, lines, seconds["eval_approx"], launches = run_app(eval_approx, argv)
+    chunk = int(parse_args(eval_approx.extra_args, argv=argv)[0].ray_batch_size)
+    expect = {"gather_rows_lerp": 0, "gather_rows_lerp_bwd": 0,
+              "gather_bilerp": 2 * -(-IMAGE * IMAGE // chunk), "fused_resnetfc_infer": 0,
+              "fused_gather_resnetfc_infer": 0}
+    res["eval_approx"] = {"psnr_ssim": approx, "launches": launches, "expected_launches": expect}
+    if launches != expect:
+        raise AssertionError(f"srn_workflow eval_approx: launch counts {launches} != expected {expect}")
+    if approx is None or not all(math.isfinite(v) for v in approx):
+        raise AssertionError(f"srn_workflow eval_approx: {approx}")
+
+    # 5. one object's eval render through kernel A and through its plain
+    # version, the same checkpoint and draws: bit for bit
+    args, cfg_tree = parse_args(eval_app.extra_args, argv=common + ["-P", str(SRN_SOURCE)])
+    with contextlib.redirect_stdout(io.StringIO()):
+        net = eval_app.load_net_and_state(args, cfg_tree, dev)
+    cfg = eval_app.eval_render_config(cfg_tree, test_set, coarse=False)
+    d = test_set[0]
+    src, targets = np.array([SRN_SOURCE]), np.array(SRN_TARGETS)
+    renders = {}
+    for use_kernels in (True, False):
+        renderer = FullRenderer(net, cfg, ray_chunk=args.ray_batch_size, use_kernels=use_kernels)
+        gen = torch.Generator(device=dev).manual_seed(9)
+        torch.cuda.synchronize()
         t0 = time.time()
-        data = write_srn_fixture(os.path.join(tmp, "data"))
-        seconds["write_fixture"] = time.time() - t0
-        rgb_dir = os.path.join(tmp, "data", "cars_test", "test_00", "rgb")
-        res["png_decode_ms"] = png_decode_ms([os.path.join(rgb_dir, f) for f in sorted(os.listdir(rgb_dir))], data)
-        common = ["-c", conf, "-F", "srn", "-D", data, "--device", str(dev),
-                  "--checkpoints_path", os.path.join(tmp, "ck")]
-
-        # 1. train: 1 epoch x 2 batches of 2 objects x 128 rays (f32), with
-        # its eval, visual and checkpoint at batch 1 and a checkpoint at
-        # the epoch's end
-        argv = common + ["-B", "2", "--epochs", "1", "--epoch_batches", "2", "--workers", "1",
-                         "--logs_path", os.path.join(tmp, "logs"), "--visual_path", os.path.join(tmp, "vis")]
-        trainer, lines, seconds["train"], launches = run_app(train_app, argv)
-        expect = {"gather_rows_lerp": 2 * 2, "gather_rows_lerp_bwd": 2 * 2,
-                  "gather_bilerp": 2 + 2 * vis_chunks(), "fused_resnetfc_infer": 0,
-                  "fused_gather_resnetfc_infer": 0}
-        losses = [float(l.split(" t:")[1].split()[0]) for l in lines if l.startswith("E")]
-        visuals = os.listdir(os.path.join(tmp, "vis", "example"))
-        res["train"] = {"steps": trainer.step, "rays_per_object": trainer.train_pipeline.rays_per_object,
-                        "losses": losses, "visuals": visuals,
-                        "launches": launches, "expected_launches": expect}
-        if launches != expect:
-            raise AssertionError(f"srn_workflow train: launch counts {launches} != expected {expect}")
-        if trainer.step != 2 or not losses or not all(math.isfinite(v) for v in losses) or len(visuals) != 1:
-            raise AssertionError(f"srn_workflow train: steps {trainer.step}, losses {losses}, visuals {visuals}")
-
-        # 2. eval: 8 target views of each object from source view 64
-        view_list = os.path.join(tmp, "views.txt")
-        with open(view_list, "w") as f:
-            f.write(" ".join(str(v) for v in SRN_TARGETS) + "\n")
-        out_dir = os.path.join(tmp, "eval_out")
-        argv = common + ["-P", str(SRN_SOURCE), "--eval_view_list", view_list, "--write_depth",
-                         "--write_compare", "-O", out_dir]
-        _, lines, seconds["eval"], launches = run_app(eval_app, argv)
-        chunk = int(parse_args(eval_app.extra_args, argv=argv)[0].ray_batch_size)
-        per_object = 2 * -(-len(SRN_TARGETS) * IMAGE * IMAGE // chunk)
-        expect = {"gather_rows_lerp": 0, "gather_rows_lerp_bwd": 0, "gather_bilerp": per_object * SRN_OBJECTS,
-                  "fused_resnetfc_infer": 0, "fused_gather_resnetfc_infer": 0}
-        finish = open(os.path.join(out_dir, "finish.txt")).read().splitlines()
-        res["eval"] = {"ray_chunk": chunk, "printed": [l for l in lines if "psnr" in l], "finish": finish,
-                       "launches": launches, "expected_launches": expect,
-                       "gather_bilerp_launches_per_view": launches["gather_bilerp"] / (len(SRN_TARGETS) * SRN_OBJECTS)}
-        if launches != expect:
-            raise AssertionError(f"srn_workflow eval: launch counts {launches} != expected {expect}")
-        if len(finish) != SRN_OBJECTS or not any(l.startswith("FINAL psnr") for l in lines):
-            raise AssertionError(f"srn_workflow eval: finish.txt {finish}, printed {lines[-3:]}")
-        test_set = get_split_dataset("srn", data, "test", image_size=(IMAGE, IMAGE))
-        for obj_idx, line in enumerate(finish):
-            name, psnr, ssim, n = line.split()
-            obj_dir = os.path.join(out_dir, name)
-            files = sorted(os.listdir(obj_dir))
-            want = sorted(f"{v:06d}{suffix}" for v in SRN_TARGETS
-                          for suffix in (".png", "_compare.png", "_depth.exr", "_depth_norm.png"))
-            if files != want or int(n) != len(SRN_TARGETS):
-                raise AssertionError(f"srn_workflow eval: {name} holds {files}, n {n}")
-            gt = test_set[obj_idx]["images"] * 0.5 + 0.5
-            bounds = [psnr_interval_from_png(png.imread(os.path.join(obj_dir, f"{v:06d}.png")), gt[v])
-                      for v in SRN_TARGETS]
-            lo, hi = (sum(b[i] for b in bounds) / len(bounds) for i in (0, 1))
-            depth = read_exr(os.path.join(obj_dir, f"{SRN_TARGETS[0]:06d}_depth.exr"))
-            if not (lo <= float(psnr) <= hi and math.isfinite(float(ssim)) and np.isfinite(depth).all()):
-                raise AssertionError(f"srn_workflow eval: {name} psnr {psnr} outside [{lo}, {hi}] "
-                                     f"from its images, or non-finite ssim/depth")
-            res["eval"].setdefault("psnr_from_png", []).append([lo, hi])
-
-        # 3. resume: both objects are in finish.txt, nothing is rendered
-        _, lines, seconds["eval_resume"], launches = run_app(eval_app, argv)
-        resumed = open(os.path.join(out_dir, "finish.txt")).read().splitlines()
-        res["eval_resume"] = {"launches": launches, "finish_unchanged": resumed == finish}
-        if resumed != finish or any(launches.values()) or not any(l.startswith("FINAL psnr") for l in lines):
-            raise AssertionError(f"srn_workflow resume: finish {resumed}, launches {launches}")
-
-        # 4. eval_approx: both objects in one SB = 2 batch
-        argv = common + ["-P", str(SRN_SOURCE), "-B", str(SRN_OBJECTS)]
-        approx, lines, seconds["eval_approx"], launches = run_app(eval_approx, argv)
-        chunk = int(parse_args(eval_approx.extra_args, argv=argv)[0].ray_batch_size)
-        expect = {"gather_rows_lerp": 0, "gather_rows_lerp_bwd": 0,
-                  "gather_bilerp": 2 * -(-IMAGE * IMAGE // chunk), "fused_resnetfc_infer": 0,
-                  "fused_gather_resnetfc_infer": 0}
-        res["eval_approx"] = {"psnr_ssim": approx, "launches": launches, "expected_launches": expect}
-        if launches != expect:
-            raise AssertionError(f"srn_workflow eval_approx: launch counts {launches} != expected {expect}")
-        if approx is None or not all(math.isfinite(v) for v in approx):
-            raise AssertionError(f"srn_workflow eval_approx: {approx}")
-
-        # 5. one object's eval render through kernel A and through its plain
-        # version, the same checkpoint and draws: bit for bit
-        args, cfg_tree = parse_args(eval_app.extra_args, argv=common + ["-P", str(SRN_SOURCE)])
-        with contextlib.redirect_stdout(io.StringIO()):
-            net = eval_app.load_net_and_state(args, cfg_tree, dev)
-        cfg = eval_app.eval_render_config(cfg_tree, test_set, coarse=False)
-        d = test_set[0]
-        src, targets = np.array([SRN_SOURCE]), np.array(SRN_TARGETS)
-        renders = {}
-        for use_kernels in (True, False):
-            renderer = FullRenderer(net, cfg, ray_chunk=args.ray_batch_size, use_kernels=use_kernels)
-            gen = torch.Generator(device=dev).manual_seed(9)
-            torch.cuda.synchronize()
-            t0 = time.time()
-            renders[use_kernels] = eval_app.render_object(renderer, d, src, targets, test_set.z_near,
-                                                          test_set.z_far, generator=gen)
-            torch.cuda.synchronize()
-            seconds["render_" + ("kernels" if use_kernels else "plain")] = time.time() - t0
-        (rgb_k, depth_k), (rgb_p, depth_p) = renders[True], renders[False]
-        err = {"rgb": (rgb_k - rgb_p).abs().max().item(), "depth": (depth_k - depth_p).abs().max().item()}
-        res["kernel_vs_plain"] = {"max_abs_err": err, "tolerance": 0.0,
-                                  "rgb_range": [rgb_k.min().item(), rgb_k.max().item()],
-                                  "depth_range": [depth_k.min().item(), depth_k.max().item()]}
-        finite = bool(torch.isfinite(rgb_k).all() and torch.isfinite(depth_k).all())
+        renders[use_kernels] = eval_app.render_object(renderer, d, src, targets, test_set.z_near,
+                                                      test_set.z_far, generator=gen)
+        torch.cuda.synchronize()
+        seconds["render_" + ("kernels" if use_kernels else "plain")] = time.time() - t0
+    (rgb_k, depth_k), (rgb_p, depth_p) = renders[True], renders[False]
+    err = {"rgb": (rgb_k - rgb_p).abs().max().item(), "depth": (depth_k - depth_p).abs().max().item()}
+    res["kernel_vs_plain"] = {"max_abs_err": err, "tolerance": 0.0,
+                              "rgb_range": [rgb_k.min().item(), rgb_k.max().item()],
+                              "depth_range": [depth_k.min().item(), depth_k.max().item()]}
+    finite = bool(torch.isfinite(rgb_k).all() and torch.isfinite(depth_k).all())
     views = len(SRN_TARGETS) * SRN_OBJECTS
     res["seconds"] = seconds
     # each of the 2 batches pulls 2 objects of the train split; batch 1 also
@@ -1206,6 +1228,298 @@ def run_srn_workflow(dev):
         raise AssertionError(f"srn_workflow: eval render through kernel A differs from plain: {err}")
     if not (finite and rgb_k.min() >= 0 and rgb_k.max() <= 1 + rgb_rounding):
         raise AssertionError(f"srn_workflow: render out of range: {res['kernel_vs_plain']}")
+    return res
+
+
+# the apps a user runs once a model is trained, on srn_workflow's fixture,
+# checkpoint and eval output: frames per video trajectory, views per
+# real-image input, and the seed of the LPIPS weights
+VIDEO_FRAMES = {"spherical": 8, "spline": 4}
+REAL_VIEWS = 4
+LPIPS_SEED = 11
+
+
+def lpips_state_dict(seed):
+    """Seeded VGG-LPIPS weights in the lpips package's state_dict format
+    (``net.slice<k>.<idx>.*``, ``lin<k>.model.1.weight``, the scaling
+    layer's constants)."""
+    import numpy as np
+
+    from pixelnerf_tpu_torch.utils.lpips import _SCALE, _SHIFT, _VGG_PLAN, _VGG_WIDTHS
+
+    rng = np.random.default_rng(seed)
+    sd, c_in = {}, 3
+    for gi, (group, width) in enumerate(zip(_VGG_PLAN, _VGG_WIDTHS)):
+        for idx in group:
+            sd[f"net.slice{gi + 1}.{idx}.weight"] = torch.from_numpy(
+                rng.normal(0, 0.05, (width, c_in, 3, 3)).astype(np.float32))
+            sd[f"net.slice{gi + 1}.{idx}.bias"] = torch.from_numpy(rng.normal(0, 0.01, (width,)).astype(np.float32))
+            c_in = width
+        sd[f"lin{gi}.model.1.weight"] = torch.from_numpy(
+            np.abs(rng.normal(0, 0.05, (1, width, 1, 1))).astype(np.float32))
+    sd["scaling_layer.shift"] = torch.from_numpy(_SHIFT.reshape(1, 3, 1, 1))
+    sd["scaling_layer.scale"] = torch.from_numpy(_SCALE.reshape(1, 3, 1, 1))
+    return sd
+
+
+def gif_image_count(path):
+    """The image descriptors of the GIF at ``path``, walking its blocks:
+    the GIF89a header and logical screen (and its colour table), then
+    extensions and images (each ending in a run of sub-blocks), and the
+    trailer as the file's last byte. Raises where the structure breaks."""
+    with open(path, "rb") as f:
+        b = f.read()
+    if b[:6] != b"GIF89a":
+        raise AssertionError(f"{path}: header {b[:6]!r}")
+
+    def table(pos, flags):
+        return pos + (3 * 2 ** ((flags & 7) + 1) if flags & 0x80 else 0)
+
+    def sub_blocks(pos):
+        while b[pos]:
+            pos += b[pos] + 1
+        return pos + 1
+
+    pos, images = table(13, b[10]), 0
+    while b[pos] != 0x3B:
+        if b[pos] == 0x21:                        # extension: label, sub-blocks
+            pos = sub_blocks(pos + 2)
+        elif b[pos] == 0x2C:                      # image: descriptor, table, LZW size, sub-blocks
+            pos = sub_blocks(table(pos + 10, b[pos + 9]) + 1)
+            images += 1
+        else:
+            raise AssertionError(f"{path}: block {b[pos]:#x} at byte {pos}")
+    if pos != len(b) - 1:
+        raise AssertionError(f"{path}: {len(b) - 1 - pos} bytes after the trailer")
+    return images
+
+
+def run_apps_workflow(dev, tmp, train_features):
+    """The apps that consume a trained model, on the card, on
+    ``srn_workflow``'s fixture, checkpoint and ``apps.eval`` output in
+    ``tmp`` (the SRN model at full width, f32): ``apps.gen_video`` (a
+    spherical orbit and a spline, kernel A; one frame also through A's
+    plain version, bit for bit; the GIF's structure and write time),
+    ``apps.eval_real`` (a 128x128 and a 256x256 input, the latter area
+    resized), ``apps.calc_metrics --require_lpips`` over the eval output
+    (LPIPS on the card held to the same module on the CPU, with TF32
+    allowed in the process as it is by default), ``apps.export_torch`` (the
+    export loaded strictly into a fresh model, every tensor bit-equal),
+    train config (b) with ``remat="dots"`` beside ``train_features``, and
+    ``apps.train --profile_dir`` (the trace names the port's kernels)."""
+    import contextlib
+    import io
+    import json
+
+    import numpy as np
+
+    from pixelnerf_tpu_torch.apps import calc_metrics, eval_real, export_torch, gen_video
+    from pixelnerf_tpu_torch.apps import eval as eval_app
+    from pixelnerf_tpu_torch.apps import train as train_app
+    from pixelnerf_tpu_torch.apps.args import parse_args
+    from pixelnerf_tpu_torch.config import load_config
+    from pixelnerf_tpu_torch.data import get_split_dataset
+    from pixelnerf_tpu_torch.eval import FullRenderer
+    from pixelnerf_tpu_torch.models import load_reference_state_dict, make_model
+    from pixelnerf_tpu_torch.train import load_variables
+    from pixelnerf_tpu_torch.utils import geometry, gif, png
+    from pixelnerf_tpu_torch.utils.lpips import LPIPS
+
+    conf = os.path.join(REPO, "conf", "exp", "srn.conf")
+    data = os.path.join(tmp, "data", "cars")
+    ck = os.path.join(tmp, "ck")
+    common = ["-c", conf, "--device", str(dev), "--checkpoints_path", ck]
+    none = {"gather_rows_lerp": 0, "gather_rows_lerp_bwd": 0, "gather_bilerp": 0, "fused_resnetfc_infer": 0,
+            "fused_gather_resnetfc_infer": 0}
+    res = {"phase": "apps_workflow", "model": "conf/exp/srn.conf, float32", "image": IMAGE}
+    launches = {"gather_bilerp": 0, "gather_rows_lerp": 0, "gather_rows_lerp_bwd": 0}
+
+    # 1. gen_video: 8 frames of a spherical orbit, 4 of a spline through
+    # the object's poses, from source view 64 (one 16,384-ray chunk a frame)
+    video = {}
+    for traj, n in VIDEO_FRAMES.items():
+        out = os.path.join(tmp, f"video_{traj}")
+        argv = common + ["-F", "srn", "-D", data, "-P", str(SRN_SOURCE), "--num_views", str(n), "--traj", traj,
+                         "-O", out]
+        frames, lines, seconds, got = run_app(gen_video, argv)
+        chunk = int(parse_args(gen_video.extra_args, argv=argv)[0].ray_batch_size)
+        expect = {**none, "gather_bilerp": 2 * n * -(-IMAGE * IMAGE // chunk)}
+        files = sorted(os.listdir(out))
+        path = os.path.join(out, "example_obj0.gif")
+        images = gif_image_count(path)
+        video[traj] = {"frames": len(frames), "seconds": seconds, "ms_per_frame_app": seconds * 1e3 / n,
+                       "colours_per_frame": [len(np.unique(f.reshape(-1, 3), axis=0)) for f in frames],
+                       "files": files, "gif_bytes": os.path.getsize(path), "gif_images": images,
+                       "printed": [l for l in lines if l.startswith("mp4")], "launches": got,
+                       "expected_launches": expect}
+        if got != expect:
+            raise AssertionError(f"apps_workflow gen_video {traj}: launch counts {got} != expected {expect}")
+        if files != ["example_obj0.gif", "example_obj0_src.png"] or images != n or len(frames) != n:
+            raise AssertionError(f"apps_workflow gen_video {traj}: {video[traj]}")
+        if not all(f.shape == (IMAGE, IMAGE, 3) and f.dtype == np.uint8 and f.std() > 0 for f in frames):
+            raise AssertionError(f"apps_workflow gen_video {traj}: degenerate frames")
+        launches["gather_bilerp"] += got["gather_bilerp"]
+        if traj == "spherical":
+            t0 = time.perf_counter()
+            gif.mimwrite(os.path.join(tmp, "again.gif"), frames, duration=1000 / 30)
+            video[traj]["gif_write_ms"] = (time.perf_counter() - t0) * 1e3
+            video[traj]["gif_write_ms_per_frame"] = video[traj]["gif_write_ms"] / n
+            if open(os.path.join(tmp, "again.gif"), "rb").read() != open(path, "rb").read():
+                raise AssertionError("apps_workflow: the GIF writer is not deterministic")
+    res["gen_video"] = video
+
+    # 2. the first spherical frame through kernel A and through its plain
+    # version, the same checkpoint, pose and draws: bit for bit
+    argv = common + ["-F", "srn", "-D", data, "-P", str(SRN_SOURCE)]
+    args, cfg_tree = parse_args(gen_video.extra_args, argv=argv)
+    with contextlib.redirect_stdout(io.StringIO()):
+        net = eval_app.load_net_and_state(args, cfg_tree, dev)
+    test_set = get_split_dataset("srn", data, "test", image_size=(IMAGE, IMAGE))
+    cfg = gen_video.video_render_config(cfg_tree, test_set)
+    d = test_set[0]
+    radius = float(np.linalg.norm(d["poses"][:, :3, 3], axis=-1).mean())
+    pose = gen_video.spherical_trajectory(VIDEO_FRAMES["spherical"], args.elevation, radius)[:1]
+    with torch.inference_mode():
+        enc = net.encode(torch.from_numpy(d["images"][None, [SRN_SOURCE]]).to(dev),
+                         torch.from_numpy(d["poses"][None, [SRN_SOURCE]]).to(dev), torch.as_tensor(d["focal"]),
+                         c=torch.from_numpy(d["c"][None]))
+    rays = geometry.gen_rays(pose, IMAGE, IMAGE, d["focal"], test_set.z_near, test_set.z_far, c=d["c"], device=dev)[0]
+    frame, frame_ms = {}, {}
+    for use_kernels in (True, False, True):
+        renderer = FullRenderer(net, cfg, ray_chunk=args.ray_batch_size, use_kernels=use_kernels)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        frame[use_kernels], _ = renderer.render_image(enc, rays, torch.Generator(device=dev).manual_seed(9))
+        torch.cuda.synchronize()
+        frame_ms[use_kernels] = (time.time() - t0) * 1e3
+    err = (frame[True] - frame[False]).abs().max().item()
+    res["frame_kernel_vs_plain"] = {"max_abs_err": err, "tolerance": 0.0, "samples": [cfg.n_coarse, cfg.n_fine],
+                                    "frame_ms_kernels": frame_ms[True], "frame_ms_plain": frame_ms[False]}
+    if err != 0.0 or not torch.isfinite(frame[True]).all():
+        raise AssertionError(f"apps_workflow: the gen_video frame through kernel A differs from plain: {err}")
+
+    # 3. eval_real: a 128x128 input and a 256x256 one (the factor-2 area resize)
+    real = os.path.join(tmp, "real")
+    os.makedirs(real)
+    view = png.imread(os.path.join(data + "_test", "test_00", "rgb", f"{SRN_SOURCE:06d}.png"))
+    png.imwrite(os.path.join(real, "a_normalize.png"), view)
+    noise = np.random.default_rng(5).integers(-12, 13, (2 * IMAGE, 2 * IMAGE, 3))
+    png.imwrite(os.path.join(real, "b_normalize.png"),
+                np.clip(np.repeat(np.repeat(view, 2, 0), 2, 1) + noise, 0, 255).astype(np.uint8))
+    out = os.path.join(tmp, "real_out")
+    argv = common + ["--input", real, "--size", str(IMAGE), "--num_views", str(REAL_VIEWS), "-O", out]
+    _, lines, seconds, got = run_app(eval_real, argv)
+    chunk = int(parse_args(eval_real.extra_args, argv=argv)[0].ray_batch_size)
+    expect = {**none, "gather_bilerp": 2 * 2 * REAL_VIEWS * -(-IMAGE * IMAGE // chunk)}
+    files = sorted(os.listdir(out))
+    counts = {b: (len(os.listdir(os.path.join(out, f"{b}_frames"))), gif_image_count(os.path.join(out, f"{b}.gif")))
+              for b in ("a_normalize", "b_normalize")}
+    frames = [png.imread(os.path.join(out, "b_normalize_frames", f"{i:04}.png")) for i in range(REAL_VIEWS)]
+    res["eval_real"] = {"seconds": seconds, "ms_per_view_app": seconds * 1e3 / (2 * REAL_VIEWS), "files": files,
+                        "frames_and_gif_images": counts, "launches": got, "expected_launches": expect}
+    if got != expect:
+        raise AssertionError(f"apps_workflow eval_real: launch counts {got} != expected {expect}")
+    if (files != ["a_normalize.gif", "a_normalize_frames", "b_normalize.gif", "b_normalize_frames"]
+            or any(c != (REAL_VIEWS, REAL_VIEWS) for c in counts.values())
+            or not all(f.shape == (IMAGE, IMAGE, 3) and f.std() > 0 for f in frames)):
+        raise AssertionError(f"apps_workflow eval_real: {res['eval_real']}")
+    launches["gather_bilerp"] += got["gather_bilerp"]
+
+    # 4. calc_metrics with LPIPS over srn_workflow's eval output, TF32
+    # allowed as a process allows it by default; then the same LPIPS module
+    # on the CPU over the same images
+    weights = os.path.join(tmp, "lpips_vgg.pth")
+    torch.save(lpips_state_dict(LPIPS_SEED), weights)
+    eval_out = os.path.join(tmp, "eval_out")
+    argv = ["-D", data + "_test", "-F", "srn", "-O", eval_out, "--lpips_weights", weights, "--require_lpips",
+            "--device", str(dev)]
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        _, lines, seconds, got = run_app(calc_metrics, argv)
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    cpu_lpips = LPIPS.from_torch_file(weights)
+    per_object = {}
+    for obj in sorted(os.listdir(eval_out)):
+        if not os.path.isdir(os.path.join(eval_out, obj)):
+            continue
+        written = dict(l.split() for l in open(os.path.join(eval_out, obj, "metrics.txt")).read().splitlines())
+        gts = np.stack([png.imread(os.path.join(data + "_test", obj, "rgb", f"{v:06d}.png")).astype(np.float32)
+                        [..., :3] / 255.0 * 2.0 - 1.0 for v in SRN_TARGETS])
+        preds = np.stack([png.imread(os.path.join(eval_out, obj, f"{v:06d}.png")).astype(np.float32)[..., :3]
+                          / 255.0 * 2.0 - 1.0 for v in SRN_TARGETS])
+        cpu = float(cpu_lpips(torch.from_numpy(preds), torch.from_numpy(gts)).mean())
+        per_object[obj] = {"psnr": float(written["psnr"]), "ssim": float(written["ssim"]),
+                           "lpips_card": float(written["lpips"]), "lpips_cpu": cpu,
+                           "rel_err": abs(float(written["lpips"]) - cpu) / abs(cpu)}
+    total = open(os.path.join(eval_out, "all_metrics.txt")).read().splitlines()[-1]
+    lp = LPIPS.from_torch_file(weights).to(dev)
+    rng = torch.Generator().manual_seed(6)
+    timing = {}
+    for name, (h, w, n) in {"128x128": (IMAGE, IMAGE, 16), "400x300": (300, 400, 4)}.items():
+        a, b = (torch.rand((n, h, w, 3), generator=rng).mul(2).sub(1).to(dev) for _ in range(2))
+        timing[f"lpips_ms_per_pair_{name}"] = time_ms(lambda: lp(a, b), reps=5) / n
+    res["calc_metrics"] = {"seconds": seconds, "objects": per_object, "all_metrics_total": total,
+                           "tolerance_rel": 2e-4, "launches": got, **timing}
+    print(total, flush=True)
+    if len(per_object) != SRN_OBJECTS or not total.startswith(" psnr:") or "lpips:" not in total:
+        raise AssertionError(f"apps_workflow calc_metrics: {res['calc_metrics']}")
+    if not all(math.isfinite(o["lpips_card"]) and o["lpips_card"] > 0 and o["rel_err"] <= 2e-4
+               for o in per_object.values()):
+        raise AssertionError(f"apps_workflow calc_metrics: LPIPS on the card differs from the CPU's: {per_object}")
+    if any(got.values()):
+        raise AssertionError(f"apps_workflow calc_metrics: a kernel ran: {got}")
+
+    # 5. export_torch of the train app's checkpoint, loaded strictly into a
+    # fresh model: every tensor bit-equal to the checkpoint's
+    exported = os.path.join(tmp, "export", "pixel_nerf_latest")
+    os.makedirs(os.path.dirname(exported))
+    _, lines, seconds, _ = run_app(export_torch, ["-n", "example", "--checkpoints_path", ck, "--out", exported])
+    saved = load_variables(os.path.join(ck, "example"), dev)["model"]
+    fresh = make_model(load_config(conf)["model"], device=dev, generator=torch.Generator().manual_seed(123))
+    skipped = load_reference_state_dict(fresh, torch.load(exported, map_location=dev, weights_only=True))
+    own = fresh.state_dict()
+    unequal = [k for k, v in saved.items() if not k.endswith("num_batches_tracked") and not torch.equal(own[k], v)]
+    res["export_torch"] = {"seconds": seconds, "printed": lines[-1:], "tensors": len(torch.load(exported)),
+                           "skipped": skipped, "unequal": unequal}
+    if skipped or unequal or not lines[-1].startswith("Exported step-2 weights"):
+        raise AssertionError(f"apps_workflow export_torch: {res['export_torch']}")
+
+    # 6. train config (b) with remat="dots", the features run's weights,
+    # batches and draws
+    dots = run_train(dev, "b", remat="dots")
+    rel = abs(dots["loss"][0] - train_features["loss"][0]) / abs(train_features["loss"][0])
+    res["train_b_dots"] = {
+        "step_ms": [s * 1e3 for s in dots["step_s"]], "features_step_ms": [s * 1e3 for s in train_features["step_s"]],
+        "peak_memory_gb": dots["peak_memory_gb"], "features_peak_memory_gb": train_features["peak_memory_gb"],
+        "launches_per_step": dots["launches_per_step"], "features_launches_per_step": train_features["launches_per_step"],
+        "first_loss": dots["loss"][0], "features_first_loss": train_features["loss"][0], "first_loss_rel_err": rel,
+        "tolerance_rel": 1e-6}
+    if rel > 1e-6:
+        raise AssertionError(f"apps_workflow: the dots step's first loss differs from features': {res['train_b_dots']}")
+    for k in ("gather_rows_lerp", "gather_rows_lerp_bwd"):
+        launches[k] += dots["launches"][k]
+
+    # 7. apps.train --profile_dir for 2 steps: a trace that names the port's kernels
+    prof = os.path.join(tmp, "profile")
+    argv = common + ["-n", "profiled", "-F", "srn", "-D", data, "-B", "2", "--epochs", "1", "--epoch_batches", "2",
+                     "--workers", "1", "--logs_path", os.path.join(tmp, "logs"),
+                     "--visual_path", os.path.join(tmp, "vis"), "--profile_dir", prof]
+    trainer, lines, seconds, got = run_app(train_app, argv)
+    traces = sorted(os.listdir(prof))
+    events = json.load(open(os.path.join(prof, traces[0])))["traceEvents"] if len(traces) == 1 else []
+    kernels = sorted({e["name"] for e in events if e.get("cat") == "kernel"})
+    ours = [k for k in kernels if any(s in k for s in ("gather_rows_kernel", "gather_rows_bwd", "gather_bilerp"))]
+    res["profile"] = {"seconds": seconds, "steps": trainer.step, "files": traces,
+                      "trace_mb": sum(os.path.getsize(os.path.join(prof, f)) for f in traces) / 1e6,
+                      "kernel_names": len(kernels), "port_kernels": ours, "launches": got}
+    if trainer.step != 2 or len(traces) != 1 or not ours:
+        raise AssertionError(f"apps_workflow profile: {res['profile']}")
+    for k in launches:
+        launches[k] += got[k]
+    res["launches"] = launches
+    res["card"] = nvidia_smi_line()
+    emit(res)
     return res
 
 
@@ -1686,17 +2000,20 @@ def main():
     res_c_bwd = check_kernel_c_bwd(dev, g, inputs_c)
     del inputs_c
     train_launches = {"gather_rows_lerp": 0, "gather_rows_lerp_bwd": 0}
-    for res in [run_train(dev, key) for key in TRAIN_CONFIGS] + [run_train_app(dev)]:
+    train_runs = {key: run_train(dev, key) for key in TRAIN_CONFIGS}
+    for res in list(train_runs.values()) + [run_train_app(dev)]:
         for k in train_launches:
             train_launches[k] += res["launches"][k]
     train_kernel_vs_plain(dev)
 
-    # the SRN evaluation workflow: train, eval, resume, eval_approx; then
-    # the DTU workflow at NS = 3 and 400x300
-    srn = run_srn_workflow(dev)
+    # the SRN evaluation workflow: train, eval, resume, eval_approx; the
+    # apps that consume its model; then the DTU workflow at NS = 3 and 400x300
+    with tempfile.TemporaryDirectory() as srn_tmp:
+        srn = run_srn_workflow(dev, srn_tmp)
+        apps = run_apps_workflow(dev, srn_tmp, train_runs["b"])
     dtu = run_dtu_workflow(dev)
     for k in train_launches:
-        train_launches[k] += srn["launches"][k] + dtu["launches"][k]
+        train_launches[k] += srn["launches"][k] + dtu["launches"][k] + apps["launches"][k]
 
     # the fused and baked field paths: their kernels at the paths' shapes
     with torch.inference_mode():
@@ -1742,12 +2059,13 @@ def main():
 
     keys = ("name", "route", "source", "replaces", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")
-    # launches: A over the staged inference path and the SRN and DTU
-    # workflows, B over the staged path, B's z_is_tz variant over the baked
-    # path, D over the fused path, C and C-bwd over both training configs,
-    # the train app and the two workflows, the study's formulations over
-    # its bench script
-    launches["gather_bilerp"] += srn["launches"]["gather_bilerp"] + dtu["launches"]["gather_bilerp"]
+    # launches: A over the staged inference path, the SRN and DTU
+    # workflows and the video and real-image apps, B over the staged path,
+    # B's z_is_tz variant over the baked path, D over the fused path, C and
+    # C-bwd over both training configs, the train app, the two workflows,
+    # the "dots" run and the profiled train app, the study's formulations
+    # over its bench script
+    launches["gather_bilerp"] += sum(r["launches"]["gather_bilerp"] for r in (srn, dtu, apps))
     launches.update(train_launches)
     launches["fused_resnetfc_infer[z_is_tz]"] = baked_res["launches"]["fused_resnetfc_infer"]
     launches["fused_gather_resnetfc_infer"] = fused_res["launches"]["fused_gather_resnetfc_infer"]

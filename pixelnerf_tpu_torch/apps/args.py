@@ -40,6 +40,8 @@ def parse_args(
     parser.add_argument("--ray_batch_size", "-R", type=int, default=default_ray_batch_size)
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device to run on; the CPU only when asked for")
+    parser.add_argument("--profile_dir", type=str, default=None,
+                        help="write a TensorBoard-viewable torch.profiler trace here (the train app)")
     parser.add_argument(
         "--override", action="append", default=[], metavar="KEY=VALUE",
         help="config override, e.g. --override model.mlp_coarse.d_hidden=64",

@@ -1,7 +1,8 @@
 """Training CLI (counterpart of ``pixelnerf_tpu/apps/train.py``).
 
     python -m pixelnerf_tpu_torch.apps.train -c conf/exp/srn.conf -F synthetic \
-        --epochs 2 --epoch_batches 50 [--train_ray_chunk 256 --train_remat features]
+        --epochs 2 --epoch_batches 50 [--train_ray_chunk 256 --train_remat features] \
+        [--profile_dir prof/]
 
 Runs on the GPU (``--device cuda``, the default) unless asked for the CPU.
 Datasets: ``-F srn`` (``-D <data>/cars``), ``-F dvr|dvr_gen`` (NMR
@@ -22,6 +23,7 @@ from ..models import load_pretrained_encoder, make_model
 from ..render.renderer import RenderConfig, RenderSchedule
 from ..train.trainer import Trainer
 from ..utils import geometry, metrics
+from ..utils.profiling import trace
 from .args import parse_args
 
 
@@ -39,9 +41,10 @@ def extra_args(parser):
                         help="render the train batch in chunks of this many rays "
                         "per object (bounds memory at large -R)")
     parser.add_argument("--train_remat", type=str, default="true",
-                        choices=["true", "false", "features"],
+                        choices=["true", "false", "dots", "features"],
                         help="what the chunked train render recomputes in the "
                         "backward: true=the whole chunk, false=nothing, "
+                        "dots=all but the matrix products' outputs, "
                         "features=only the MLPs (the gathered features are kept)")
     parser.add_argument("--workers", type=int, default=4,
                         help="dataset-loading threads in the input pipeline")
@@ -174,7 +177,8 @@ def main(argv=None):
         train_remat={"true": True, "false": False}.get(args.train_remat, args.train_remat),
         seed=args.seed,
     )
-    trainer.start()
+    with trace(args.profile_dir):
+        trainer.start()
     return trainer
 
 

@@ -18,8 +18,8 @@ the same map into a ``torch.optim.Adam`` state dict.
 
 :func:`load_reference_state_dict` loads the reference implementation's
 ``pixel_nerf_latest`` state_dict (the port's modules use its module paths),
-and :func:`load_pretrained_encoder` a torchvision ResNet state_dict into the
-encoder's trunk.
+:func:`export_state_dict` writes one, and :func:`load_pretrained_encoder`
+a torchvision ResNet state_dict into the encoder's trunk.
 """
 from __future__ import annotations
 
@@ -167,6 +167,20 @@ def load_reference_state_dict(model: nn.Module, state_dict: Dict[str, torch.Tens
         raise ValueError(f"reference checkpoint mismatch: missing {missing}, unexpected {unexpected}")
     model.load_state_dict({**own, **load}, strict=True)
     return skipped
+
+
+# the tensors a reference checkpoint holds of each layer: conv and linear
+# weights and biases, batch norm scale, shift and running statistics
+_EXPORTED_LEAVES = ("weight", "bias", "running_mean", "running_var")
+
+
+def export_state_dict(state_dict: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """The port's model state_dict as a reference ``pixel_nerf_latest``
+    state_dict, the inverse of :func:`load_reference_state_dict`: every
+    parameter and running statistic under its module path (the reference's),
+    as the JAX package's ``export_state_dict`` writes it, and no key of the
+    port's alone (``num_batches_tracked``)."""
+    return {k: v.detach().cpu() for k, v in state_dict.items() if k.rsplit(".", 1)[-1] in _EXPORTED_LEAVES}
 
 
 def load_pretrained_encoder(model: nn.Module, state_dict: Dict[str, torch.Tensor]) -> None:

@@ -39,10 +39,11 @@ positions; only the importance weights are detached.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable, Dict, Optional, Sequence, Union
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
 
 @dataclasses.dataclass(frozen=True)
@@ -313,6 +314,13 @@ def render_rays(
     return outputs
 
 
+# the products remat="dots" keeps: matrix products without batch dims
+# (F.linear and torch.matmul of an (..., K) input by a (K, N) weight reach
+# them through a view)
+_SAVED_DOTS = [torch.ops.aten.mm.default, torch.ops.aten.addmm.default]
+_save_dots = functools.partial(create_selective_checkpoint_contexts, _SAVED_DOTS)
+
+
 def render_rays_chunked(
     query_fn: QueryFn,
     rays: torch.Tensor,
@@ -340,11 +348,13 @@ def render_rays_chunked(
       outputs, the torch form of the JAX package's
       ``save_only_these_names("gathered_features")``; it needs the staged
       pair, which alone has a feature stage of its own
-    - ``"dots"`` (the JAX package's GEMM-output policy) is not ported
+    - ``"dots"``: the whole chunk render, but the outputs of its unbatched
+      matrix products (``aten.mm``, ``aten.addmm``: the MLPs' layers) are
+      kept, the torch form of the JAX package's
+      ``dots_with_no_batch_dims_saveable``; the gathers (kernel C) and the
+      elementwise work run again
     """
-    if remat == "dots":
-        raise NotImplementedError('remat="dots" is not ported; use True, False or "features"')
-    if remat not in (False, True, "features"):
+    if remat not in (False, True, "features", "dots"):
         raise ValueError(f"unknown remat policy {remat!r}")
     if remat == "features":
         if not isinstance(query_fn, (tuple, list)):
@@ -369,6 +379,8 @@ def render_rays_chunked(
         args = (query_fn, chunk, cfg, None, noise, want_weights, use_viewdirs, train)
         if remat is True:
             outs.append(checkpoint(render_rays, *args, use_reentrant=False))
+        elif remat == "dots":
+            outs.append(checkpoint(render_rays, *args, use_reentrant=False, context_fn=_save_dots))
         else:
             outs.append(render_rays(*args))
     return {

@@ -114,6 +114,46 @@ def look_at(origin, target, world_up=(0.0, 1.0, 0.0)) -> np.ndarray:
     return m
 
 
+def coord_from_blender(dtype=np.float32) -> np.ndarray:
+    """Blender (x right, y in, z up) -> standard (x right, y up, z out)."""
+    return np.array([[1, 0, 0, 0], [0, 0, 1, 0], [0, -1, 0, 0], [0, 0, 0, 1]], dtype=dtype)
+
+
+def coord_to_blender(dtype=np.float32) -> np.ndarray:
+    return np.array([[1, 0, 0, 0], [0, 0, -1, 0], [0, 1, 0, 0], [0, 0, 0, 1]], dtype=dtype)
+
+
+# Quaternions (numpy, float32; batched (B, 4) <-> (B, 3, 3))
+
+def quat_to_rot(q) -> np.ndarray:
+    """Unit-normalised quaternions (..., 4) as (w, x, y, z) -> rotation
+    matrices (..., 3, 3)."""
+    q = np.asarray(q, np.float32)
+    q = q / np.linalg.norm(q, axis=-1, keepdims=True)
+    qr, qi, qj, qk = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    r = np.stack(
+        [
+            1 - 2 * (qj**2 + qk**2), 2 * (qj * qi - qk * qr), 2 * (qi * qk + qr * qj),
+            2 * (qj * qi + qk * qr), 1 - 2 * (qi**2 + qk**2), 2 * (qj * qk - qi * qr),
+            2 * (qk * qi - qj * qr), 2 * (qj * qk + qi * qr), 1 - 2 * (qi**2 + qj**2),
+        ],
+        axis=-1,
+    )
+    return r.reshape(*q.shape[:-1], 3, 3)
+
+
+def rot_to_quat(R) -> np.ndarray:
+    """Rotation matrices (..., 3, 3) -> quaternions (..., 4) as (w, x, y, z):
+    w = sqrt(1 + trace) / 2 and the other three over 4w, the JAX package's
+    branch (a trace near -1 divides by ~0, as there)."""
+    R = np.asarray(R, np.float32)
+    w = np.sqrt(1.0 + R[..., 0, 0] + R[..., 1, 1] + R[..., 2, 2]) / np.float32(2.0)
+    x = (R[..., 2, 1] - R[..., 1, 2]) / (4 * w)
+    y = (R[..., 0, 2] - R[..., 2, 0]) / (4 * w)
+    z = (R[..., 1, 0] - R[..., 0, 1]) / (4 * w)
+    return np.stack([w, x, y, z], axis=-1)
+
+
 # Multiview reductions
 
 def repeat_interleave(x: torch.Tensor, repeats: int) -> torch.Tensor:

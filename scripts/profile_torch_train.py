@@ -12,8 +12,12 @@ kernels, the device's idle share, and the device time grouped (kernel C,
 its backward, the cuBLAS GEMMs, the cuDNN convolutions, then the rest by
 name).
 
+``--remat`` replaces the configs' remat policy (``dots``: the matrix
+products' outputs kept, the rest recomputed), on the same weights,
+batches and draws.
+
 Usage, on a machine with one NVIDIA GPU, from the repository root:
-``python3 scripts/profile_torch_train.py [--configs a b] [--trace-dir DIR]``
+``python3 scripts/profile_torch_train.py [--configs a b] [--remat dots] [--trace-dir DIR]``
 """
 import argparse
 import json
@@ -42,10 +46,10 @@ def _group(name: str) -> str:
     return name
 
 
-def profile_config(key, dev, cs, trace_dir=None):
+def profile_config(key, dev, cs, trace_dir=None, remat=None):
     from pixelnerf_tpu_torch.train import make_render_loss, make_train_step
 
-    tc = cs.TRAIN_CONFIGS[key]
+    tc = cs.TRAIN_CONFIGS[key] if remat is None else {**cs.TRAIN_CONFIGS[key], "remat": remat}
     net, cfg, conf, batches = cs.train_setup(dev, key)
     opt = torch.optim.Adam(net.parameters(), lr=cs.TRAIN_LR, betas=(0.9, 0.999), eps=1e-8)
     step = make_train_step(net, cfg, opt, make_render_loss(conf["loss"]),
@@ -84,7 +88,7 @@ def profile_config(key, dev, cs, trace_dir=None):
     top = sorted(groups.items(), key=lambda kv: -kv[1]["ms"])
     if trace_dir:
         os.makedirs(trace_dir, exist_ok=True)
-        prof.export_chrome_trace(os.path.join(trace_dir, f"train_{key}.json"))
+        prof.export_chrome_trace(os.path.join(trace_dir, f"train_{key}_{tc['remat']}.json"))
     return {
         "config": key, "objects": cs.TRAIN_SB, "rays_per_object": tc["rays"], "ray_chunk": tc["ray_chunk"],
         "remat": tc["remat"], "dtype": tc["dtype"] or "float32",
@@ -101,6 +105,8 @@ def profile_config(key, dev, cs, trace_dir=None):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--configs", nargs="+", default=["a", "b"], choices=["a", "b"])
+    ap.add_argument("--remat", default=None, choices=["true", "false", "features", "dots"],
+                    help="the remat policy in place of each config's own")
     ap.add_argument("--trace-dir", default=None, help="write each config's chrome trace here")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -118,7 +124,8 @@ def main():
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip()
     for key in args.configs:
-        print(json.dumps({"card": smi, **profile_config(key, dev, cs, args.trace_dir)}), flush=True)
+        remat = {"true": True, "false": False}.get(args.remat, args.remat)
+        print(json.dumps({"card": smi, **profile_config(key, dev, cs, args.trace_dir, remat)}), flush=True)
     return 0
 
 

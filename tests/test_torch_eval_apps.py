@@ -10,8 +10,9 @@ fixture, beside the JAX package's apps on the same fixture and weights:
   takes ``--pretrained_encoder``;
 - ``apps.train`` and ``apps.eval`` on the DTU (``-V 3``), NMR and
   multi-object readers;
-- the import rule: the port's apps run with ``imageio``, ``PIL``, ``cv2``
-  and ``jax`` blocked, and no module of the port names them.
+- the import rule: the port's apps (these, ``gen_video``, ``eval_real``,
+  ``calc_metrics`` and ``export_torch``) run with ``imageio``, ``PIL``,
+  ``cv2`` and ``jax`` blocked, and no module of the port names them.
 """
 import ast
 import os
@@ -274,7 +275,7 @@ def test_apps_train_and_eval_on_the_dvr_and_multi_object_readers(fmt, tmp_path, 
 BLOCKED = ("imageio", "PIL", "cv2", "jax", "jaxlib", "flax", "optax", "pixelnerf_tpu")
 
 _BLOCKING_RUNNER = """
-import importlib.abc, sys
+import importlib, importlib.abc, sys
 BLOCKED = set(sys.argv[1].split(","))
 class Block(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path, target=None):
@@ -283,31 +284,51 @@ class Block(importlib.abc.MetaPathFinder):
         return None
 sys.meta_path.insert(0, Block())
 import json
-from pixelnerf_tpu_torch.apps import eval as eval_app, train
-argv = json.loads(sys.argv[2])
-train.main(argv["train"])
-eval_app.main(argv["eval"])
+for app, argv in json.loads(sys.argv[2]):
+    importlib.import_module("pixelnerf_tpu_torch.apps." + app).main(argv)
 print("loaded:", sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED))
 """
 
 
 def test_port_apps_run_with_imaging_libraries_and_jax_blocked(work, tmp_path):
+    """``apps.train``, ``apps.eval``, ``apps.gen_video``, ``apps.eval_real``,
+    ``apps.calc_metrics`` (with LPIPS) and ``apps.export_torch`` in one
+    process that cannot import imageio, PIL, cv2 or jax."""
     import json
+
+    from test_lpips import _random_torch_state_dict
+
+    from pixelnerf_tpu_torch.utils import png
 
     common = ["-c", SRN_CONF, "-F", "srn", "-D", work["data"], "--device", "cpu",
               "--checkpoints_path", str(tmp_path / "ck")] + TINY
-    argv = {
-        "train": common + ["-B", "1", "-R", "16", "--epochs", "1", "--epoch_batches", "2", "--workers", "1",
-                           "--logs_path", str(tmp_path / "logs"), "--visual_path", str(tmp_path / "vis")],
-        "eval": common + ["-P", "1", "-R", "2048", "--write_depth", "--write_compare", "--limit", "1",
-                          "-O", str(tmp_path / "eval")],
-    }
+    lpips_weights = str(tmp_path / "lpips.pth")
+    torch.save(_random_torch_state_dict(seed=1), lpips_weights)
+    (tmp_path / "real").mkdir()
+    png.imwrite(str(tmp_path / "real" / "a_normalize.png"),
+                png.imread(os.path.join(work["data"] + "_test", "test0", "rgb", "000000.png")))
+    apps = [
+        ("train", common + ["-B", "1", "-R", "16", "--epochs", "1", "--epoch_batches", "2", "--workers", "1",
+                            "--logs_path", str(tmp_path / "logs"), "--visual_path", str(tmp_path / "vis")]),
+        ("eval", common + ["-P", "1", "-R", "2048", "--write_depth", "--write_compare", "--limit", "1",
+                           "-O", str(tmp_path / "eval")]),
+        ("gen_video", common + ["-P", "1", "--num_views", "2", "-R", "1024", "-O", str(tmp_path / "video")]),
+        ("eval_real", common + ["--input", str(tmp_path / "real"), "--size", "32", "--num_views", "2",
+                                "-R", "1024", "-O", str(tmp_path / "real_out")]),
+        ("calc_metrics", ["-D", work["data"] + "_test", "-F", "srn", "-O", str(tmp_path / "eval"), "--device", "cpu",
+                          "--lpips_weights", lpips_weights, "--require_lpips"]),
+        ("export_torch", ["-n", "example", "--checkpoints_path", str(tmp_path / "ck")]),
+    ]
     env = dict(os.environ, PIXELNERF_NO_TB="1", PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
-    proc = subprocess.run([sys.executable, "-c", _BLOCKING_RUNNER, ",".join(BLOCKED), json.dumps(argv)],
+    proc = subprocess.run([sys.executable, "-c", _BLOCKING_RUNNER, ",".join(BLOCKED), json.dumps(apps)],
                           cwd=str(tmp_path), env=env, capture_output=True, text=True, timeout=600)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "loaded: []" in proc.stdout and "FINAL psnr" in proc.stdout
     assert os.listdir(tmp_path / "vis" / "example") == ["0000_0001_vis.png"]
+    assert sorted(os.listdir(tmp_path / "video")) == ["example_obj0.gif", "example_obj0_src.png"]
+    assert sorted(os.listdir(tmp_path / "real_out")) == ["a_normalize.gif", "a_normalize_frames"]
+    assert "lpips" in open(tmp_path / "eval" / "all_metrics.txt").read()
+    assert os.path.exists(tmp_path / "ck" / "example" / "pixel_nerf_latest")
 
 
 def test_port_names_no_imaging_library():

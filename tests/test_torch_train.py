@@ -14,6 +14,7 @@ import numpy as np
 import optax
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from pixelnerf_tpu.models.encoder import index_latent as jax_index_latent
 from pixelnerf_tpu.models.resnet import ResNetFeatures as JaxResNetFeatures
@@ -179,12 +180,12 @@ def _batch():
     }
 
 
-def _jax_run(jnet, variables, jconf, ray_chunk, keys):
+def _jax_run(jnet, variables, jconf, ray_chunk, keys, remat=False):
     """JAX train steps from ``variables`` (one per key). Returns the state
     and gradients after each step, and the metrics."""
     cfg = dataclasses.replace(jr.RenderConfig.from_conf(jconf["renderer"]), noise_std=NOISE_STD)
     opt = optax.chain(_capture_grads(), optax.adam(LR))
-    step = jax_make_train_step(jnet, cfg, opt, jax_make_loss(jconf["loss"]), ray_chunk=ray_chunk, remat=False)
+    step = jax_make_train_step(jnet, cfg, opt, jax_make_loss(jconf["loss"]), ray_chunk=ray_chunk, remat=remat)
     state = TrainState(
         params=variables["params"], batch_stats=variables["batch_stats"],
         opt_state=opt.init(variables["params"]), step=jnp.zeros((), jnp.int32),
@@ -204,7 +205,7 @@ def jax_runs():
     tests/test_train.py)."""
     jnet, variables, tnet, jconf, tconf = build_pair(SB=SB)
     keys = [jax.random.PRNGKey(21), jax.random.PRNGKey(22)]
-    out = {"pair": (variables, tconf), "keys": keys}
+    out = {"pair": (variables, tconf), "keys": keys, "jax": (jnet, jconf)}
     for chunk in (None, CHUNK):
         out[chunk] = _jax_run(jnet, variables, jconf, chunk, keys)
     return out
@@ -323,10 +324,55 @@ def test_fast_mlp_refuses_autograd():
         assert mlp((z, x), combine_inner_dims=(1, 5), fast=True).shape == (1, 5, 4)
 
 
-def test_remat_dots_is_not_ported():
-    cfg = tr.RenderConfig(n_coarse=4)
-    with pytest.raises(NotImplementedError):
-        tr.render_rays_chunked((None, None), torch.zeros((1, 8, 8)), cfg, 4, remat="dots")
+class _OpCount(TorchDispatchMode):
+    """Counts every aten op dispatched inside the block, and the matrix
+    products (``aten.mm``, ``aten.addmm``) apart."""
+
+    DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+    def __init__(self):
+        super().__init__()
+        self.ops = self.dots = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.ops += 1
+        self.dots += func in self.DOTS
+        return func(*args, **(kwargs or {}))
+
+
+def test_train_step_remat_dots_matches_jax_and_remat_false(jax_runs):
+    """``remat="dots"``: the chunk render checkpointed with its matrix
+    products' outputs kept. Against the JAX step with ``remat="dots"`` at
+    ``_compare_step``'s tolerance; against the port's ``remat=False`` step
+    to float32 rounding; and by op counts over a whole step (its forward is
+    every policy's): it runs no more ``aten.mm``/``aten.addmm`` than
+    ``remat=False`` (no product is recomputed in the backward), where
+    ``remat=True`` runs more, and it does run other ops again."""
+    variables, tconf = jax_runs["pair"]
+    jnet, jconf = jax_runs["jax"]
+    jcfg, runs = _jax_run(jnet, variables, jconf, CHUNK, jax_runs["keys"][:1], remat="dots")
+    jstate, jmetrics = runs[0]
+    batch = {k: t(v) for k, v in _batch().items()}
+    noise = jax_chunk_draws(jax_runs["keys"][0], SB, R, jcfg, CHUNK)
+    results = {}
+    for remat in ("dots", False, True):
+        net, opt = _port(variables, tconf)
+        step = make_train_step(net, _port_cfg(jcfg), opt, make_render_loss(tconf["loss"]), ray_chunk=CHUNK,
+                               remat=remat)
+        with _OpCount() as count:
+            metrics = step(batch, noise=noise)
+        results[remat] = (net, metrics, count)
+    net, metrics, count = results["dots"]
+    _compare_step(net, metrics, jstate, jmetrics, jstate.opt_state[0])
+    base_net, base_metrics, base_count = results[False]
+    for k in ("rc", "rf", "t", "gnorm"):
+        np.testing.assert_allclose(float(metrics[k]), float(base_metrics[k]), rtol=1e-6, err_msg=k)
+    base = dict(base_net.named_parameters())
+    for k, p in net.named_parameters():
+        scale = float(base[k].grad.abs().max())
+        assert float((p.grad - base[k].grad).abs().max()) <= 1e-6 * scale, k
+    assert count.dots == base_count.dots < results[True][2].dots
+    assert count.ops > base_count.ops
 
 
 def test_gather_rows_autograd_plain_matches_wrapper_on_cpu():
