@@ -27,6 +27,9 @@ blocks, 64 coarse + 32 fine samples), weights random from a seed:
   ``apps.eval_real``, ``apps.calc_metrics`` with LPIPS,
   ``apps.export_torch``, and the train app's ``--train_remat dots`` and
   ``--profile_dir``;
+- the model variants: the global encoder, the custom conv encoder, SPADE
+  and softplus with ``feature_scale``, ImplicitNet fields and the quad
+  gather, three requests each, and a train step of three of them;
 - the DTU workflow, f32, at three source views and 400x300
   (``conf/exp/dtu.conf``): ``apps.train -F dvr_dtu -V 3`` ->
   ``apps.eval -F dvr_dtu -P "22 25 28"`` on a DTU-layout fixture.
@@ -105,6 +108,21 @@ Phases, one JSON line each:
     ``apps.train --profile_dir`` for 2 steps (C, C-bwd; the trace names the
     port's kernels)
 
+22. variants (run last): the model variants of the SRN model at full
+    width, bf16, three requests each through ``FullRenderer(fast=True)``
+    with A's and B's launches asserted per config: ``global`` (a ResNet34
+    global encoder, latent 128: B at z 640), ``custom`` (the custom conv
+    encoder: A on a 128-channel 128x128 map, B at z 128),
+    ``spade_softplus`` (SPADE, softplus beta 10, feature_scale 0.5: the
+    dense chain, no B), ``implicit`` (ImplicitNet fields: no B), ``quad``
+    (the quad-corner gather: no A); kernel B at z 640 and 128 (with its
+    ring stages) and A on the 128-channel map against their plain
+    versions; the global config's crop through the kernels and through
+    their plain versions; three f32 train steps each of ``global``,
+    ``custom`` and ``quad`` after a warm-up (C's and C-bwd's launches
+    asserted, none for quad); C and C-bwd at the custom encoder's table (C bit-equal to
+    plain, C-bwd's grad_table bit-equal to its mirror)
+
 then the ``kernels`` line, the card's name and power limit, and
 ``{"ok": true, ...}`` as the last line. Any failure raises and exits
 non-zero; without a GPU it exits non-zero before printing anything.
@@ -112,6 +130,7 @@ non-zero; without a GPU it exits non-zero before printing anything.
 Usage: ``python3 chip_smoke.py`` from the root of the repository.
 """
 import copy
+import ctypes
 import json
 import math
 import os
@@ -179,16 +198,16 @@ def bound(bytes_moved, flops, peak_flops):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def check_kernel_a(dev, g):
-    """Kernel A at one image's coarse gather: a 64x64x512 bf16 latent table,
-    16384 rays x 64 samples, bf16 output (the MLP's input dtype)."""
+def kernel_a_record(dev, g, hl, wl, c):
+    """Kernel A at one image's coarse gather from an hl x wl x c bf16
+    latent table, 16384 rays x 64 samples, bf16 output (the MLP's input
+    dtype): held to its plain version bit for bit and timed. Returns the
+    record and (table, base, w, n)."""
     import torch.nn.functional as F
 
     from pixelnerf_tpu_torch.ops.gather import gather_bilerp, gather_bilerp_plain
     from pixelnerf_tpu_torch.ops.grid_sample import bilinear_pair_bases
 
-    hl = wl = 64
-    c = 512
     n = RAY_CHUNK * 64
     table = torch.randn((hl * wl, c), generator=g).to(torch.bfloat16).to(dev)
     ix = (torch.rand(n, generator=g) * (wl - 1)).to(dev)
@@ -223,6 +242,18 @@ def check_kernel_a(dev, g):
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": library_ms, "library_call": "F.grid_sample(NCHW bf16, bilinear, border)",
     }
+    return res, (table, base, w, n)
+
+
+def check_kernel_a(dev, g):
+    """Kernel A at one image's coarse gather: a 64x64x512 bf16 latent table,
+    16384 rays x 64 samples, bf16 output (the MLP's input dtype); also on
+    the baked path's 1536-wide rows."""
+    from pixelnerf_tpu_torch.ops.gather import gather_bilerp, gather_bilerp_plain
+
+    hl = wl = 64
+    res, (table, base, w, n) = kernel_a_record(dev, g, hl, wl, 512)
+    tol = res["tolerance"]
     # the baked path's shape: rows of a 1536-wide injection map. The plain
     # version holds several float32 copies of its output, so it is compared
     # on the first 131,072 points; the kernel is timed on all of them
@@ -243,11 +274,13 @@ def check_kernel_a(dev, g):
     return res
 
 
-def check_kernel_b(dev, g, mlp):
+def check_kernel_b(dev, g, mlp, phase="kernel_b", more_shapes=True):
     """Kernel B at the coarse pass's shape: one image's 16384 x 64 samples
-    through the SRN fine MLP's weights (512 wide, 5 blocks, 3 injections)."""
+    through the SRN fine MLP's weights (512 wide, 5 blocks, 3 injections),
+    or a variant's fine MLP (its latent width); with ``more_shapes`` also
+    at the fine pass's and a ragged number of rows."""
     from pixelnerf_tpu_torch.ops.fused_mlp import (
-        fused_resnetfc_infer, fused_resnetfc_infer_plain, pack_weights,
+        KC, fused_resnetfc_infer, fused_resnetfc_infer_plain, pack_weights, z_tile_width,
     )
 
     n = RAY_CHUNK * 64
@@ -275,6 +308,8 @@ def check_kernel_b(dev, g, mlp):
         "replaces": "pixelnerf_tpu/ops/fused_mlp.py:68",
         "shape": {"rows": n, "d_hidden": dh, "d_latent": mlp.d_latent, "d_in": mlp.d_in,
                   "n_blocks": mlp.n_blocks, "n_lin_z": n_lin_z},
+        "z_tile": z_tile_width(mlp.d_latent),
+        "ring_stages": ring_stages(-(-mlp.d_in // KC) * KC, z_tile_width(mlp.d_latent), dh),
         "max_abs_err": err, "tolerance": tol, "frac_within_1e-2": close,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": library_ms, "library_call": "bf16 torch.matmul chain (ResnetFC fast=False)",
@@ -286,9 +321,10 @@ def check_kernel_b(dev, g, mlp):
         xm = torch.randn((m, mlp.d_in), generator=g).to(torch.bfloat16).to(dev)
         return (zm, xm, weights, mlp.n_blocks, mlp.combine_layer)
 
-    res.update(mlp_other_shapes(fused_resnetfc_infer, fused_resnetfc_infer_plain, other_shape, "kernel B",
-                                lambda m: mlp_flops(m, weights, mlp)))
-    emit({"phase": "kernel_b", **res})
+    if more_shapes:
+        res.update(mlp_other_shapes(fused_resnetfc_infer, fused_resnetfc_infer_plain, other_shape, "kernel B",
+                                    lambda m: mlp_flops(m, weights, mlp)))
+    emit({"phase": phase, **res})
     return res
 
 
@@ -331,10 +367,23 @@ def mlp_traffic(n, ms, weights, l2_row_bytes, hbm_bytes):
 
 def mlp_flops(n, weights, mlp, with_wz=True):
     """Operations of the fused MLP on n rows, padded as
-    pixelnerf_tpu/ops/fused_mlp.py:130-134 counts them."""
+    pixelnerf_tpu/ops/fused_mlp.py:130-134 counts them (the injection
+    product at the latent's own width d_z)."""
     dh, d_in_pad = weights[0].shape
     n_lin_z = min(mlp.combine_layer, mlp.n_blocks) if with_wz else 0
-    return 2 * n * dh * (d_in_pad + n_lin_z * dh + 2 * mlp.n_blocks * dh + 128)
+    d_z = weights[2].shape[1] if with_wz else 0
+    return 2 * n * dh * (d_in_pad + n_lin_z * d_z + 2 * mlp.n_blocks * dh + 128)
+
+
+def ring_stages(kx, zw, dh):
+    """The weight ring's stages that kernel B's block holds at these widths,
+    asked of the built kernel (csrc/mlp_body.cuh stages_that_fit)."""
+    from pixelnerf_tpu_torch.ops import _build
+
+    fn = _build.load("fused_mlp").mlp_body_ring_stages
+    fn.argtypes = [ctypes.c_int] * 3
+    fn.restype = ctypes.c_int
+    return fn(kx, zw, dh)
 
 
 def assert_mlp_close(out, ref, what):
@@ -752,20 +801,18 @@ def check_kernel_c_bwd(dev, g, inputs):
     return res
 
 
-def train_setup(dev, key, seed=0):
-    """The SRN model for training config ``key`` (weights from ``seed``),
-    its Adam, the train step and the config's batches from the port's
-    synthetic scenes at SRN geometry."""
-    from pixelnerf_tpu_torch.config import load_config
+def train_setup(dev, key, seed=0, variant=None):
+    """The SRN model (or its ``variant``) for training config ``key``
+    (weights from ``seed``), its config and the config's batches from the
+    port's synthetic scenes at SRN geometry."""
     from pixelnerf_tpu_torch.data import RayBatchPipeline, SyntheticSphereDataset
     from pixelnerf_tpu_torch.models import make_model
     from pixelnerf_tpu_torch.render import RenderConfig
 
     tc = TRAIN_CONFIGS[key]
-    conf = load_config(os.path.join(REPO, "conf", "exp", "srn.conf"))
-    if tc["dtype"]:
-        conf["model"]["dtype"] = tc["dtype"]
-    net = make_model(conf["model"], device=dev, generator=torch.Generator().manual_seed(seed))
+    conf = variant_conf(variant, tc["dtype"])
+    net = make_model(conf["model"], device=dev, generator=torch.Generator().manual_seed(seed),
+                     image_size=(IMAGE, IMAGE))
     cfg = RenderConfig.from_conf(conf["renderer"])
     ds = SyntheticSphereDataset(num_objects=TRAIN_SB, num_views=12, image_size=(IMAGE, IMAGE), radius=1.3)
     ds.focal, ds.z_near, ds.z_far = FOCAL, NEAR, FAR
@@ -1932,6 +1979,215 @@ def run_path(phase, render, targets, dev, rgen, per_request, extra):
     return res
 
 
+# ---- the model variants ----------------------------------------------------
+
+# A's and B's launches per request of each variant's staged render (one
+# 16,384-ray chunk: A gathers the coarse and the new fine samples, B runs
+# the coarse MLP and the fine MLP on the cached and on the new features).
+# SPADE and softplus fields, and ImplicitNet, take the dense chain (the
+# kernel's gate, read from the config); the quad gather is a plain row
+# gather.
+VARIANT_REQUEST_LAUNCHES = {
+    "global": {"gather_bilerp": 2, "fused_resnetfc_infer": 3},
+    "custom": {"gather_bilerp": 2, "fused_resnetfc_infer": 3},
+    "spade_softplus": {"gather_bilerp": 2},
+    "implicit": {"gather_bilerp": 2},
+    "quad": {"fused_resnetfc_infer": 3},
+}
+VARIANT_SETTINGS = {
+    "global": "use_global_encoder, global_encoder { backbone = resnet34, latent_size = 128 }",
+    "custom": "encoder.backbone = custom",
+    "spade_softplus": "use_spade, beta = 10 in both MLPs, encoder.feature_scale = 0.5",
+    "implicit": "both MLPs { type = mlp, dims = [512] x 5, skip_in = [3], combine_layer = 3, "
+                "dim_excludes_skip = True }",
+    "quad": "quad_gather = True",
+}
+IMPLICIT_MLP = {"type": "mlp", "dims": [512] * 5, "skip_in": [3], "combine_layer": 3, "dim_excludes_skip": True}
+
+
+def variant_conf(name, dtype):
+    """conf/exp/srn.conf (full width and depth) with the settings of
+    variant ``name`` (None: as it is) and the model's ``dtype``."""
+    from pixelnerf_tpu_torch.config import load_config
+
+    conf = load_config(os.path.join(REPO, "conf", "exp", "srn.conf"))
+    m = conf["model"]
+    if dtype:
+        m["dtype"] = dtype
+    if name == "global":
+        m["use_global_encoder"] = True
+        m["global_encoder"] = {"backbone": "resnet34", "latent_size": 128}
+    elif name == "custom":
+        m["encoder"]["backbone"] = "custom"
+    elif name == "spade_softplus":
+        for mlp in ("mlp_coarse", "mlp_fine"):
+            m[mlp]["use_spade"] = True
+            m[mlp]["beta"] = 10.0
+        m["encoder"]["feature_scale"] = 0.5
+    elif name == "implicit":
+        m["mlp_coarse"] = dict(IMPLICIT_MLP)
+        m["mlp_fine"] = dict(IMPLICIT_MLP)
+    elif name == "quad":
+        m["quad_gather"] = True
+    elif name is not None:
+        raise ValueError(f"unknown variant {name!r}")
+    return conf
+
+
+def make_variant_model(dev, g, name):
+    """Variant ``name`` of the SRN model in bf16 on ``dev``, weights from
+    ``g``, made opaque as ``make_srn_model`` makes it; the density of a
+    softplus, SPADE or ImplicitNet field is its bias alone (their hidden
+    values are not bounded as a ReLU ResnetFC's are). Returns (net,
+    RenderConfig)."""
+    from pixelnerf_tpu_torch.models import ResnetFC, make_model
+    from pixelnerf_tpu_torch.render import RenderConfig
+
+    conf = variant_conf(name, "bfloat16")
+    net = make_model(conf["model"], device=dev, generator=g, image_size=(IMAGE, IMAGE))
+    with torch.no_grad():
+        for mlp in (net.mlp_coarse, net.mlp_fine):
+            if isinstance(mlp, ResnetFC):
+                for blk in mlp.blocks:
+                    blk.fc_1.weight.copy_(torch.randn(blk.fc_1.weight.shape, generator=g).to(dev) * 0.02)
+                    blk.fc_1.bias.copy_(torch.randn(blk.fc_1.bias.shape, generator=g).to(dev) * 0.02)
+                last = mlp.lin_out
+            else:
+                last = getattr(mlp, f"lin{mlp.num_layers - 2}")
+            last.bias[3] = 10.0
+            last.weight[:3] *= 0.1
+            last.weight[3] *= 0.0 if name in ("spade_softplus", "implicit") else 0.01
+    return net, RenderConfig.from_conf(conf["renderer"])
+
+
+VARIANT_TRAIN_STEPS = 3
+
+
+def run_variant_train_step(dev, name):
+    """f32 train steps of variant ``name`` at the reference train config
+    (4 objects x 128 rays, unchunked) after one warm-up step: each step's ms
+    (host clock ending in a synchronize), the last loss, and the launches of
+    every kernel in them (reset just before)."""
+    from pixelnerf_tpu_torch.train import make_render_loss, make_train_step
+
+    net, cfg, conf, batches = train_setup(dev, "a", variant=name)
+    opt = torch.optim.Adam(net.parameters(), lr=TRAIN_LR, betas=(0.9, 0.999), eps=1e-8)
+    step = make_train_step(net, cfg, opt, make_render_loss(conf["loss"]), remat=False)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    step(batches[0], generator=gen)
+    counters = {**inference_kernels(), **train_kernels()}
+    for fn in counters.values():
+        fn.launches = 0
+    step_ms = []
+    for _ in range(VARIANT_TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        m = step(batches[0], generator=gen)
+        torch.cuda.synchronize()
+        step_ms.append((time.time() - t0) * 1e3)
+    launches = {k: fn.launches for k, fn in counters.items()}
+    # the spatial latent's bilinear/border gather: C for the coarse and the
+    # new fine samples, each with its backward; the quad gather launches
+    # neither
+    per = 0 if name == "quad" else train_launches_per_step()["a"] * VARIANT_TRAIN_STEPS
+    expect = {k: 0 for k in counters}
+    expect.update({"gather_rows_lerp": per, "gather_rows_lerp_bwd": per})
+    if launches != expect:
+        raise AssertionError(f"variant {name} train step: launch counts {launches} != expected {expect}")
+    loss = m["t"].item()
+    if not (math.isfinite(loss) and math.isfinite(m["gnorm"].item())):
+        raise AssertionError(f"variant {name} train step: non-finite loss or gnorm {loss}, {m['gnorm'].item()}")
+    return {"config": name, "model": f"conf/exp/srn.conf + {VARIANT_SETTINGS[name]}, float32",
+            "objects": TRAIN_SB, "rays_per_object": TRAIN_CONFIGS["a"]["rays"], "step_ms": step_ms, "loss": loss,
+            "gnorm": m["gnorm"].item(), "launches": launches}
+
+
+def check_c_at_custom_table(dev, g):
+    """Kernels C and C-bwd at the custom conv encoder's f32 train table
+    (4 objects x 128x128 x 128 channels) and the reference train config's
+    coarse gather (4 x 128 rays x 64 samples): C bit-equal to its plain
+    version, C-bwd's grad_table bit-equal to its mirror and two of its
+    launches bit-equal."""
+    from pixelnerf_tpu_torch.ops.gather_rows import gather_rows_lerp, gather_rows_lerp_plain
+    from pixelnerf_tpu_torch.ops.grid_sample import bilinear_corners
+
+    views, hl, wl, c = TRAIN_SB, IMAGE, IMAGE, 128
+    per_view = TRAIN_CONFIGS["a"]["rays"] * 64
+    table = torch.randn((views * hl * wl, c), generator=g).to(dev)
+    ix = (torch.rand((views, per_view), generator=g) * (wl - 1)).to(dev)
+    iy = (torch.rand((views, per_view), generator=g) * (hl - 1)).to(dev)
+    idx, w = bilinear_corners(ix, iy, hl, wl)
+    idx = (idx + (torch.arange(views, device=dev, dtype=torch.int32) * (hl * wl))[:, None, None]).reshape(-1, 4)
+    idx, w = idx.contiguous(), w.reshape(-1, 4).contiguous()
+    out = gather_rows_lerp(table, idx, w, torch.float32)
+    torch.cuda.synchronize()
+    err = (out - gather_rows_lerp_plain(table, idx, w, torch.float32)).abs().max().item()
+    grad_out = torch.randn((idx.shape[0], c), generator=g).to(dev)
+    det = c_bwd_deterministic(table, idx, w, grad_out)
+    if err != 0.0 or not all(det.values()):
+        raise AssertionError(f"kernel C or C-bwd at the custom table: C err {err}, C-bwd {det}")
+    return {"table": list(table.shape), "points": idx.shape[0], "c_max_abs_err": err, **det}
+
+
+def run_variants(dev, g, targets, rgen, smi, main_request_ms, crop, noise):
+    """The model variants on the card: each variant's staged bf16 render of
+    the three requests (A and B launches asserted per request), kernel B at
+    the global (640) and custom (128) latent widths and kernel A on the
+    custom encoder's 128-channel map against their plain versions, the
+    global variant's crop through the kernels against the plain versions,
+    three f32 train steps each of global, custom and quad (C and C-bwd
+    launches asserted), C and C-bwd at the custom table."""
+    t_phase = time.time()
+    paths, kernels = {}, {}
+    for name, per_request in VARIANT_REQUEST_LAUNCHES.items():
+        net, cfg = make_variant_model(dev, g, name)
+        images, pose = source_view(g, dev)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        with torch.inference_mode():
+            enc = net.encode(images, pose, FOCAL)
+        torch.cuda.synchronize()
+        extra = {"variant": name, "settings": VARIANT_SETTINGS[name], "d_latent": net.d_latent,
+                 "latent_shape": list(enc.latent.shape), "encode_ms": (time.time() - t0) * 1e3, "card": smi}
+        paths[name] = run_path(f"variant_{name}", make_request("staged", net, cfg, enc), targets, dev, rgen,
+                               per_request, extra)
+        with torch.inference_mode():
+            if name in ("global", "custom"):
+                kernels[f"b_{name}"] = check_kernel_b(dev, g, net.mlp_fine, phase=f"variant_kernel_b_{name}",
+                                                      more_shapes=False)
+            if name == "global":
+                rgb_k, depth_k = make_request("staged", net, cfg, enc)(crop, noise=noise)
+                rgb_p, depth_p = make_request("plain", net, cfg, enc)(crop, noise=noise)
+                err = {"rgb": (rgb_k - rgb_p).abs().max().item(), "depth": (depth_k - depth_p).abs().max().item()}
+                # kernel B's tolerance, composited along 96 samples (as main_path's crop)
+                emit({"phase": "variant_global_kernel_vs_plain_e2e", "rays": crop.shape[0] * crop.shape[1],
+                      "max_abs_err": err, "tolerance": 2e-2})
+                if max(err.values()) > 2e-2:
+                    raise AssertionError(f"global variant: kernel and plain renders disagree: {err}")
+            if name == "custom":
+                rec, _ = kernel_a_record(dev, g, IMAGE, IMAGE, 128)
+                emit({"phase": "variant_kernel_a_custom", **rec})
+                kernels["a_custom"] = rec
+        del net, enc
+        torch.cuda.empty_cache()
+    train = {name: run_variant_train_step(dev, name) for name in ("global", "custom", "quad")}
+    for rec in train.values():
+        emit({"phase": "variant_train_step", **rec})
+    c_custom = check_c_at_custom_table(dev, g)
+    summary = {
+        "phase": "variants", "card": smi,
+        "request_ms": {k: v["request_ms"] for k, v in paths.items()},
+        "main_path_request_ms": main_request_ms,
+        "launches": {k: v["launches"] for k, v in paths.items()},
+        "kernel_b_ms": {k: kernels[f"b_{k}"]["ms"] for k in ("global", "custom")},
+        "kernel_b_ring_stages": {k: kernels[f"b_{k}"]["ring_stages"] for k in ("global", "custom")},
+        "train_step_ms": {k: v["step_ms"] for k, v in train.items()},
+        "c_at_custom_table": c_custom, "seconds": time.time() - t_phase,
+    }
+    emit(summary)
+    return {"paths": paths, "kernels": kernels, "train": train}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs an NVIDIA GPU", file=sys.stderr)
@@ -2057,6 +2313,11 @@ def main():
         if max(err.values()) > tols[name]:
             raise AssertionError(f"{name}: renders disagree: {err} > {tols[name]}")
 
+    variants = run_variants(dev, g, targets, rgen, smi, main_res["request_ms"], crop, noise)
+    for rec in variants["train"].values():
+        for k in train_launches:
+            train_launches[k] += rec["launches"][k]
+
     keys = ("name", "route", "source", "replaces", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")
     # launches: A over the staged inference path, the SRN and DTU
@@ -2072,6 +2333,16 @@ def main():
     ported = [{**{k: r[k] for k in keys}, "launches": launches[r["name"]]}
               for r in (res_a, res_b, res_b_tz, res_c, res_c_bwd, res_d)]
     ported += [{**{k: r[k] for k in keys}, "launches": r["launches"]} for r in study]
+    # the same kernels at the variants' widths, launched by their paths
+    vp = variants["paths"]
+    ported += [
+        {**{k: variants["kernels"]["b_global"][k] for k in keys}, "name": "fused_resnetfc_infer[d_latent=640]",
+         "launches": vp["global"]["launches"]["fused_resnetfc_infer"]},
+        {**{k: variants["kernels"]["b_custom"][k] for k in keys}, "name": "fused_resnetfc_infer[d_latent=128]",
+         "launches": vp["custom"]["launches"]["fused_resnetfc_infer"]},
+        {**{k: variants["kernels"]["a_custom"][k] for k in keys}, "name": "gather_bilerp[128 channels]",
+         "launches": vp["custom"]["launches"]["gather_bilerp"]},
+    ]
     if any(k["launches"] < 1 for k in ported):
         raise AssertionError(f"a kernel was not launched on its path: {ported}")
     emit({"kernels": ported, "card": smi, "seconds": time.time() - t_start})

@@ -20,6 +20,9 @@ _LAZY = {
     "make_model": ("pixelnerf_tpu_torch.models", "make_model"),
     "PixelNeRFNet": ("pixelnerf_tpu_torch.models", "PixelNeRFNet"),
     "SceneEncoding": ("pixelnerf_tpu_torch.models", "SceneEncoding"),
+    "ImageEncoder": ("pixelnerf_tpu_torch.models", "ImageEncoder"),
+    "ConvEncoder": ("pixelnerf_tpu_torch.models", "ConvEncoder"),
+    "ImplicitNet": ("pixelnerf_tpu_torch.models", "ImplicitNet"),
     "from_jax_variables": ("pixelnerf_tpu_torch.models", "from_jax_variables"),
     "RenderConfig": ("pixelnerf_tpu_torch.render", "RenderConfig"),
     "FullRenderer": ("pixelnerf_tpu_torch.eval", "FullRenderer"),

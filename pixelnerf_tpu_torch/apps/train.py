@@ -129,9 +129,16 @@ def main(argv=None):
         test_dset = None
     has_test = test_dset is not None and len(test_dset) > 0
 
+    image_size = None
+    if conf["model"].get_config("encoder", ConfigNode()).get_string("backbone", "resnet34") == "custom":
+        # the custom conv encoder has a layer whose width the image size
+        # sets: the reader's image_size, else its first item's (no jitter)
+        base = getattr(train_dset, "base_dset", train_dset)
+        image_size = getattr(base, "image_size", None)
+        image_size = tuple(base[0]["images"].shape[1:3] if image_size is None else image_size)
     net = make_model(
         conf["model"], device=device, generator=torch.Generator().manual_seed(args.seed),
-        stop_encoder_grad=args.freeze_enc,
+        stop_encoder_grad=args.freeze_enc, image_size=image_size,
     )
     render_cfg = RenderConfig.from_conf(conf.get_config("renderer", ConfigNode()),
                                         lindisp=getattr(train_dset, "lindisp", False))

@@ -23,33 +23,37 @@
 // What this file adds is the tile of the injections: the producer's filler
 // warps copy the 64 rows of z, once per tile and a tile ahead, or with
 // z_is_tz block i's dh-wide slice of the injections, a block ahead, into
-// the z buffer.
+// the z buffer. A latent whose width d_z is not a multiple of 64 (a global
+// encoder's vector before the spatial latent) takes a tile rounded up to the
+// next 64 columns, zero past d_z; the tiled Wz has zero columns there too.
 #include "mlp_body.cuh"
 
 namespace {
 
-// The tile of injection `inj`: the latents, or the injection's own slice.
+// The tile of injection `inj`: the latents (zero past d_z: PAD, taken only
+// where d_z is not a multiple of 64), or the injection's own slice.
+template <bool PAD>
 struct RowsFill {
   const bf16* z;
   int64_t ld, n;
-  int width, step;   // columns of the tile; columns from one injection to the next
+  int src_width, width, step;   // columns read; of the tile; from one injection to the next
   __device__ __forceinline__ void operator()(int inj, int64_t row0, uint8_t* dst, int ft) const {
-    fill_tile_rows(z + (int64_t)inj * step, ld, width, row0, n, dst, ft);
+    fill_tile_rows<PAD>(z + (int64_t)inj * step, ld, src_width, width, row0, n, dst, ft);
   }
 };
 
-template <int NI, int NH, int MODE>
-__global__ void __launch_bounds__(THREADS, 1) fused_mlp_kernel(const Params p, const RowsFill fill) {
+template <int NI, int NH, int MODE, class Fill>
+__global__ void __launch_bounds__(THREADS, 1) fused_mlp_kernel(const Params p, const Fill fill) {
   mlp_block<NI, NH, MODE>(p, fill);
 }
 
-template <int MODE>
-int launch_width(const Params& p, const RowsFill& f, cudaStream_t s) {
+template <int MODE, class Fill>
+int launch_width(const Params& p, const Fill& f, cudaStream_t s) {
   switch (p.dh) {
-    case 64: return launch_mlp(fused_mlp_kernel<32, 1, MODE>, p, s, p, f);
-    case 128: return launch_mlp(fused_mlp_kernel<64, 1, MODE>, p, s, p, f);
-    case 256: return launch_mlp(fused_mlp_kernel<128, 1, MODE>, p, s, p, f);
-    case 512: return launch_mlp(fused_mlp_kernel<128, 2, MODE>, p, s, p, f);
+    case 64: return launch_mlp(fused_mlp_kernel<32, 1, MODE, Fill>, p, s, p, f);
+    case 128: return launch_mlp(fused_mlp_kernel<64, 1, MODE, Fill>, p, s, p, f);
+    case 256: return launch_mlp(fused_mlp_kernel<128, 1, MODE, Fill>, p, s, p, f);
+    case 512: return launch_mlp(fused_mlp_kernel<128, 2, MODE, Fill>, p, s, p, f);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -63,9 +67,15 @@ extern "C" size_t mlp_body_smem_bytes(int kx, int zw, int d_hidden) {
   return body_smem_bytes(kx, zw, d_hidden);
 }
 
-// image: the tiled weights (with the Wz slabs unless z_is_tz); bz is not read
-// with z_is_tz and may be null. Returns the CUDA error of the launch
-// (0 = success).
+// The weight ring's stages the block holds at these widths, 0 as above.
+extern "C" int mlp_body_ring_stages(int kx, int zw, int d_hidden) {
+  return stages_that_fit(kx, zw, d_hidden);
+}
+
+// image: the tiled weights (with the Wz slabs unless z_is_tz, their columns
+// padded to d_z rounded up to 64); bz is not read with z_is_tz and may be
+// null. d_z is a multiple of 8 (whole 16-byte units a row). Returns the CUDA
+// error of the launch (0 = success).
 extern "C" int fused_resnetfc_infer(const void* x, const void* z, const void* image,
                                     const void* bin, const void* bz, const void* b0,
                                     const void* b1, const void* wout, const void* bout, void* out,
@@ -84,14 +94,15 @@ extern "C" int fused_resnetfc_infer(const void* x, const void* z, const void* im
   p.n = n;
   p.d_in = d_in;
   p.kx = kx;
-  p.zw = z_is_tz ? d_hidden : d_z;
+  p.zw = z_is_tz ? d_hidden : (d_z + 63) / 64 * 64;
   p.dh = d_hidden;
   p.n_blocks = n_blocks;
   p.n_lin_z = n_lin_z;
   p.stages = stages_that_fit(kx, p.zw, d_hidden);
-  if (!p.stages) return (int)cudaErrorInvalidValue;
-  const RowsFill f = {static_cast<const bf16*>(z), d_z, n, p.zw, z_is_tz ? d_hidden : 0};
+  if (!p.stages || d_z % 8) return (int)cudaErrorInvalidValue;
+  const bf16* zp = static_cast<const bf16*>(z);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (z_is_tz) return launch_width<MODE_TZ>(p, f, s);
-  return launch_width<MODE_Z>(p, f, s);
+  if (z_is_tz) return launch_width<MODE_TZ>(p, RowsFill<false>{zp, d_z, n, d_hidden, d_hidden, d_hidden}, s);
+  if (p.zw != d_z) return launch_width<MODE_Z>(p, RowsFill<true>{zp, d_z, n, d_z, p.zw, 0}, s);
+  return launch_width<MODE_Z>(p, RowsFill<false>{zp, d_z, n, d_z, p.zw, 0}, s);
 }

@@ -330,13 +330,18 @@ __device__ __forceinline__ void fill_x_tile(const Params& p, uint8_t* xs, int64_
 }
 
 // A tile of `width` columns of the rows row0.. of src (row stride ld), by
-// 16-byte vectors, zero past the last row. Each thread starts LOADS loads
-// before it uses the first, so the tile arrives at the rate of the memory,
-// not at its latency.
-__device__ __forceinline__ void fill_tile_rows(const bf16* src, int64_t ld, int width, int64_t row0,
-                                               int64_t n, uint8_t* dst, int ft) {
+// 16-byte vectors, zero past the last row; with PAD only the first
+// src_width columns (a multiple of 8) come from src, and the rest of the
+// tile is zero. Each thread starts LOADS loads before it uses the first, so
+// the tile arrives at the rate of the memory, not at its latency. (Without
+// PAD the check is compiled out, for the TZ mode and for latents of whole
+// 64-column chunks: in the TZ mode a fill runs before every injection, and
+// there the check cost 12% of kernel B-tz's time on an H100.)
+template <bool PAD>
+__device__ __forceinline__ void fill_tile_rows(const bf16* src, int64_t ld, int src_width, int width,
+                                               int64_t row0, int64_t n, uint8_t* dst, int ft) {
   constexpr int LOADS = 8;
-  const int units = width / 8;
+  const int units = width / 8, src_units = src_width / 8;
   const int total = T * units;
   for (int i0 = ft; i0 < total; i0 += FILLERS * LOADS) {
     uint4 raw[LOADS];
@@ -345,7 +350,7 @@ __device__ __forceinline__ void fill_tile_rows(const bf16* src, int64_t ld, int 
       const int i = i0 + u * FILLERS;
       const int r = i / units, cu = i % units;
       raw[u] = make_uint4(0u, 0u, 0u, 0u);
-      if (i < total && row0 + r < n)
+      if (i < total && row0 + r < n && (!PAD || cu < src_units))
         raw[u] = __ldg(reinterpret_cast<const uint4*>(src + (row0 + r) * ld) + cu);
     }
 #pragma unroll

@@ -8,6 +8,12 @@ pixel-aligned gather, positional code) and ``query_mlp`` (the conditioned
 MLP and its output heads) are the two stages the staged renderer calls, and
 ``query`` is the two in a row, what the unstaged renderer calls.
 
+Variants read from the config: a global ``ImageEncoder`` whose vector is
+concatenated before the pixel-aligned latent (``global_latent``), and the
+quad-corner gather (``quad_gather``: ``latent_quad`` holds each pixel's four
+bilinear corners, and the lookup is one plain row gather per point instead
+of a gather kernel).
+
 Two inference-time variants of the encoding: :func:`bake_encoding` folds the
 MLPs' latent injections into per-MLP maps that ``query`` then gathers from
 (``tz_coarse``/``tz_fine``), and :func:`pack_encoding` prepares the bf16 map
@@ -28,10 +34,10 @@ from typing import Optional
 import torch
 import torch.nn as nn
 
-from ..ops.grid_sample import _compute_source_index, bilinear_pair_bases
+from ..ops.grid_sample import _compute_source_index, bilinear_pair_bases, build_quad_features, grid_sample_quad
 from ..utils.geometry import invert_pose, repeat_interleave
 from .code import PositionalEncoding
-from .encoder import SpatialEncoder, index_latent, latent_scaling
+from .encoder import ImageEncoder, SpatialEncoder, index_latent, latent_scaling
 
 
 @dataclasses.dataclass
@@ -51,6 +57,10 @@ class SceneEncoding:
     # The bf16 feature rows (SB*NS, Hl*Wl, C) that the fused gather+MLP
     # kernel reads (pack_encoding).
     latent_packed: Optional[torch.Tensor] = None
+    # The global encoder's vectors (SB*NS, G), float32.
+    global_latent: Optional[torch.Tensor] = None
+    # Each pixel's four bilinear corners (SB*NS, Hl, Wl, 4C) (quad_gather).
+    latent_quad: Optional[torch.Tensor] = None
 
 
 def _normalize_intrinsic(v, batch: int, name: str, num_views: int = 1, device=None) -> torch.Tensor:
@@ -82,6 +92,7 @@ class PixelNeRFNet(nn.Module):
         mlp_coarse: nn.Module,
         mlp_fine: Optional[nn.Module] = None,
         code: Optional[PositionalEncoding] = None,
+        global_encoder: Optional[ImageEncoder] = None,
         use_encoder: bool = True,
         use_xyz: bool = False,
         normalize_z: bool = True,
@@ -89,12 +100,14 @@ class PixelNeRFNet(nn.Module):
         use_viewdirs: bool = False,
         stop_encoder_grad: bool = False,
         latent_dtype: torch.dtype = torch.float32,
+        quad_gather: bool = False,
     ):
         super().__init__()
         self.encoder = encoder
         self.mlp_coarse = mlp_coarse
         self.mlp_fine = mlp_fine
         self.code = code
+        self.global_encoder = global_encoder
         self.use_encoder = use_encoder
         self.use_xyz = use_xyz
         self.normalize_z = normalize_z
@@ -102,10 +115,22 @@ class PixelNeRFNet(nn.Module):
         self.use_viewdirs = use_viewdirs
         self.stop_encoder_grad = stop_encoder_grad
         self.latent_dtype = latent_dtype
+        self.quad_gather = quad_gather
 
     @property
     def use_code(self) -> bool:
         return self.code is not None
+
+    @property
+    def use_global_encoder(self) -> bool:
+        return self.global_encoder is not None
+
+    @property
+    def d_latent(self) -> int:
+        d = self.encoder.latent_size if self.use_encoder else 0
+        if self.use_global_encoder:
+            d += self.global_encoder.latent_size
+        return d
 
     @property
     def d_in(self) -> int:
@@ -128,16 +153,21 @@ class PixelNeRFNet(nn.Module):
         :param poses: (SB, NS, 4, 4) camera-to-world
         :param focal: scalar, (SB,), or (SB, 2) [fx, fy]
         :param c: principal point, same formats; default = image center
-        :param train: the encoder's batch norms in training mode
+        :param train: the encoders' batch norms in training mode
         """
         SB, NS, H, W, _ = images.shape
         dev = images.device
         images_flat = images.reshape(SB * NS, H, W, 3)
-        latent = None
+        latent = latent_quad = global_latent = None
         if self.use_encoder:
             # bf16 storage halves the gather's traffic; the lerp is float32.
             # The cast stays in the autograd graph when training.
             latent = self.encoder(images_flat, train).to(self.latent_dtype).contiguous()
+            if (self.quad_gather and self.encoder.index_interp == "bilinear"
+                    and self.encoder.index_padding == "border"):
+                latent_quad = build_quad_features(latent)
+        if self.use_global_encoder:
+            global_latent = self.global_encoder(images_flat, train)
         w2c = invert_pose(poses.reshape(SB * NS, 4, 4).float())
         image_shape = torch.tensor([W, H], dtype=torch.float32, device=dev)
         focal = _normalize_intrinsic(focal, SB, "focal", NS, dev)
@@ -146,7 +176,8 @@ class PixelNeRFNet(nn.Module):
             c = (image_shape * 0.5).expand(SB, 2)
         else:
             c = _normalize_intrinsic(c, SB, "c", NS, dev)
-        return SceneEncoding(latent, w2c, focal, c, image_shape, NS)
+        return SceneEncoding(latent, w2c, focal, c, image_shape, NS, global_latent=global_latent,
+                             latent_quad=latent_quad)
 
     def query(
         self, enc: SceneEncoding, xyz, viewdirs=None, coarse: bool = True, fast: bool = False,
@@ -205,28 +236,43 @@ class PixelNeRFNet(nn.Module):
         pixel-aligned gather, positional code.
 
         :param differentiable: gather through kernel C and its backward
-            (training) instead of kernel A (inference)
+            (training) instead of kernel A (inference); the quad-corner
+            gather is plain PyTorch either way
         :param coarse: only matters for baked encodings, whose maps are per
             MLP: gather the coarse MLP's injections or the fine MLP's
         :return: (latent or None, z_feature), each (SB*NS, B, D) in the
             MLP's compute dtype; for a baked encoding the latent is the
-            gathered injections, (SB*NS, B, n_lin_z*d_hidden)
+            gathered injections, (SB*NS, B, n_lin_z*d_hidden); with the
+            global encoder its vector comes first, then the gathered latent
         """
         z_feature, uv = self._point_inputs(enc, xyz, viewdirs)
         dt = self.mlp_coarse.dtype
         latent = None
         if self.use_encoder:
-            source = enc.latent
             if enc.tz_coarse is not None:
                 # baked: the gather returns the latent injections directly
                 source = enc.tz_coarse if (coarse or self.mlp_fine is None) else enc.tz_fine
-            latent = index_latent(
-                source, uv, enc.image_shape, self.encoder.index_interp,
-                self.encoder.index_padding, out_dtype=dt, use_kernels=use_kernels,
-                differentiable=differentiable,
-            )
+                latent = index_latent(
+                    source, uv, enc.image_shape, self.encoder.index_interp,
+                    self.encoder.index_padding, out_dtype=dt, use_kernels=use_kernels,
+                    differentiable=differentiable,
+                )
+            elif enc.latent_quad is not None:
+                Hl, Wl = enc.latent.shape[1:3]
+                scale = latent_scaling(Hl, Wl, uv.device) / enc.image_shape
+                # lerped in float32, rounded once to the MLP's dtype
+                latent = grid_sample_quad(enc.latent_quad, uv * scale - 1.0).to(dt)
+            else:
+                latent = index_latent(
+                    enc.latent, uv, enc.image_shape, self.encoder.index_interp,
+                    self.encoder.index_padding, out_dtype=dt, use_kernels=use_kernels,
+                    differentiable=differentiable,
+                )
             if self.stop_encoder_grad:
                 latent = latent.detach()
+            if self.use_global_encoder:
+                glob = ImageEncoder.index(enc.global_latent, latent.shape[1]).to(dt)
+                latent = torch.cat([glob, latent], dim=-1)
         return latent, z_feature.to(dt)
 
     def query_mlp(
@@ -256,15 +302,16 @@ class PixelNeRFNet(nn.Module):
         conditioned MLP's kernel. Same function as ``query(fast=True)``.
 
         Requires a :func:`pack_encoding`'d single-scene single-view encoding
-        (``SB*NS == 1``), the spatial encoder, bilinear/border indexing and
-        an unbaked ResnetFC in bf16, and raises otherwise. Inference only.
+        (``SB*NS == 1``), the spatial encoder as the only latent (no global
+        encoder), bilinear/border indexing and an unbaked ReLU ResnetFC
+        without SPADE in bf16, and raises otherwise. Inference only.
         """
         if enc.latent_packed is None:
             raise ValueError("pack_encoding() the encoding first")
         if enc.latent_packed.shape[0] != 1 or enc.num_views != 1:
             raise ValueError("the fused gather path is single-scene single-view")
-        if not self.use_encoder:
-            raise ValueError("the fused gather path needs the spatial encoder")
+        if not self.use_encoder or self.global_encoder is not None:
+            raise ValueError("the fused gather path needs the spatial encoder as the only latent")
         if self.encoder.index_interp != "bilinear":
             raise ValueError("the fused gather path needs bilinear indexing")
         if self.encoder.index_padding != "border":
@@ -301,6 +348,7 @@ def coarse_only(net: PixelNeRFNet) -> PixelNeRFNet:
         mlp_coarse=net.mlp_coarse,
         mlp_fine=None,
         code=net.code,
+        global_encoder=net.global_encoder,
         use_encoder=net.use_encoder,
         use_xyz=net.use_xyz,
         normalize_z=net.normalize_z,
@@ -308,6 +356,7 @@ def coarse_only(net: PixelNeRFNet) -> PixelNeRFNet:
         use_viewdirs=net.use_viewdirs,
         stop_encoder_grad=net.stop_encoder_grad,
         latent_dtype=net.latent_dtype,
+        quad_gather=net.quad_gather,
     ).train(net.training)
 
 
@@ -355,7 +404,7 @@ def bake_encoding(net: PixelNeRFNet, enc: SceneEncoding) -> SceneEncoding:
     ``query`` uses them automatically. Exact in float32; under bf16 storage
     the rounding differs from the unbaked path by ~1 ulp of the injections.
     """
-    if not net.use_encoder or enc.latent is None:
+    if not net.use_encoder or enc.latent is None or net.global_encoder is not None:
         raise ValueError("baking requires the spatial encoder as the only latent source")
     if net.encoder.index_padding != "border":
         raise ValueError("zeros-padding would zero the baked bias for out-of-bounds points")

@@ -1,4 +1,4 @@
-"""ResNet-18/34 trunk with torchvision's module names (counterpart of
+"""ResNet-18/34 trunks with torchvision's module names (counterpart of
 ``pixelnerf_tpu/models/resnet.py``).
 
 Parameters keep torchvision's state_dict names (``conv1``, ``bn1``,
@@ -141,3 +141,28 @@ class ResNetFeatures(nn.Module):
                 x = block(x, train)
             latents.append(x)
         return [lat.permute(0, 2, 3, 1).float() for lat in latents]
+
+
+class ResNetTrunk(nn.Module):
+    """The full trunk through layer4 with the stem's max pool, then the
+    mean over H and W: (B, H, W, 3) -> (B, 512), for the global image
+    encoder. Float32 whatever the model's dtype, as in the JAX package
+    (its ``ResNetTrunk`` takes no dtype)."""
+
+    def __init__(self, backbone: str = "resnet34"):
+        super().__init__()
+        sizes = STAGE_SIZES[backbone]
+        self.conv1 = _conv(3, 64, 7, 2)
+        self.bn1 = BatchNorm2d(64)
+        cin = 64
+        for k in range(1, 5):
+            self.add_module(f"layer{k}", _stage(cin, STAGE_FEATURES[k - 1], sizes[k - 1], 1 if k == 1 else 2))
+            cin = STAGE_FEATURES[k - 1]
+
+    def forward(self, x_nhwc: torch.Tensor, train: bool = False) -> torch.Tensor:
+        x = x_nhwc.permute(0, 3, 1, 2).float()
+        x = max_pool_3x3_s2(torch.relu(self.bn1(self.conv1(x), train)))
+        for k in range(1, 5):
+            for block in getattr(self, f"layer{k}"):
+                x = block(x, train)
+        return x.mean(dim=(2, 3))

@@ -2,19 +2,26 @@
 ``pixelnerf_tpu/models/resnetfc.py`` ``ResnetFC``).
 
 ``lin_in`` to d_hidden, ``n_blocks`` two-layer residual blocks (zero-init
-second layer), the latent injection ``x += lin_z[blk](z)`` for blocks before
+second layer), the latent injection ``x += lin_z[blk](z)`` (with SPADE
+``x = scale_z[blk](z) * x + lin_z[blk](z)``) for blocks before
 ``combine_layer``, multi-view mean/max fusion *at* ``combine_layer``, then
-``lin_out``. Module names follow the reference's state_dict
-(``lin_in``, ``lin_z.{i}``, ``blocks.{i}.fc_0/fc_1``, ``lin_out``).
+``lin_out``. The activation is ReLU, or with ``beta > 0``
+``softplus(beta * x) / beta``. Module names follow the reference's
+state_dict (``lin_in``, ``lin_z.{i}``, ``scale_z.{i}``,
+``blocks.{i}.fc_0/fc_1``, ``lin_out``).
 
 Parameters stay float32; every layer computes in ``dtype``: the product is
 rounded to ``dtype`` before the ``dtype`` bias add, as ``nn.Dense(dtype=...)``
-does. With ``fast=True`` and the kernel's gate met (bf16, single view,
-a latent) the whole MLP is one launch of the
+does. With ``fast=True`` and the kernel's gate met (ReLU, no SPADE, bf16,
+single view, a latent) the whole MLP is one launch of the
 fused kernel (``ops/fused_mlp.py``); otherwise the dense chain below runs,
-as the JAX package leaves that case to XLA. On the card the kernel is built
-for ``d_hidden`` 64, 128, 256 or 512 and a latent in multiples of 64: other
-widths with ``fast=True`` raise there, they do not fall back to the chain.
+as the JAX package leaves that case to XLA: the gate is read from the
+config before any launch, as the JAX package reads it, so softplus and
+SPADE fields always take the chain. On the card the kernel is built
+for ``d_hidden`` 64, 128, 256 or 512 and a latent whose width is a multiple
+of 8 (its tile rounded up to 64 columns) and fits the block's shared memory:
+other widths with ``fast=True`` raise there, they do not fall back to the
+chain.
 With ``z_pretransformed`` the latent already holds the injections (a baked
 encoding), and with ``gather=`` the latents are gathered inside the kernel
 (``ops/fused_field.py``).
@@ -25,10 +32,21 @@ from typing import Optional, Sequence
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from ..ops.fused_field import fused_gather_resnetfc_infer, fused_gather_resnetfc_infer_plain
 from ..ops.fused_mlp import fused_resnetfc_infer, fused_resnetfc_infer_plain, pack_weights
 from ..utils.geometry import combine_interleaved
+
+
+def activation(x: torch.Tensor, beta: float) -> torch.Tensor:
+    """ReLU, or with ``beta > 0`` ``softplus(beta * x) / beta``
+    (``F.softplus`` returns its argument past 20, where the exact value lies
+    within 2.1e-9 of it: below half an ulp of float32 there, so the same
+    numbers as ``jax.nn.softplus``)."""
+    if beta > 0:
+        return F.softplus(x * beta) / beta
+    return torch.relu(x)
 
 
 class ResnetBlockFC(nn.Module):
@@ -50,6 +68,8 @@ class ResnetFC(nn.Module):
         d_hidden: int = 128,
         combine_layer: int = 1000,
         combine_type: str = "average",
+        beta: float = 0.0,
+        use_spade: bool = False,
         dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
@@ -60,12 +80,18 @@ class ResnetFC(nn.Module):
         self.d_hidden = d_hidden
         self.combine_layer = combine_layer
         self.combine_type = combine_type
+        self.beta = beta
+        self.use_spade = use_spade
         self.dtype = dtype
         self.lin_in = nn.Linear(d_in, d_hidden)
         if d_latent > 0:
             self.lin_z = nn.ModuleList(
                 [nn.Linear(d_latent, d_hidden) for _ in range(self.n_lin_z)]
             )
+            if use_spade:
+                self.scale_z = nn.ModuleList(
+                    [nn.Linear(d_latent, d_hidden) for _ in range(self.n_lin_z)]
+                )
         self.blocks = nn.ModuleList([ResnetBlockFC(d_hidden) for _ in range(n_blocks)])
         self.lin_out = nn.Linear(d_hidden, d_out)
 
@@ -74,10 +100,15 @@ class ResnetFC(nn.Module):
         return min(self.combine_layer, self.n_blocks) if self.d_latent > 0 else 0
 
     def _can_use_kernel(self, single_view: bool) -> bool:
-        """The fused kernel's gate: bf16, a latent and a single view, as in
-        the JAX package. Widths play no part in it: on the card a width the
-        kernel is not built for raises in the kernel's wrapper."""
-        return self.d_latent > 0 and single_view and self.dtype == torch.bfloat16
+        """The fused kernel's gate: ReLU, no SPADE, bf16, a latent and a
+        single view, as in the JAX package. Widths play no part in it: on
+        the card a width the kernel is not built for raises in the kernel's
+        wrapper."""
+        return (
+            self.beta <= 0.0 and not self.use_spade and self.d_latent > 0
+            and single_view and self.dtype == torch.bfloat16
+        )
+
 
     def _dense(self, a: torch.Tensor, lin: nn.Linear) -> torch.Tensor:
         dt = self.dtype
@@ -116,7 +147,8 @@ class ResnetFC(nn.Module):
             latent) and (..., d_in), kept unconcatenated
         :param combine_inner_dims: (NS, B); the leading axis is reduced over
             NS at combine_layer (multi-view fusion)
-        :param fast: allow the fused inference kernel (single-view, bf16).
+        :param fast: allow the fused inference kernel (ReLU, no SPADE,
+            single-view, bf16).
             Inference only: raises where autograd would record the call.
         :param use_kernels: with ``fast``, call the kernel's wrapper if True,
             else its plain version (a caller-side choice for comparing them)
@@ -128,11 +160,13 @@ class ResnetFC(nn.Module):
             the fused gather+MLP kernel (``ops/fused_field.py``) from the
             (R, d_latent) bf16 ``table`` of views ``width`` pixels wide, at
             row bases ``base`` (..., 2) with weights ``wg`` (..., 2). Needs
-            ``fast``, ``z`` None, bf16, a latent, a single view: raises
-            otherwise, never falls back
+            ``fast``, ``z`` None, ReLU, no SPADE, bf16, a latent, a single
+            view: raises otherwise, never falls back
         :return: (..., d_out) float32, with the NS axis folded away if NS > 1
         """
         dt = self.dtype
+        if z_pretransformed and self.use_spade:
+            raise ValueError("baked injections are incompatible with SPADE")
         z, x = zx
         z = z.to(dt) if z is not None else None
         x = x.to(dt)
@@ -153,7 +187,8 @@ class ResnetFC(nn.Module):
             if not fast or z is not None or z_pretransformed:
                 raise ValueError("gather= needs fast=True, z=None and an unbaked latent")
             if not self._can_use_kernel(single_view):
-                raise ValueError("the fused gather path requires bf16, d_latent > 0 and a single view")
+                raise ValueError(
+                    "the fused gather path requires ReLU, no SPADE, bf16, d_latent > 0 and a single view")
             table, base, wg, width = gather
             self._refuse_autograd(x, table, wg)
             run = fused_gather_resnetfc_infer if use_kernels else fused_gather_resnetfc_infer_plain
@@ -182,7 +217,7 @@ class ResnetFC(nn.Module):
             )
             return self._shape_out(out, lead, combine_inner_dims)
 
-        tz_list = None
+        tz_list = sz_list = None
         if z is not None and self.d_latent > 0:
             if z_pretransformed:
                 tz_all = z
@@ -193,6 +228,11 @@ class ResnetFC(nn.Module):
                 tz_all = torch.matmul(z, K.t()) + B
             dh = self.d_hidden
             tz_list = [tz_all[..., i * dh : (i + 1) * dh] for i in range(self.n_lin_z)]
+            if self.use_spade:
+                Ks = torch.cat([lin.weight for lin in self.scale_z], dim=0).to(dt)
+                Bs = torch.cat([lin.bias for lin in self.scale_z]).to(dt)
+                sz_all = torch.matmul(z, Ks.t()) + Bs
+                sz_list = [sz_all[..., i * dh : (i + 1) * dh] for i in range(self.n_lin_z)]
 
         x = self._dense(x, self.lin_in)
 
@@ -201,25 +241,28 @@ class ResnetFC(nn.Module):
                 x = combine_interleaved(
                     x.reshape(-1, x.shape[-1]), combine_inner_dims, self.combine_type
                 )
-                tz_list = None   # latent injected only before fusion
+                tz_list = sz_list = None   # latent injected only before fusion
             if tz_list is not None and blkid < self.combine_layer:
-                x = x + tz_list[blkid]
+                if sz_list is not None:
+                    x = sz_list[blkid] * x + tz_list[blkid]
+                else:
+                    x = x + tz_list[blkid]
             blk = self.blocks[blkid]
-            net = self._dense(torch.relu(x), blk.fc_0)
-            x = x + self._dense(torch.relu(net), blk.fc_1)
+            net = self._dense(activation(x, self.beta), blk.fc_0)
+            x = x + self._dense(activation(net, self.beta), blk.fc_1)
 
-        return self._dense(torch.relu(x), self.lin_out).float()
+        return self._dense(activation(x, self.beta), self.lin_out).float()
 
     @classmethod
     def from_conf(cls, conf, d_in: int, **kwargs) -> "ResnetFC":
-        if conf.get_bool("use_spade", False) or conf.get_float("beta", 0.0) > 0:
-            raise NotImplementedError("SPADE and softplus (beta > 0) ResnetFC are not ported yet")
         return cls(
             d_in=d_in,
             n_blocks=conf.get_int("n_blocks", 5),
             d_hidden=conf.get_int("d_hidden", 128),
             combine_layer=conf.get_int("combine_layer", 1000),
             combine_type=conf.get_string("combine_type", "average"),
+            beta=conf.get_float("beta", 0.0),
+            use_spade=conf.get_bool("use_spade", False),
             dtype=getattr(torch, conf.get_string("dtype", "float32")),
             **kwargs,
         )

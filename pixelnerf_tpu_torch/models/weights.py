@@ -11,7 +11,14 @@ tree as nested dicts of numpy arrays. Layout transforms:
 - batch norm mean / var        -> running_mean / running_var
 - ``block{i}`` under ``layer{k}`` -> ``layer{k}.{i}``, elsewhere ``blocks.{i}``
 - ``downsample_conv`` / ``downsample_bn`` -> ``downsample.0`` / ``downsample.1``
-- ``lin_z_{i}``                -> ``lin_z.{i}``
+- ``lin_z_{i}`` / ``scale_z_{i}`` -> ``lin_z.{i}`` / ``scale_z.{i}``
+- group norm scale / bias      -> weight / bias
+
+Every 4-D kernel takes the conv transform, the custom conv encoder's
+transposed convs (``deconv*``) included, as the JAX package's
+``torch_import`` does; the port's ``ConvTranspose`` keeps its weight in that
+layout and computes flax's ``ConvTranspose`` from it
+(``models/encoder.py``).
 
 :func:`from_jax_opt_state` carries an optax Adam state's moments through
 the same map into a ``torch.optim.Adam`` state dict.
@@ -29,6 +36,8 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 import torch.nn as nn
+
+from .encoder import ConvEncoder
 
 
 def _flatten(tree: Dict, prefix=()) -> Dict[Tuple[str, ...], np.ndarray]:
@@ -53,8 +62,8 @@ def _module_path(path) -> str:
             out.extend(["downsample", "0"])
         elif p == "downsample_bn":
             out.extend(["downsample", "1"])
-        elif re.match(r"^lin_z_\d+$", p):
-            out.extend(["lin_z", p.rsplit("_", 1)[1]])
+        elif re.match(r"^(lin_z|scale_z)_\d+$", p):
+            out.extend(p.rsplit("_", 1))
         else:
             out.append(p)
     return ".".join(out)
@@ -142,7 +151,11 @@ def load_reference_state_dict(model: nn.Module, state_dict: Dict[str, torch.Tens
     - ``num_batches_tracked`` the port's batch norms do not have.
 
     ``num_batches_tracked`` missing from the file (a checkpoint exported
-    by the JAX package) keeps the model's value."""
+    by the JAX package) keeps the model's value. A custom conv encoder's
+    layer whose width depends on the image size is made at the file's."""
+    for name, mod in model.named_modules():
+        if isinstance(mod, ConvEncoder):
+            mod.adopt(state_dict, f"{name}.")
     own = model.state_dict()
     load, skipped, unexpected = {}, [], []
     for key, value in state_dict.items():

@@ -9,6 +9,9 @@ transpose of the JAX tuple's ``(in, out)``, and each bias 1-D:
 
 - ``win`` (dh, d_in_pad): lin_in, input columns zero-padded to 128
 - ``wz`` (n_lin_z*dh, d_latent): the lin_z injections stacked by rows
+  (any ``d_latent`` that is a multiple of 8: the kernel's z tile is
+  rounded up to a multiple of 64 columns, zero-filled past ``d_latent``,
+  and the tiled image pads ``wz`` with zero columns to match)
 - ``w0``/``w1`` (n_blocks, dh, dh): the residual blocks' fc_0/fc_1
 - ``wout`` (128, dh): lin_out, output rows zero-padded to 128
 
@@ -60,10 +63,17 @@ def slab_columns(dh: int) -> int:
     return min(dh // 2, 128)
 
 
+def z_tile_width(d_z: int) -> int:
+    """Columns of kernel B's z tile for a ``d_z``-wide latent: rounded up to
+    a whole 64-column chunk (the fill zero-fills the columns past ``d_z``)."""
+    return _round_up(d_z, KC)
+
+
 def check_kernel_widths(kx: int, zw: int, dh: int) -> None:
     """Raise ValueError for widths the kernel is not built for: ``kx``
-    columns of x, a ``zw``-wide injection tile, ``dh`` hidden. Whether they
-    also fit the block's shared memory only the built kernel says
+    columns of x, a ``zw``-wide injection tile (already rounded by
+    :func:`z_tile_width` where the kernel rounds it), ``dh`` hidden. Whether
+    they also fit the block's shared memory only the built kernel says
     (``csrc/mlp_body.cuh`` ``layout_of``; :func:`check_kernel_fits`)."""
     if dh not in KERNEL_WIDTHS:
         raise ValueError(f"the fused MLP kernel is built for d_hidden in {KERNEL_WIDTHS}, got {dh}")
@@ -104,10 +114,13 @@ def tile_weights(weights, kx: int, n_blocks: int, n_lin_z: int, with_wz: bool = 
     """The kernel's image of the ten-array tuple: ``win[:, :kx]``, then per
     block its ``wz`` slice (if ``with_wz`` and the block has an injection),
     ``w0`` and ``w1``, each as :func:`_tile_matrix` lays it out, in one flat
-    bf16 tensor. ``wout`` is not in it (the kernel keeps its rows resident)."""
+    bf16 tensor, ``wz``'s columns zero-padded to :func:`z_tile_width`.
+    ``wout`` is not in it (the kernel keeps its rows resident)."""
     win, _, wz, _, w0, _, w1, _, _, _ = weights
     dh = win.shape[0]
     parts = [_tile_matrix(win[:, :kx])]
+    if with_wz:
+        wz = torch.nn.functional.pad(wz, (0, z_tile_width(wz.shape[1]) - wz.shape[1]))
     for i in range(n_blocks):
         if with_wz and i < n_lin_z:
             parts.append(_tile_matrix(wz[i * dh : (i + 1) * dh]))
@@ -169,7 +182,7 @@ def pack_weights(mlp, with_wz: bool = True) -> Tuple[Optional[torch.Tensor], ...
     n_lin_z = min(mlp.combine_layer, mlp.n_blocks)
     kx = _round_up(max(mlp.d_in, 1), KC)
     try:
-        check_kernel_widths(kx, mlp.d_latent if with_wz else dh, dh)
+        check_kernel_widths(kx, z_tile_width(mlp.d_latent) if with_wz else dh, dh)
     except ValueError:
         pass      # the tuple alone: the plain version takes any widths, a launch raises
     else:
@@ -340,13 +353,14 @@ def fused_resnetfc_infer(
     dh = weights[0].shape[0]
     d_z = z.shape[1]
     kx = _round_up(x.shape[1], KC)
+    zw = dh if z_is_tz else z_tile_width(d_z)
     n_lin_z = min(combine_layer, n_blocks)
-    check_kernel_shapes(tensors, kx, dh if z_is_tz else d_z, dh)
-    if z.data_ptr() % 16:
-        raise ValueError("z must be 16-byte aligned")
+    check_kernel_shapes(tensors, kx, zw, dh)
+    if z.data_ptr() % 16 or d_z % 8:
+        raise ValueError(f"z must be 16-byte aligned and its rows whole 16-byte units (d_z {d_z})")
     image = weight_image(weights, kx, n_blocks, n_lin_z, with_wz=not z_is_tz)
     lib = _build.load("fused_mlp")
-    check_kernel_fits(lib, kx, dh if z_is_tz else d_z, dh)
+    check_kernel_fits(lib, kx, zw, dh)
     n = z.shape[0]
     out = torch.empty((n, 4), dtype=torch.float32, device=z.device)
     fn = lib.fused_resnetfc_infer

@@ -7,7 +7,9 @@ flat ``(N*H*W, C)`` table, as the JAX package does, so the gather kernel
 (``ops/gather.py``) takes the same inputs.
 
 This is the plain oracle of the gather kernels and the path for the modes
-they do not cover (everything but bilinear/border).
+they do not cover (everything but bilinear/border). The quad-corner gather
+(:func:`build_quad_features`, :func:`grid_sample_quad`) is plain PyTorch
+too, as the JAX package leaves it to XLA.
 """
 from __future__ import annotations
 
@@ -114,6 +116,50 @@ def grid_sample(
     top = v00 * (1.0 - wx) + v01 * wx
     bot = v10 * (1.0 - wx) + v11 * wx
     return (top * (1.0 - wy) + bot * wy).reshape(Ng, P, C)
+
+
+def build_quad_features(features: torch.Tensor) -> torch.Tensor:
+    """The four bilinear corners of every pixel: (N, H, W, C) -> (N, H, W, 4C).
+
+    Row (y, x) holds [f(y,x), f(y,x+1), f(y+1,x), f(y+1,x+1)] with the edges
+    clamped: the four corners that a border-padded bilinear sample in cell
+    (y, x) reads (the model's ``quad_gather``), so the lookup is one row
+    gather per point at four times the map's memory.
+    """
+    right = torch.cat([features[:, :, 1:], features[:, :, -1:]], dim=2)
+    down = torch.cat([features[:, 1:], features[:, -1:]], dim=1)
+    downright = torch.cat([right[:, 1:], right[:, -1:]], dim=1)
+    return torch.cat([features, right, down, downright], dim=-1)
+
+
+def grid_sample_quad(quad: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
+    """Bilinear/border sample against a quad-corner map, one row gather per
+    point (counterpart of ``grid_sample_quad`` in the JAX package, which
+    XLA computes outside any kernel; torch's indexing here, differentiable
+    in the map and, through the weights, in ``grid``).
+
+    :param quad: (N, H, W, 4C) from :func:`build_quad_features`
+    :param grid: (N, P, 2) normalized (x, y) in [-1, 1]
+    :return: (N, P, C), float32 for a bf16 map (the weights are float32);
+        the values of ``grid_sample(features, grid, 'bilinear', 'border')``
+        (align_corners, as the model indexes)
+    """
+    N, H, W, C4 = quad.shape
+    P = grid.shape[1]
+    C = C4 // 4
+    ix = _compute_source_index(grid[..., 0], W, "border", True)
+    iy = _compute_source_index(grid[..., 1], H, "border", True)
+    ix0 = torch.floor(ix)
+    iy0 = torch.floor(iy)
+    wx = (ix - ix0).reshape(N * P, 1)
+    wy = (iy - iy0).reshape(N * P, 1)
+    off = (torch.arange(N, device=grid.device) * (H * W))[:, None]
+    idx = (iy0.to(torch.int64) * W + ix0.to(torch.int64) + off).reshape(-1)
+    rows = quad.reshape(N * H * W, C4)[idx]                     # (N*P, 4C)
+    v00, v01, v10, v11 = rows[:, :C], rows[:, C : 2 * C], rows[:, 2 * C : 3 * C], rows[:, 3 * C :]
+    top = v00 * (1.0 - wx) + v01 * wx
+    bot = v10 * (1.0 - wx) + v11 * wx
+    return (top * (1.0 - wy) + bot * wy).reshape(N, P, C)
 
 
 def bilinear_pair_bases(

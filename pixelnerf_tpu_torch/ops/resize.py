@@ -2,8 +2,10 @@
 
 Counterpart of ``pixelnerf_tpu/ops/resize.py``: ``resize_bilinear`` (the
 encoder upsamples each ResNet stage to the first stage's resolution with
-``align_corners=True`` before the channel concat) and the adaptive-average
-("area") matrix that the datasets' host-side downscale contracts. The same
+``align_corners=True`` before the channel concat, and pre-scales its input
+for ``feature_scale`` above 1) and ``resize_area`` (the adaptive average:
+the encoder's pre-scale below 1; the datasets' host-side downscale
+contracts its matrix). The same
 explicit 1-D matrices as the JAX package, contracted in float32.
 """
 from __future__ import annotations
@@ -43,6 +45,14 @@ def _area_matrix(out_size: int, in_size: int) -> np.ndarray:
     return m
 
 
+def _apply_separable(x: torch.Tensor, mh: np.ndarray, mw: np.ndarray) -> torch.Tensor:
+    """x (N, H, W, C) -> (N, H', W', C) via two contractions, in float32."""
+    mh = torch.as_tensor(mh, device=x.device)
+    mw = torch.as_tensor(mw, device=x.device)
+    x = torch.einsum("oh,nhwc->nowc", mh, x)
+    return torch.einsum("pw,nowc->nopc", mw, x)
+
+
 def resize_bilinear(
     x: torch.Tensor, out_h: int, out_w: int, align_corners: bool = True
 ) -> torch.Tensor:
@@ -50,7 +60,15 @@ def resize_bilinear(
     _, h, w, _ = x.shape
     if (h, w) == (out_h, out_w):
         return x
-    mh = torch.as_tensor(_bilinear_matrix(out_h, h, align_corners), device=x.device)
-    mw = torch.as_tensor(_bilinear_matrix(out_w, w, align_corners), device=x.device)
-    x = torch.einsum("oh,nhwc->nowc", mh, x)
-    return torch.einsum("pw,nowc->nopc", mw, x)
+    return _apply_separable(
+        x, _bilinear_matrix(out_h, h, align_corners), _bilinear_matrix(out_w, w, align_corners)
+    )
+
+
+def resize_area(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+    """Area (adaptive-average) downscale of NHWC float32 images, matching
+    torch's 'area' mode (the encoder's ``feature_scale`` below 1)."""
+    _, h, w, _ = x.shape
+    if (h, w) == (out_h, out_w):
+        return x
+    return _apply_separable(x, _area_matrix(out_h, h), _area_matrix(out_w, w))

@@ -863,3 +863,84 @@ def test_kernel_reports_its_blocks_shared_memory_cuda(cuda_device, source):
     for kx, zw, dh in [(64, 4096, 512), (64, 2048, 512), (64, 48, 64), (64, 512, 96), (48, 64, 64)]:
         with pytest.raises(ValueError, match="do not fit"):
             fm.check_kernel_fits(lib, kx, zw, dh)
+
+
+# --- the model variants' latent widths (a global encoder's vector before the
+# spatial latent, the custom conv encoder's 128 channels) ---
+
+def test_z_tile_rounds_the_latent_to_whole_chunks():
+    """Kernel B's z tile takes d_z rounded up to 64 columns: 144 (a global
+    latent of 16 before 128 spatial channels) and 640 (128 before 512) are
+    widths it is built for, padded to 192 and 640."""
+    assert [fm.z_tile_width(d) for d in (128, 144, 512, 640, 1000)] == [128, 192, 512, 640, 1024]
+    for zw in (fm.z_tile_width(144), fm.z_tile_width(640)):
+        fm.check_kernel_widths(64, zw, 512)
+    weights = _mlp_weights(dh=64, d_in=42, d_z=144, n_blocks=5, combine_layer=3, seed=5)
+    padded = list(weights)
+    padded[2] = torch.cat([weights[2], torch.zeros((3 * 64, 48), dtype=torch.bfloat16)], dim=1)
+    assert torch.equal(fm.tile_weights(weights, 64, 5, 3), fm.tile_weights(tuple(padded), 64, 5, 3))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d_z", [144, 640, 128])
+@pytest.mark.parametrize("n", [700, MANY_TILES])
+def test_fused_mlp_kernel_at_variant_latent_widths_cuda(cuda_device, n, d_z):
+    """Kernel B at d_hidden 512 with the variants' latents: 144 (z tile
+    zero-filled to 192 columns), 640 (the SRN model with a 128-wide global
+    latent: 4 ring stages) and 128 (the custom conv encoder)."""
+    weights = tuple(w.to(cuda_device) for w in _mlp_weights(dh=512, d_in=42, d_z=d_z, n_blocks=5, combine_layer=3,
+                                                            scale=_weight_scale(512)))
+    g = torch.Generator().manual_seed(2)
+    z = torch.randn((n, d_z), generator=g).to(torch.bfloat16).to(cuda_device)
+    x = torch.randn((n, 42), generator=g).to(torch.bfloat16).to(cuda_device)
+    out = fused_resnetfc_infer(z, x, weights, 5, 3)
+    torch.cuda.synchronize()
+    ref, peak = fused_resnetfc_infer_plain(z, x, weights, 5, 3, hidden_max=True)
+    _assert_agrees_with_plain(out, ref, peak)
+
+
+@pytest.mark.cuda
+def test_fused_mlp_ring_stages_at_variant_latent_widths_cuda(cuda_device):
+    """The weight ring's stages the built kernel B holds at d_hidden 512
+    (x 64 wide): 5 at z 512, 4 at 640 (a 128-wide global latent), 8 (the
+    most) at 128, none at 1024."""
+    import ctypes
+
+    from pixelnerf_tpu_torch.ops import _build
+
+    fn = _build.load("fused_mlp").mlp_body_ring_stages
+    fn.argtypes = [ctypes.c_int] * 3
+    fn.restype = ctypes.c_int
+    assert [fn(64, zw, 512) for zw in (512, 640, 128, 1024)] == [5, 4, 8, 0]
+
+
+@pytest.mark.cuda
+def test_fused_mlp_kernel_raises_for_a_latent_that_does_not_fit_cuda(cuda_device):
+    """A global latent of 512 (no fc) before 512 spatial channels: a
+    1024-wide z tile leaves room for one ring stage at d_hidden 512, and the
+    wrapper raises rather than fall back."""
+    weights = tuple(w.to(cuda_device) for w in _mlp_weights(dh=512, d_in=42, d_z=1024, n_blocks=5,
+                                                            combine_layer=3))
+    z = torch.zeros((64, 1024), dtype=torch.bfloat16, device=cuda_device)
+    x = torch.zeros((64, 42), dtype=torch.bfloat16, device=cuda_device)
+    before = fused_resnetfc_infer.launches
+    with pytest.raises(ValueError, match="do not fit"):
+        fused_resnetfc_infer(z, x, weights, 5, 3)
+    assert fused_resnetfc_infer.launches == before
+
+
+@pytest.mark.cuda
+def test_gather_kernel_on_a_128_channel_map_cuda(cuda_device):
+    """Kernel A on the custom conv encoder's 128x128x128 map (bf16, two
+    views), bit-equal to its plain version."""
+    g = torch.Generator().manual_seed(3)
+    hh = ww = 128
+    table = torch.randn((2 * hh * ww, 128), generator=g).to(torch.bfloat16)
+    ix = torch.rand(20000, generator=g) * (ww - 1)
+    iy = torch.rand(20000, generator=g) * (hh - 1)
+    base, w = tgs.bilinear_pair_bases(ix, iy, hh, ww)
+    base[10000:] += hh * ww
+    args = [a.to(cuda_device) for a in (table, base, w)]
+    out = gather_bilerp(*args, ww, torch.bfloat16)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, gather_bilerp_plain(*args, ww, torch.bfloat16), atol=0, rtol=0)
