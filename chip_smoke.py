@@ -67,7 +67,9 @@ Phases, one JSON line each:
 14. kernel_f and 15. kernel_e: the four formulations of the gather study
     through ``scripts/probe_gather_kernels_torch.py`` (small shapes,
     registers and spills) and ``scripts/bench_gather_torch.py`` (full
-    scale, timed), float32 and bf16 tables
+    scale, timed, each formulation's share of its bound and its modelled
+    L2 bytes over ms; block_stage's binning held to its plain mirror),
+    float32 and bf16 tables
 16. fused_path and 17. baked_path, with the launch counts of A, B and D
     read around each
 18. fused_vs_staged_e2e: the 2048-ray crop through the fused, staged,
@@ -536,8 +538,13 @@ def check_gather_study(dev):
     scripts. The probe (small shapes; registers and spills) must pass for
     every formulation; the bench (full scale) must be bit-equal to the
     plain version on the same table, and its launches are the count of the
-    study's path. Returns one kernels-line entry per formulation, timed
-    from the bf16 table, the dtype the port's latents have."""
+    study's path (read before ``block_stage``'s launches are profiled);
+    ``block_stage``'s binning must equal its plain mirror at both dtypes.
+    The phase prints, per formulation and dtype, ms, the share of the bound
+    and the bench's modelled L2 bytes over ms. Returns one kernels-line
+    entry per formulation, timed from the bf16 table, the dtype the port's
+    latents have, with its time and share from the float32 table beside
+    it."""
     sys.path.insert(0, os.path.join(REPO, "scripts"))
     import bench_gather_torch as bench
     import probe_gather_kernels_torch as probe
@@ -554,15 +561,27 @@ def check_gather_study(dev):
         gather_study.launches[name] = 0
     timed = bench.run(dev)
     launches = dict(gather_study.launches)
+    profiled = bench.block_stage_launches(dev)
     n, c = bench.P, bench.C
     by = {(r["name"], r["table"]): r for r in timed}
     bounds = {}
     for dtn, size in (("f32", 4), ("bf16", 2)):
         bounds[dtn] = bound(n * (32 + c * 4) + bench.H * bench.W * c * size, 7 * n * c, PEAK_F32_FLOPS)
+    # per formulation and dtype: ms, the share of the bound, the modelled
+    # L2 bytes (a model, not a counter) over ms
+    summary = {f"{name} {dtn}": {"ms": by[(name, dtn)].get("ms"),
+                                 "bound_share": bounds[dtn][0] / by[(name, dtn)]["ms"]
+                                 if "ms" in by[(name, dtn)] else None,
+                                 "modelled_l2_tb_s": by[(name, dtn)].get("modelled_l2_tb_s")}
+               for name in FORMULATIONS for dtn in ("f32", "bf16")}
     emit({"phase": "kernel_e", "shape": {"table": [bench.H * bench.W, c], "points": n, "tile": bench.TILE,
                                          "out_dtype": "float32"},
           "bound_ms": {k: v[0] for k, v in bounds.items()}, "bound_by": bounds["bf16"][1],
-          "launches": launches, "timings": timed})
+          "launches": launches, "formulations": summary, "timings": timed,
+          "block_stage_kernels_us": {r["table"]: r["us"] for r in profiled}})
+    binning = [r for r in timed if r["name"] == "block_stage's binning"]
+    if len(binning) != 2 or not all(r["matches_mirror"] for r in binning):
+        raise AssertionError(f"block_stage's binning differs from its plain mirror: {binning}")
     # the kernels are bit-equal to the plain version (no contracted
     # multiply-adds); a library call sums in its own order, within float32
     # rounding of a 4-term sum
@@ -580,7 +599,9 @@ def check_gather_study(dev):
             "name": f"gather_study[{name}]", "route": "cuda",
             "source": "pixelnerf_tpu_torch/csrc/gather_study.cu",
             "replaces": "scripts/bench_gather_pallas.py:48" if e_kernel else "scripts/probe_gather_kernels.py:25",
-            "max_abs_err": r["max_abs_err"], "ms": r["ms"], "ms_f32_table": by[(name, "f32")]["ms"],
+            "max_abs_err": max(r["max_abs_err"], by[(name, "f32")]["max_abs_err"]), "ms": r["ms"],
+            "bound_share": summary[f"{name} bf16"]["bound_share"], "ms_f32_table": by[(name, "f32")]["ms"],
+            "bound_share_f32": summary[f"{name} f32"]["bound_share"],
             "plain_ms": by[("plain version", "bf16")]["ms"],
             "bound_ms": bounds["bf16"][0], "bound_by": bounds["bf16"][1],
             "library_ms": by[("F.grid_sample (NCHW)", "bf16")]["ms"],
@@ -2332,7 +2353,7 @@ def main():
     launches["fused_gather_resnetfc_infer"] = fused_res["launches"]["fused_gather_resnetfc_infer"]
     ported = [{**{k: r[k] for k in keys}, "launches": launches[r["name"]]}
               for r in (res_a, res_b, res_b_tz, res_c, res_c_bwd, res_d)]
-    ported += [{**{k: r[k] for k in keys}, "launches": r["launches"]} for r in study]
+    ported += [dict(r) for r in study]   # with their float32 table's time and shares
     # the same kernels at the variants' widths, launched by their paths
     vp = variants["paths"]
     ported += [

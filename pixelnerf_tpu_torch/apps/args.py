@@ -29,6 +29,9 @@ def parse_args(
     parser = argparse.ArgumentParser()
     parser.add_argument("--conf", "-c", type=str, default=None)
     parser.add_argument("--resume", "-r", action="store_true")
+    parser.add_argument("--gpu_id", type=str, default="0",
+                        help="accepted for reference-CLI compatibility and ignored; the device comes "
+                        "from --device")
     parser.add_argument("--name", "-n", type=str, default=default_expname)
     parser.add_argument("--dataset_format", "-F", type=str, default=None)
     parser.add_argument("--exp_group_name", "-G", type=str, default=None)
@@ -38,8 +41,12 @@ def parse_args(
     parser.add_argument("--epochs", type=int, default=10000000)
     parser.add_argument("--datadir", "-D", type=str, default=None)
     parser.add_argument("--ray_batch_size", "-R", type=int, default=default_ray_batch_size)
-    parser.add_argument("--device", type=str, default="cuda",
-                        help="torch device to run on; the CPU only when asked for")
+    parser.add_argument("--device", type=str, default=None,
+                        help="torch device to run on (default cuda); the CPU only when asked for")
+    parser.add_argument("--cpu", action="store_true", help="run on the host CPU: the same as --device cpu")
+    parser.add_argument("--debug_nans", action="store_true",
+                        help="raise at the first non-finite train loss or render output, with "
+                        "autograd's anomaly detection on for the backward (jax_debug_nans)")
     parser.add_argument("--profile_dir", type=str, default=None,
                         help="write a TensorBoard-viewable torch.profiler trace here (the train app)")
     parser.add_argument(
@@ -49,6 +56,12 @@ def parse_args(
     if callback is not None:
         callback(parser)
     args = parser.parse_args(argv)
+    if args.cpu:
+        if args.device is not None and args.device.split(":")[0] != "cpu":
+            parser.error(f"--cpu and --device {args.device} disagree")
+        args.device = "cpu"
+    elif args.device is None:
+        args.device = "cuda"
 
     if args.exp_group_name is not None:
         args.logs_path = os.path.join(args.logs_path, args.exp_group_name)

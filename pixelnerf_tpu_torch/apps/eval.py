@@ -144,7 +144,7 @@ def main(argv=None):
     net = load_net_and_state(args, conf, device)
     if args.coarse:
         net = coarse_only(net)  # the fine pass reuses the coarse MLP
-    renderer = FullRenderer(net, cfg, ray_chunk=args.ray_batch_size)
+    renderer = FullRenderer(net, cfg, ray_chunk=args.ray_batch_size, debug_nans=args.debug_nans)
 
     os.makedirs(args.output, exist_ok=True)
     finish_path = os.path.join(args.output, "finish.txt")

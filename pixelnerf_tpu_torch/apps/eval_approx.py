@@ -93,7 +93,7 @@ def main(argv=None):
     net = load_net_and_state(args, conf, device)
     if args.coarse:
         net = coarse_only(net)  # the fine pass reuses the coarse MLP
-    renderer = FullRenderer(net, cfg, ray_chunk=args.ray_batch_size)
+    renderer = FullRenderer(net, cfg, ray_chunk=args.ray_batch_size, debug_nans=args.debug_nans)
 
     generator = torch.Generator(device=device).manual_seed(args.seed)
     total_psnr = total_ssim = 0.0

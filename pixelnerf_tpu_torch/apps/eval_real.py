@@ -108,7 +108,7 @@ def main(argv=None):
     cam_pose[2, 3] = args.radius
 
     net = load_net_and_state(args, conf, device)
-    renderer = FullRenderer(net, cfg, ray_chunk=args.ray_batch_size)
+    renderer = FullRenderer(net, cfg, ray_chunk=args.ray_batch_size, debug_nans=args.debug_nans)
 
     os.makedirs(args.output, exist_ok=True)
     # a spherical orbit, its poses taken from Blender's axes

@@ -147,7 +147,7 @@ def main(argv=None):
         raise ValueError("no valid source views")
 
     net = load_net_and_state(args, conf, device)
-    renderer = FullRenderer(net, cfg, ray_chunk=args.ray_batch_size)
+    renderer = FullRenderer(net, cfg, ray_chunk=args.ray_batch_size, debug_nans=args.debug_nans)
 
     traj = args.traj
     if traj == "auto":

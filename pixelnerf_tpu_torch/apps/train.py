@@ -183,6 +183,7 @@ def main(argv=None):
         train_ray_chunk=args.train_ray_chunk,
         train_remat={"true": True, "false": False}.get(args.train_remat, args.train_remat),
         seed=args.seed,
+        debug_nans=args.debug_nans,
     )
     with trace(args.profile_dir):
         trainer.start()

@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from ..render.renderer import RenderConfig, render_rays_chunked
+from ..utils.nans import raise_if_not_finite
 
 
 class FullRenderer:
@@ -29,6 +30,8 @@ class FullRenderer:
     :param use_kernels: route the gather and the fused MLP through their
         CUDA kernels (True) or their plain PyTorch versions (False), for
         comparing the two on the card
+    :param debug_nans: raise ``FloatingPointError`` at a render output that
+        holds a NaN or an infinity (the apps' ``--debug_nans``)
     """
 
     def __init__(
@@ -40,6 +43,7 @@ class FullRenderer:
         fast: bool = False,
         use_kernels: bool = True,
         staged: bool = True,
+        debug_nans: bool = False,
     ):
         self.net = net
         self.cfg = cfg
@@ -48,6 +52,7 @@ class FullRenderer:
         self.fast = fast
         self.use_kernels = use_kernels
         self.staged = staged
+        self.debug_nans = debug_nans
 
     @torch.inference_mode()
     def render_batch(
@@ -80,9 +85,12 @@ class FullRenderer:
 
         baked_per_mlp = enc.tz_coarse is not None and net.mlp_fine is not None
         q = (features_fn, mlp_fn) if (self.staged and not baked_per_mlp) else query_fn
-        return render_rays_chunked(
+        out = render_rays_chunked(
             q, rays, self.cfg, self.ray_chunk, generator, noise, self.want_weights, net.use_viewdirs,
         )
+        if self.debug_nans:
+            raise_if_not_finite("the render output", out)
+        return out
 
     def __call__(self, enc, rays: torch.Tensor, generator=None, noise=None) -> dict:
         """:param rays: (NR, 8) -> {'coarse': {'rgb': (NR, 3), ...}, ...}"""

@@ -9,11 +9,13 @@ their dense chain (the JAX package leaves training's GEMMs to XLA).
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, List, Optional, Union
 
 import torch
 
 from ..render.renderer import RenderConfig, render_rays, render_rays_chunked
+from ..utils.nans import raise_if_not_finite
 
 
 def _stages(net, enc, use_kernels: bool, differentiable: bool):
@@ -53,6 +55,7 @@ def make_train_step(
     remat: Union[bool, str] = True,
     accu_grad: int = 1,
     use_kernels: bool = True,
+    debug_nans: bool = False,
 ):
     """Build ``step(batch, generator=None, noise=None) -> metrics``.
 
@@ -71,6 +74,10 @@ def make_train_step(
         a checkpoint in the middle of an accumulation resumes it
     :param use_kernels: the gather through kernel C and its backward (for
         CUDA tensors) if True, else through their plain versions
+    :param debug_nans: raise ``FloatingPointError`` at a non-finite loss,
+        before its backward, and run the step under autograd's anomaly
+        detection, which raises at a backward function's NaN output (the
+        counterpart of ``jax_debug_nans``; off, it costs nothing)
     :return: the step; ``noise`` is one pre-drawn noise dict per ray chunk
         (one entry when the step does not chunk), else the draws come from
         ``generator``. Metrics: ``rc``, ``rf``, ``t`` (the losses) and
@@ -80,6 +87,7 @@ def make_train_step(
     if accu_grad < 1:
         raise ValueError(f"accu_grad must be >= 1, got {accu_grad}")
     params = [p for g in optimizer.param_groups for p in g["params"]]
+    anomaly = (lambda: torch.autograd.set_detect_anomaly(True)) if debug_nans else contextlib.nullcontext
 
     def step(
         batch: Dict[str, torch.Tensor],
@@ -88,23 +96,26 @@ def make_train_step(
     ) -> Dict[str, torch.Tensor]:
         for p in params:
             p.grad = None
-        enc = net.encode(
-            batch["images"], batch["poses"], batch["focal"], batch.get("c"), train=train_encoder
-        )
-        stages = _stages(net, enc, use_kernels, differentiable=True)
-        rays = batch["rays"]
-        if ray_chunk is not None and rays.shape[1] > ray_chunk:
-            outputs = render_rays_chunked(
-                stages, rays, cfg, ray_chunk, generator, noise,
-                use_viewdirs=net.use_viewdirs, train=True, remat=remat,
+        with anomaly():
+            enc = net.encode(
+                batch["images"], batch["poses"], batch["focal"], batch.get("c"), train=train_encoder
             )
-        else:
-            outputs = render_rays(
-                stages, rays, cfg, generator, None if noise is None else noise[0],
-                use_viewdirs=net.use_viewdirs, train=True,
-            )
-        loss, metrics = loss_fn(outputs, batch["rgb_gt"])
-        loss.backward()
+            stages = _stages(net, enc, use_kernels, differentiable=True)
+            rays = batch["rays"]
+            if ray_chunk is not None and rays.shape[1] > ray_chunk:
+                outputs = render_rays_chunked(
+                    stages, rays, cfg, ray_chunk, generator, noise,
+                    use_viewdirs=net.use_viewdirs, train=True, remat=remat,
+                )
+            else:
+                outputs = render_rays(
+                    stages, rays, cfg, generator, None if noise is None else noise[0],
+                    use_viewdirs=net.use_viewdirs, train=True,
+                )
+            loss, metrics = loss_fn(outputs, batch["rgb_gt"])
+            if debug_nans:
+                raise_if_not_finite("the train loss", loss)
+            loss.backward()
         grads = [p.grad for p in params]
         sq = [g.float().square().sum() for g in grads if g is not None]
         gnorm = torch.sqrt(torch.stack(sq).sum()) if sq else torch.zeros(())

@@ -49,6 +49,7 @@ class Trainer:
         ckpt_dir: Optional[str] = None,
         visual_dir: Optional[str] = None,
         log_dir: Optional[str] = None,
+        debug_nans: bool = False,
     ):
         self.net = net
         self.device = next(net.parameters()).device
@@ -96,6 +97,7 @@ class Trainer:
         self.train_encoder = train_encoder
         self.train_ray_chunk = train_ray_chunk
         self.train_remat = train_remat
+        self.debug_nans = debug_nans
         self._step_cache = {}
         self.train_step, self.eval_step = self._steps_for(render_cfg)
 
@@ -126,7 +128,7 @@ class Trainer:
                 make_train_step(
                     self.net, cfg, self.optimizer, self.loss_fn,
                     train_encoder=self.train_encoder, ray_chunk=self.train_ray_chunk,
-                    remat=self.train_remat, accu_grad=self.accu_grad,
+                    remat=self.train_remat, accu_grad=self.accu_grad, debug_nans=self.debug_nans,
                 ),
                 make_eval_step(self.net, cfg, self.loss_fn),
             )

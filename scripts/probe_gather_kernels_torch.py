@@ -36,11 +36,13 @@ PROBES = [
     ("block_mask", "block_stage", "smem"),
 ]
 # a piece of each formulation's kernel name in the compiler's log
+# (block_stage: its serving kernel, after the binning passes; thread_*: the
+# kernel for C <= 1024, the probe's width)
 KERNEL_OF = {
-    "warp_direct": "warp_direct_kernel",
-    "thread_global_idx": "thread_per_group_kernelI{t}Lb0E",
-    "thread_smem_idx": "thread_per_group_kernelI{t}Lb1E",
-    "block_stage": "block_stage_kernel",
+    "warp_direct": "warp_direct_kernelI{t}E",
+    "thread_global_idx": "thread_per_group_kernelI{t}Lb0ELb0EE",
+    "thread_smem_idx": "thread_per_group_kernelI{t}Lb1ELb0EE",
+    "block_stage": "block_stage_serve_kernelI{t}E",
 }
 MANGLED_TYPE = {torch.float32: "f", torch.bfloat16: "13__nv_bfloat16"}
 
@@ -49,7 +51,7 @@ def resources(entries, formulation, dtype):
     """ptxas' registers and spill bytes of one formulation's kernel."""
     piece = KERNEL_OF[formulation].format(t=MANGLED_TYPE[dtype])
     for name, res in entries.items():
-        if piece in name and f"I{MANGLED_TYPE[dtype]}" in name:
+        if piece in name:
             return res
     return {}
 

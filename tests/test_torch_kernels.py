@@ -29,7 +29,13 @@ from pixelnerf_tpu_torch.ops.gather_rows import (
     row_owner_plan,
     row_owner_plan_plain,
 )
-from pixelnerf_tpu_torch.ops.gather_study import FORMULATIONS, gather_study, gather_study_plain
+from pixelnerf_tpu_torch.ops.gather_study import (
+    FORMULATIONS,
+    block_stage_plan,
+    block_stage_plan_plain,
+    gather_study,
+    gather_study_plain,
+)
 
 
 def _pair_inputs(hh=16, ww=16, c=128, p=300, seed=0):
@@ -807,6 +813,65 @@ def test_gather_study_kernels_match_plain_cuda(cuda_device, formulation, table_d
     assert gather_study.launches[formulation] == before + 1
     # no contracted multiply-adds in the kernels: bit-equal
     torch.testing.assert_close(out, gather_study_plain(*args), atol=0, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [1032, 2056, 8192])
+@pytest.mark.parametrize("formulation", ["thread_global_idx", "thread_smem_idx"])
+def test_gather_study_thread_kernels_over_one_block_of_groups_cuda(cuda_device, formulation, c):
+    # more 8-channel groups than a block's 128 threads: a thread takes
+    # groups x, x + 128, ... (2056: 257 groups, a third pass for one thread)
+    for table_dtype in (torch.float32, torch.bfloat16):
+        table, idx, w = _rows_inputs(rows=64, c=c, n=300, table_dtype=table_dtype)
+        args = [a.to(cuda_device) for a in (table, idx, w)]
+        out = gather_study(*args, formulation, tile=128)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out, gather_study_plain(*args), atol=0, rtol=0)
+
+
+def _bilinear_rows(hh, ww, c, n, table_dtype, seed=0):
+    """A (hh*ww, c) table and the bilinear taps of n points drawn over
+    [-1.1, 1.1]^2 of it, as the study's bench makes them."""
+    rng = np.random.default_rng(seed)
+    grid = torch.from_numpy(rng.uniform(-1.1, 1.1, (n, 2)).astype(np.float32))
+    table = torch.from_numpy(rng.normal(size=(hh * ww, c)).astype(np.float32)).to(table_dtype)
+    ix = tgs._compute_source_index(grid[:, 0], ww, "border", True)
+    iy = tgs._compute_source_index(grid[:, 1], hh, "border", True)
+    idx, w = tgs.bilinear_corners(ix, iy, hh, ww)
+    return table, idx.contiguous(), w.contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("table_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("formulation", sorted(FORMULATIONS))
+def test_gather_study_kernels_match_plain_on_bilinear_rows_cuda(cuda_device, formulation, table_dtype):
+    # a 64x64x512 map (block_stage serves every point from its slab);
+    # 100,003 points, off every tile, segment and block share
+    args = [a.to(cuda_device) for a in _bilinear_rows(64, 64, 512, 100_003, table_dtype)]
+    for tile in (128, 512):
+        out = gather_study(*args, formulation, tile=tile)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out, gather_study_plain(*args), atol=0, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("table_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("rows", ["bilinear", "random"])
+def test_block_stage_plan_matches_its_mirror_cuda(cuda_device, rows, table_dtype):
+    """The four binning passes give the plain mirror's step, offsets and
+    permutation (stable within a bin), at 393,216 bilinear points of a
+    64x64 map and at 100,003 random rows of a 4096-row table."""
+    if rows == "bilinear":
+        table, idx, _ = _bilinear_rows(64, 64, 512, 393_216, table_dtype)
+    else:
+        table, idx, _ = _rows_inputs(rows=4096, c=512, n=100_003, table_dtype=table_dtype)
+    ref = block_stage_plan_plain(idx, table.shape[0], 512, table.element_size())
+    before = block_stage_plan.launches
+    plan = block_stage_plan(table.to(cuda_device), idx.to(cuda_device))
+    assert block_stage_plan.launches == before + 1
+    assert plan.step == ref.step
+    assert torch.equal(plan.offsets.cpu(), ref.offsets)
+    assert torch.equal(plan.perm.cpu(), ref.perm)
 
 
 @pytest.mark.cuda
