@@ -41,7 +41,8 @@ Phases, one JSON line each:
    sm_90a, one nvcc each, in parallel
 3. kernel A (gather) and 4. kernel B (fused MLP) against their plain
    PyTorch versions at the inference path's shapes, with times, the bound
-   and a library call's time; A also on the baked path's 1536-wide rows
+   and a library call's time; A also on the baked path's 1536-wide rows,
+   at 64 and 256 channels and on one request's ray-major coarse points
 5. main_path: the inference path, with A's and B's launch counts read
    around it
 6. kernel_vs_plain_e2e: a 2048-ray crop rendered through the kernels and
@@ -186,6 +187,24 @@ def time_ms(fn, reps, warmup=2):
     return start.elapsed_time(end) / reps
 
 
+def queued_ms(fn, reps=50):
+    """Mean device time of ``fn`` over ``reps`` calls queued behind a
+    device-side wait (~25 ms, longer than the host takes to enqueue them),
+    so that a launch shorter than its host cost is timed on the device
+    alone."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def nvidia_smi_line():
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -200,12 +219,21 @@ def bound(bytes_moved, flops, peak_flops):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def rows_read(idx):
+    """The table rows that (N, 4) corner indices touch, each counted once:
+    what a gather's bound reads of its table."""
+    return torch.unique(idx).numel()
+
+
 def kernel_a_record(dev, g, hl, wl, c):
     """Kernel A at one image's coarse gather from an hl x wl x c bf16
     latent table, 16384 rays x 64 samples, bf16 output (the MLP's input
     dtype): held to its plain version bit for bit and timed. Returns the
     record and (table, base, w, n)."""
     import torch.nn.functional as F
+
+    sys.path.insert(0, os.path.join(REPO, "scripts"))
+    import bench_gather_a_torch as bench_a
 
     from pixelnerf_tpu_torch.ops.gather import gather_bilerp, gather_bilerp_plain
     from pixelnerf_tpu_torch.ops.grid_sample import bilinear_pair_bases
@@ -233,7 +261,7 @@ def kernel_a_record(dev, g, hl, wl, c):
         lambda: F.grid_sample(fmap, grid, mode="bilinear", padding_mode="border", align_corners=True),
         reps=10,
     )
-    bytes_moved = n * c * 2 + n * (8 + 8) + table.numel() * 2
+    bytes_moved = n * c * 2 + n * (8 + 8) + bench_a.rows_read(base, wl) * c * 2
     bound_ms, bound_by = bound(bytes_moved, 6 * n * c, PEAK_F32_FLOPS)
     res = {
         "name": "gather_bilerp", "route": "cuda",
@@ -241,7 +269,7 @@ def kernel_a_record(dev, g, hl, wl, c):
         "replaces": "pixelnerf_tpu/ops/gather_pallas.py:110",
         "shape": {"table": [hl * wl, c], "points": n, "out_dtype": "bfloat16"},
         "max_abs_err": err, "tolerance": tol,
-        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "bound_share": bound_ms / ms,
         "library_ms": library_ms, "library_call": "F.grid_sample(NCHW bf16, bilinear, border)",
     }
     return res, (table, base, w, n)
@@ -250,7 +278,13 @@ def kernel_a_record(dev, g, hl, wl, c):
 def check_kernel_a(dev, g):
     """Kernel A at one image's coarse gather: a 64x64x512 bf16 latent table,
     16384 rays x 64 samples, bf16 output (the MLP's input dtype); also on
-    the baked path's 1536-wide rows."""
+    the baked path's 1536-wide rows, at 64 and 256 channels (the ResNet
+    encoder's latent at num_layers 1 and 3) and on one request's ray-major
+    coarse points (``scripts/bench_gather_a_torch.py``), each bit-equal to
+    its plain version, timed, with its bound's share of the time."""
+    sys.path.insert(0, os.path.join(REPO, "scripts"))
+    import bench_gather_a_torch as bench_a
+
     from pixelnerf_tpu_torch.ops.gather import gather_bilerp, gather_bilerp_plain
 
     hl = wl = 64
@@ -267,11 +301,28 @@ def check_kernel_a(dev, g):
     del out_w
     if not err_w <= tol:
         raise AssertionError(f"kernel A disagrees with its plain version on 1536-wide rows: {err_w} > {tol}")
-    bound_w, _ = bound(n * 1536 * 2 + n * (8 + 8) + wide.numel() * 2, 6 * n * 1536, PEAK_F32_FLOPS)
+    bound_w, _ = bound(n * 1536 * 2 + n * (8 + 8) + bench_a.rows_read(base, wl) * 1536 * 2, 6 * n * 1536,
+                       PEAK_F32_FLOPS)
+    ms_w = time_ms(lambda: gather_bilerp(wide, base, w, wl, torch.bfloat16), reps=10)
     res["wide_rows"] = {
         "table": [hl * wl, 1536], "points": n, "max_abs_err": err_w, "points_compared": m,
-        "ms": time_ms(lambda: gather_bilerp(wide, base, w, wl, torch.bfloat16), reps=10), "bound_ms": bound_w,
+        "ms": ms_w, "bound_ms": bound_w, "bound_share": bound_w / ms_w,
     }
+    del wide
+    # one lane a 16-byte piece: 8 lanes a point (4 points a warp) at 64
+    # channels, 32 at 256; then the main path's own distribution of points
+    keep = ("points", "table", "max_abs_err", "ms", "bound_ms", "bound_share")
+    for c in (64, 256):
+        t = torch.randn((hl * wl, c), generator=g).to(torch.bfloat16).to(dev)
+        r = bench_a.reading(t, base, w, None, hl, wl, torch.bfloat16, library=False)
+        res[f"channels_{c}"] = {k: r[k] for k in keep}
+    base_r, w_r, _ = bench_a.request_points(hl, wl, dev)
+    r = bench_a.reading(table, base_r, w_r, None, hl, wl, torch.bfloat16, library=False)
+    res["request_points"] = {k: r[k] for k in keep}
+    bad = {k: res[k]["max_abs_err"] for k in ("channels_64", "channels_256", "request_points")
+           if res[k]["max_abs_err"] > tol}
+    if bad:
+        raise AssertionError(f"kernel A disagrees with its plain version: {bad} > {tol}")
     emit({"phase": "kernel_a", **res})
     return res
 
@@ -703,7 +754,7 @@ def check_kernel_c(dev, inputs):
         lambda: F.grid_sample(fmap, grid, mode="bilinear", padding_mode="border", align_corners=True),
         reps=20,
     )
-    bytes_moved = n * c * 2 + n * (16 + 16) + table.numel() * 2
+    bytes_moved = n * c * 2 + n * (16 + 16) + rows_read(idx) * c * 2
     bound_ms, bound_by = bound(bytes_moved, 7 * n * c, PEAK_F32_FLOPS)
     res = {
         "name": "gather_rows_lerp", "route": "cuda",
@@ -2128,7 +2179,17 @@ def check_c_at_custom_table(dev, g):
     (4 objects x 128x128 x 128 channels) and the reference train config's
     coarse gather (4 x 128 rays x 64 samples): C bit-equal to its plain
     version, C-bwd's grad_table bit-equal to its mirror and two of its
-    launches bit-equal."""
+    launches bit-equal; C timed against its bound (the output, the records
+    and the table rows the points touch), its plain version and
+    ``F.grid_sample`` on the NCHW map. At ~25 us a launch, back-to-back
+    calls are paced by the host, so C and ``F.grid_sample`` are timed
+    queued on the device (``queued_ms``); the back-to-back time and the
+    host's time to enqueue one call are kept beside them."""
+    import torch.nn.functional as F
+
+    sys.path.insert(0, os.path.join(REPO, "scripts"))
+    from bench_gather_rows_bwd_torch import host_us
+
     from pixelnerf_tpu_torch.ops.gather_rows import gather_rows_lerp, gather_rows_lerp_plain
     from pixelnerf_tpu_torch.ops.grid_sample import bilinear_corners
 
@@ -2147,7 +2208,28 @@ def check_c_at_custom_table(dev, g):
     det = c_bwd_deterministic(table, idx, w, grad_out)
     if err != 0.0 or not all(det.values()):
         raise AssertionError(f"kernel C or C-bwd at the custom table: C err {err}, C-bwd {det}")
-    return {"table": list(table.shape), "points": idx.shape[0], "c_max_abs_err": err, **det}
+    n = idx.shape[0]
+
+    def call():
+        return gather_rows_lerp(table, idx, w, torch.float32)
+
+    # the record's ms and library_ms are device times (queued); the
+    # back-to-back time is the host's pace at this size
+    ms = queued_ms(call)
+    back_to_back_ms = time_ms(call, reps=50)
+    fmap = table.reshape(views, hl, wl, c).permute(0, 3, 1, 2).contiguous()
+    grid = torch.stack([ix / (wl - 1) * 2 - 1, iy / (hl - 1) * 2 - 1], dim=-1)[:, None]
+    library_ms = queued_ms(
+        lambda: F.grid_sample(fmap, grid, mode="bilinear", padding_mode="border", align_corners=True))
+    bound_ms, bound_by = bound(n * c * 4 + n * (16 + 16) + rows_read(idx) * c * 4, 7 * n * c, PEAK_F32_FLOPS)
+    return {"name": "gather_rows_lerp[custom table]", "route": "cuda",
+            "source": "pixelnerf_tpu_torch/csrc/gather_rows.cu", "replaces": "pixelnerf_tpu/ops/gather_pallas.py:172",
+            "table": list(table.shape), "points": n, "rows_read": rows_read(idx), "max_abs_err": err, **det,
+            "ms": ms, "back_to_back_ms": back_to_back_ms,
+            "plain_ms": time_ms(lambda: gather_rows_lerp_plain(table, idx, w, torch.float32), reps=10),
+            "bound_ms": bound_ms, "bound_by": bound_by, "bound_share": bound_ms / ms, "host_us": host_us(call),
+            "library_ms": library_ms, "library_call": "F.grid_sample(NCHW f32, bilinear, border)",
+            "launches_per_step": train_launches_per_step()["a"]}
 
 
 def run_variants(dev, g, targets, rgen, smi, main_request_ms, crop, noise):
@@ -2206,7 +2288,7 @@ def run_variants(dev, g, targets, rgen, smi, main_request_ms, crop, noise):
         "c_at_custom_table": c_custom, "seconds": time.time() - t_phase,
     }
     emit(summary)
-    return {"paths": paths, "kernels": kernels, "train": train}
+    return {"paths": paths, "kernels": {**kernels, "c_custom": c_custom}, "train": train}
 
 
 def main():
@@ -2363,6 +2445,8 @@ def main():
          "launches": vp["custom"]["launches"]["fused_resnetfc_infer"]},
         {**{k: variants["kernels"]["a_custom"][k] for k in keys}, "name": "gather_bilerp[128 channels]",
          "launches": vp["custom"]["launches"]["gather_bilerp"]},
+        {**{k: variants["kernels"]["c_custom"][k] for k in keys},
+         "launches": variants["train"]["custom"]["launches"]["gather_rows_lerp"]},
     ]
     if any(k["launches"] < 1 for k in ported):
         raise AssertionError(f"a kernel was not launched on its path: {ported}")

@@ -11,54 +11,307 @@
 // views as one flat (views*H*W, C) table: the view offset is folded into the
 // bases, and since H*W is a multiple of W, base % W is still x0.
 //
-// Bound on this card: bytes. Per point it reads 4 rows of C values and
-// writes one row; the arithmetic is 6 flops per channel. The table of one
-// view (64x64x512 bf16 = 4 MB) stays resident in the 50 MB L2, so device
-// memory sees mostly the output and the indices. Design: one warp per
-// point; each lane moves 16-byte vectors, and neighbouring lanes touch
-// neighbouring 16-byte chunks of a row, so every row load and output store
-// is one coalesced 512-byte (bf16) transaction per warp instruction. The
-// lerp (gather_common.cuh, shared with the fused gather+MLP kernel) uses
-// __fadd_rn/__fmul_rn so that no multiply-add is contracted: the result is
-// bit-equal to the plain PyTorch version.
+// Bound on this card: bytes. Per point it writes one row and reads its two
+// bases and two weights (16 bytes); the table is read once. The arithmetic
+// is 6 flops per channel. The table of one view (64x64x512 or 128x128x128
+// bf16 = 4 MB) stays resident in the 50 MB L2, so device memory sees mostly
+// the output and the records; L2 and L1 serve the four corner rows of every
+// point, 4x the output's bytes (1.07 GB a launch of 1,048,576 points at 128
+// bf16 channels), and the SM's issue slots take the unpack and lerp of
+// every channel.
+//
+// Design. A row is cut into 16-byte pieces (8 bf16 channels or 4 float32);
+// neighbouring lanes take neighbouring pieces of one row, so every warp
+// access is whole 32-byte sectors.
+// - Rows of at most 32 pieces (up to 256 bf16 or 128 float32 channels): a
+//   point is served by L lanes, its pieces rounded up to a power of two
+//   (launch_lanes), one piece a lane, and a warp serves G = 32/L points
+//   side by side (2 at 128 bf16 channels, 4 at 64), so no lane idles.
+//   A persistent grid (the blocks that fit on the card at once)
+//   walks chunks of 256 neighbouring points, one a block at a time: each
+//   thread loads one record (two coalesced 8-byte loads) and works out its
+//   right step (one modulo a point), the next chunk's records are loaded
+//   under this chunk's work, and __shfl_sync hands them out. The 8 warps of
+//   a block take the chunk's groups of G points in turns (warp w groups w,
+//   w + 8, ...), so that at any moment a block works on neighbouring points,
+//   which on a request's ray-major points share corner rows in L1. A lane
+//   requests the rows of UNROLL groups before the first lerp. Outputs are
+//   written with evict-first stores (st.global.cs): each line is written
+//   once, and the table's lines keep their place in L2.
+// - Wider rows (the SRN latent's 512 channels, a baked map's 1536): a warp a
+//   point, lane l taking pieces l, l + 32, ..., and a block of 8 warps 8
+//   neighbouring points, as before this design. Here the four corner rows'
+//   reads through L2 hold the kernel, not the lanes or the chain of a point.
+// The lerp is gather_common.cuh's lerp_rn (__fadd_rn/__fmul_rn, no
+// contracted multiply-add), as in the fused gather+MLP kernel
+// (fused_field.cu): the result is bit-equal to the plain PyTorch version and
+// to kernel D's gathered latents.
 #include "gather_common.cuh"
 
 namespace {
 
 constexpr int WARPS_PER_BLOCK = 8;
+constexpr int THREADS = WARPS_PER_BLOCK * 32;
+constexpr int CHUNK = THREADS;   // points a block takes at a time, one record a thread
+constexpr int UNROLL = 2;       // groups of points whose rows a lane requests before any lerp
+constexpr unsigned FULL = 0xffffffffu;
 
-// One warp per point; each lane handles chunks of 8 channels, strided by
-// 32 chunks, so C must be a multiple of 8.
-template <typename TIn, typename TOut>
-__global__ void __launch_bounds__(WARPS_PER_BLOCK * 32)
-gather_bilerp_kernel(const TIn* __restrict__ table, const int32_t* __restrict__ base,
-                     const float* __restrict__ w, TOut* __restrict__ out,
-                     int64_t n, int c, int width) {
-  const int lane = threadIdx.x & 31;
-  const int64_t p = (int64_t)blockIdx.x * WARPS_PER_BLOCK + (threadIdx.x >> 5);
-  if (p >= n) return;
-  const int32_t b0 = __ldg(base + 2 * p);
-  const int32_t b1 = __ldg(base + 2 * p + 1);
-  const float wx = __ldg(w + 2 * p);
-  const float wy = __ldg(w + 2 * p + 1);
-  const Corners<TIn> k = corners_of(table, b0, b1, c, width);
-  TOut* op = out + p * c;
-  for (int ch = lane * 8; ch < c; ch += 32 * 8) {
-    float o[8];
-    bilerp8(k, ch, wx, wy, o);
-    store8(op + ch, o);
+// 16 bytes of a table row: 8 bf16 channels or 4 float32
+template <typename TIn>
+struct Piece;
+
+template <>
+struct Piece<__nv_bfloat16> {
+  typedef uint4 raw;
+  static constexpr int channels = 8;
+};
+
+template <>
+struct Piece<float> {
+  typedef float4 raw;
+  static constexpr int channels = 4;
+};
+
+__device__ __forceinline__ void unpack(const uint4 r, float v[8]) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&r);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    v[2 * i] = f.x;
+    v[2 * i + 1] = f.y;
   }
 }
 
+__device__ __forceinline__ void unpack(const float4 r, float v[4]) {
+  v[0] = r.x; v[1] = r.y; v[2] = r.z; v[3] = r.w;
+}
+
+// Evict-first stores (st.global.cs) of one piece's channels.
+template <int K>
+__device__ __forceinline__ void store_piece(__nv_bfloat16* p, const float (&v)[K]) {
+  if constexpr (K == 8) {
+    uint4 raw;
+    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&raw);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+    __stcs(reinterpret_cast<uint4*>(p), raw);
+  } else {
+    uint2 raw;
+    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&raw);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+    __stcs(reinterpret_cast<uint2*>(p), raw);
+  }
+}
+
+template <int K>
+__device__ __forceinline__ void store_piece(float* p, const float (&v)[K]) {
+#pragma unroll
+  for (int i = 0; i < K / 4; ++i)
+    __stcs(reinterpret_cast<float4*>(p) + i, make_float4(v[4 * i], v[4 * i + 1], v[4 * i + 2], v[4 * i + 3]));
+}
+
+// The record of point p, or a zero record past the end (row 0 exists: its
+// loads are harmless and its lerp is never stored).
+__device__ __forceinline__ void load_record(const int2* __restrict__ base, const float2* __restrict__ w,
+                                            int64_t n, int64_t p, int2& b, float2& wt) {
+  if (p < n) {
+    b = __ldg(base + p);
+    wt = __ldg(w + p);
+  } else {
+    b = make_int2(0, 0);
+    wt = make_float2(0.f, 0.f);
+  }
+}
+
+// The point of a block's chunk whose record lane i of warp `warp` holds:
+// the warp's groups are the block's groups warp, warp + 8, ..., and lane i
+// holds point i % G of the warp's group i / G.
+template <int G>
+__device__ __forceinline__ int chunk_point(int warp, int i) {
+  return (warp + WARPS_PER_BLOCK * (i / G)) * G + i % G;
+}
+
+// The lerp of one piece of a point's four corner rows, stored.
 template <typename TIn, typename TOut>
-int launch(const void* table, const void* base, const void* w, void* out, int64_t n,
-           int c, int width, cudaStream_t stream) {
+__device__ __forceinline__ void lerp_store(const typename Piece<TIn>::raw (&v)[4], float wx, float wy,
+                                           TOut* dst) {
+  constexpr int K = Piece<TIn>::channels;
+  float l0[K], r0[K], l1[K], r1[K], o[K];
+  unpack(v[0], l0);
+  unpack(v[1], r0);
+  unpack(v[2], l1);
+  unpack(v[3], r1);
+#pragma unroll
+  for (int i = 0; i < K; ++i) {
+    const float top = lerp_rn(l0[i], r0[i], wx);
+    const float bot = lerp_rn(l1[i], r1[i], wx);
+    o[i] = lerp_rn(top, bot, wy);
+  }
+  store_piece<K>(dst, o);
+}
+
+// Rows of at most 32 pieces: L lanes per point (a power of two, 1..32),
+// G = 32 / L points side by side, a block's chunk of 256 points at a time.
+template <typename TIn, typename TOut, int L>
+__global__ void __launch_bounds__(THREADS)
+gather_bilerp_kernel(const TIn* __restrict__ table, const int2* __restrict__ base,
+                     const float2* __restrict__ w, TOut* __restrict__ out, int64_t n, int c,
+                     int width) {
+  typedef typename Piece<TIn>::raw Raw;
+  constexpr int K = Piece<TIn>::channels;
+  constexpr int G = 32 / L;                      // points side by side; a warp's chunk share is L groups
+  constexpr int U = UNROLL < L ? UNROLL : L;     // groups a batch
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int sub = lane % L;                      // the lane's piece of its point's row
+  const int slot = lane / L;                     // the lane's point within its group
+  const int pieces = c / K;
+  const int64_t chunks = (n + CHUNK - 1) / CHUNK;
+  const int own = chunk_point<G>(warp, lane);
+  int64_t chunk = blockIdx.x;
+  int2 rb;
+  float2 rw;
+  load_record(base, w, n, chunk * CHUNK + own, rb, rw);
+  for (; chunk < chunks; chunk += gridDim.x) {
+    int2 nb;
+    float2 nw;
+    load_record(base, w, n, (chunk + gridDim.x) * CHUNK + own, nb, nw);
+    const int rdx = right_step(rb.x, width);
+    const int64_t p0 = chunk * CHUNK;
+    for (int j0 = 0; j0 < L; j0 += U) {
+      int32_t b0[U], b1[U], dx[U];
+      float wx[U], wy[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int q = (j0 + u) * G + slot;
+        b0[u] = __shfl_sync(FULL, rb.x, q);
+        b1[u] = __shfl_sync(FULL, rb.y, q);
+        dx[u] = __shfl_sync(FULL, rdx, q);
+        wx[u] = __shfl_sync(FULL, rw.x, q);
+        wy[u] = __shfl_sync(FULL, rw.y, q);
+      }
+      if (sub < pieces) {
+        Raw v[U][4];
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const Raw* r0 = reinterpret_cast<const Raw*>(table + (int64_t)b0[u] * c) + sub;
+          const Raw* r1 = reinterpret_cast<const Raw*>(table + (int64_t)b1[u] * c) + sub;
+          v[u][0] = __ldg(r0);
+          v[u][1] = __ldg(r0 + dx[u] * pieces);
+          v[u][2] = __ldg(r1);
+          v[u][3] = __ldg(r1 + dx[u] * pieces);
+        }
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const int64_t p = p0 + (warp + WARPS_PER_BLOCK * (j0 + u)) * G + slot;
+          if (p < n) lerp_store<TIn, TOut>(v[u], wx[u], wy[u], out + p * c + (int64_t)sub * K);
+        }
+      }
+    }
+    rb = nb;
+    rw = nw;
+  }
+}
+
+// Rows of more than 32 pieces: a warp a point, lane l taking pieces l,
+// l + 32, ...; a block of 8 warps takes 8 neighbouring points. A bf16
+// row's piece is gather_common.cuh's 8-channel chunk: its loads, lerp and
+// plain stores (bilerp8, store8) are the parent kernel's. On an H100 80GB
+// HBM3 at 700 W (scripts/bench_gather_a_torch.py, 1,048,576 points, four
+// runs of each body, alternated on one card) they took 0.5005-0.5015
+// ms at 512 channels against 0.5055-0.5064 for lerp_store with evict-first
+// stores, and 0.4530-0.4597 against 0.4729-0.4732 on a request's points;
+// at 1536 channels lerp_store was 1% faster on uniform points (1.5401-1.5431
+// against 1.5552-1.5565) and no faster on a request's (1.1619-1.1997
+// against 1.1493-1.1722). A float32 row's 4-channel pieces are loaded
+// whole (the header's 8-channel float32 load takes half a sector per
+// access) and stored evict-first.
+template <typename TIn, typename TOut>
+__global__ void __launch_bounds__(THREADS)
+gather_bilerp_wide_kernel(const TIn* __restrict__ table, const int2* __restrict__ base,
+                          const float2* __restrict__ w, TOut* __restrict__ out, int64_t n, int c,
+                          int width) {
+  typedef typename Piece<TIn>::raw Raw;
+  constexpr int K = Piece<TIn>::channels;
+  const int lane = threadIdx.x & 31;
+  const int64_t p = (int64_t)blockIdx.x * WARPS_PER_BLOCK + (threadIdx.x >> 5);
+  if (p >= n) return;
+  // the record as four scalar loads: on bf16 rows, 8-byte loads of it
+  // measured slower, on request-shaped points (PERF.md)
+  const int32_t b0 = __ldg(reinterpret_cast<const int32_t*>(base) + 2 * p);
+  const int32_t b1 = __ldg(reinterpret_cast<const int32_t*>(base) + 2 * p + 1);
+  const float wx = __ldg(reinterpret_cast<const float*>(w) + 2 * p);
+  const float wy = __ldg(reinterpret_cast<const float*>(w) + 2 * p + 1);
+  TOut* dst = out + p * c;
+  if constexpr (K == 8) {
+    const Corners<TIn> k = corners_of(table, b0, b1, c, width);
+    for (int ch = lane * 8; ch < c; ch += 32 * 8) {
+      float o[8];
+      bilerp8(k, ch, wx, wy, o);
+      store8(dst + ch, o);
+    }
+  } else {
+    const int pieces = c / K;
+    const int right = right_step(b0, width) * pieces;
+    const Raw* r0 = reinterpret_cast<const Raw*>(table + (int64_t)b0 * c);
+    const Raw* r1 = reinterpret_cast<const Raw*>(table + (int64_t)b1 * c);
+    for (int k = lane; k < pieces; k += 32) {
+      const Raw v[4] = {__ldg(r0 + k), __ldg(r0 + right + k), __ldg(r1 + k), __ldg(r1 + right + k)};
+      lerp_store<TIn, TOut>(v, wx, wy, dst + (int64_t)k * K);
+    }
+  }
+}
+
+template <typename TIn, typename TOut, int L>
+int launch(const void* table, const void* base, const void* w, void* out, int64_t n, int c,
+           int width, cudaStream_t stream) {
+  if (n == 0) return 0;
+  auto kernel = gather_bilerp_kernel<TIn, TOut, L>;
+  // blocks an SM holds at once, asked once per instantiation
+  static int resident = 0;
+  if (resident == 0) {
+    int r = 0;
+    const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&r, kernel, THREADS, 0);
+    if (err != cudaSuccess) return (int)err;
+    resident = r > 0 ? r : 1;
+  }
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  int64_t blocks = (n + CHUNK - 1) / CHUNK;
+  const int64_t persistent = (int64_t)sms * resident;
+  if (blocks > persistent) blocks = persistent;
+  kernel<<<(unsigned)blocks, THREADS, 0, stream>>>(
+      static_cast<const TIn*>(table), static_cast<const int2*>(base), static_cast<const float2*>(w),
+      static_cast<TOut*>(out), n, c, width);
+  return (int)cudaGetLastError();
+}
+
+template <typename TIn, typename TOut>
+int launch_wide(const void* table, const void* base, const void* w, void* out, int64_t n, int c,
+                int width, cudaStream_t stream) {
   if (n == 0) return 0;
   const int64_t blocks = (n + WARPS_PER_BLOCK - 1) / WARPS_PER_BLOCK;
-  gather_bilerp_kernel<TIn, TOut><<<(unsigned)blocks, WARPS_PER_BLOCK * 32, 0, stream>>>(
-      static_cast<const TIn*>(table), static_cast<const int32_t*>(base),
-      static_cast<const float*>(w), static_cast<TOut*>(out), n, c, width);
+  gather_bilerp_wide_kernel<TIn, TOut><<<(unsigned)blocks, THREADS, 0, stream>>>(
+      static_cast<const TIn*>(table), static_cast<const int2*>(base), static_cast<const float2*>(w),
+      static_cast<TOut*>(out), n, c, width);
   return (int)cudaGetLastError();
+}
+
+// L, the lanes a point: its row's pieces rounded up to a power of two; rows
+// of more than 32 pieces take a warp a point.
+template <typename TIn, typename TOut>
+int launch_lanes(const void* table, const void* base, const void* w, void* out, int64_t n, int c,
+                 int width, cudaStream_t s) {
+  const int pieces = c / Piece<TIn>::channels;
+  if (pieces > 32) return launch_wide<TIn, TOut>(table, base, w, out, n, c, width, s);
+  if (pieces <= 1) return launch<TIn, TOut, 1>(table, base, w, out, n, c, width, s);
+  if (pieces <= 2) return launch<TIn, TOut, 2>(table, base, w, out, n, c, width, s);
+  if (pieces <= 4) return launch<TIn, TOut, 4>(table, base, w, out, n, c, width, s);
+  if (pieces <= 8) return launch<TIn, TOut, 8>(table, base, w, out, n, c, width, s);
+  if (pieces <= 16) return launch<TIn, TOut, 16>(table, base, w, out, n, c, width, s);
+  return launch<TIn, TOut, 32>(table, base, w, out, n, c, width, s);
 }
 
 }  // namespace
@@ -70,12 +323,12 @@ extern "C" int gather_bilerp(const void* table, const void* base, const void* w,
                              int table_dtype, int out_dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (table_dtype == 1 && out_dtype == 1)
-    return launch<__nv_bfloat16, __nv_bfloat16>(table, base, w, out, n, c, width, s);
+    return launch_lanes<__nv_bfloat16, __nv_bfloat16>(table, base, w, out, n, c, width, s);
   if (table_dtype == 1 && out_dtype == 0)
-    return launch<__nv_bfloat16, float>(table, base, w, out, n, c, width, s);
+    return launch_lanes<__nv_bfloat16, float>(table, base, w, out, n, c, width, s);
   if (table_dtype == 0 && out_dtype == 1)
-    return launch<float, __nv_bfloat16>(table, base, w, out, n, c, width, s);
+    return launch_lanes<float, __nv_bfloat16>(table, base, w, out, n, c, width, s);
   if (table_dtype == 0 && out_dtype == 0)
-    return launch<float, float>(table, base, w, out, n, c, width, s);
+    return launch_lanes<float, float>(table, base, w, out, n, c, width, s);
   return -1;
 }

@@ -88,6 +88,8 @@ def gather_bilerp(
             raise ValueError(f"{name} must be contiguous")
     if table.data_ptr() % 16 != 0:
         raise ValueError("table must be 16-byte aligned")
+    if base.data_ptr() % 8 != 0 or w.data_ptr() % 8 != 0:
+        raise ValueError("base and w must be 8-byte aligned (one record a load)")
     n, c = base.shape[0], table.shape[1]
     out = torch.empty((n, c), dtype=out_dtype, device=table.device)
     lib = _build.load("gather")

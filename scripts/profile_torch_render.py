@@ -12,10 +12,12 @@ of the port, then the rest by name).
 ``--path`` picks the render path: ``staged`` (kernel A's gather, kernel
 B's MLP; the default), ``fused`` (the unstaged renderer on ``query_fused``:
 kernel D) or ``baked`` (a ``bake_encoding``'d scene: kernel A on the
-injection maps, kernel B with ``z_is_tz``).
+injection maps, kernel B with ``z_is_tz``). ``--variant`` builds one of
+``chip_smoke.py``'s model variants instead (e.g. ``custom``: the custom conv
+encoder's 128-channel map), staged.
 
 Usage, on a machine with one NVIDIA GPU, from the repository root:
-``python3 scripts/profile_torch_render.py [--path staged|fused|baked] [--trace PATH]``
+``python3 scripts/profile_torch_render.py [--path staged|fused|baked] [--variant NAME] [--trace PATH]``
 (``--trace`` also writes the profiler's chrome trace).
 """
 import argparse
@@ -33,8 +35,12 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--path", default="staged", choices=("staged", "fused", "baked"))
+    ap.add_argument("--variant", default=None, choices=("global", "custom", "spade_softplus", "implicit", "quad"),
+                    help="a model variant of chip_smoke.py, rendered staged")
     ap.add_argument("--trace", default=None, help="write the chrome trace here")
     args = ap.parse_args()
+    if args.variant and args.path != "staged":
+        ap.error("--variant renders the staged path")
     if not torch.cuda.is_available():
         print("needs an NVIDIA GPU", file=sys.stderr)
         return 2
@@ -49,7 +55,7 @@ def main():
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip()
     g = torch.Generator().manual_seed(0)
-    net, cfg = cs.make_srn_model(dev, g)
+    net, cfg = cs.make_variant_model(dev, g, args.variant) if args.variant else cs.make_srn_model(dev, g)
     images, src_pose = cs.source_view(g, dev)
     pose = cs.target_poses()[0]
     rgen = torch.Generator(device=dev).manual_seed(1)
@@ -88,7 +94,7 @@ def main():
             continue
         device_ms += ms
         name = ev.key
-        if "gather_bilerp_kernel" in name:
+        if "gather_bilerp" in name:
             name = "gather_bilerp (kernel A)"
         elif "fused_mlp_kernel" in name:
             name = "fused_resnetfc_infer (kernel B)"
@@ -104,6 +110,7 @@ def main():
     print(json.dumps({
         "card": smi,
         "path": args.path,
+        "variant": args.variant,
         "request": "one 128x128 view, conf/exp/srn.conf bf16, fast=True, one ray chunk",
         "wall_ms_unprofiled": wall,
         "wall_ms_profiled": prof_wall_ms,

@@ -1009,3 +1009,136 @@ def test_gather_kernel_on_a_128_channel_map_cuda(cuda_device):
     out = gather_bilerp(*args, ww, torch.bfloat16)
     torch.cuda.synchronize()
     torch.testing.assert_close(out, gather_bilerp_plain(*args, ww, torch.bfloat16), atol=0, rtol=0)
+
+
+# --- kernel A at every width: L lanes a point, 32 / L points side by side ---
+
+# one lane a point (8 bf16 channels) up to a lane walking its row (1032 bf16
+# channels: 129 pieces, one lane takes a fifth; 1536: the baked rows)
+A_WIDTHS = [8, 24, 64, 128, 256, 512, 1032, 1536]
+A_PAIRS = [(torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.float32),
+           (torch.float32, torch.bfloat16), (torch.float32, torch.float32)]
+A_PAIR_IDS = ["bf16-bf16", "bf16-f32", "f32-bf16", "f32-f32"]
+
+
+def _bench_a_module():
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "scripts"))
+    import bench_gather_a_torch as bench
+
+    return bench
+
+
+def test_bench_request_points_sample_the_map_as_grid_sample():
+    """The kernel A bench's request-shaped points (16,384 rays x 64 samples
+    at the SRN geometry, ray-major): their bases and weights, through A's
+    plain version, give ``grid_sample`` at their grid coordinates; most fall
+    inside the map, and neighbours on a ray often share a corner."""
+    bench = _bench_a_module()
+    hh = ww = 16
+    base, w, grid = bench.request_points(hh, ww, torch.device("cpu"))
+    assert base.shape == (bench.RAYS * bench.SAMPLES, 2) and base.dtype == torch.int32
+    assert 0 <= base.min() and base.max() < hh * ww
+    assert (grid.abs() <= 1).all(-1).float().mean() > 0.5
+    assert (base[1:, 0] == base[:-1, 0]).float().mean() > 0.5
+    feats = torch.randn((1, hh, ww, 8), generator=torch.Generator().manual_seed(0))
+    out = gather_bilerp_plain(feats.reshape(hh * ww, 8), base, w, ww)
+    ref = tgs.grid_sample(feats, grid[None])[0]
+    torch.testing.assert_close(out, ref, atol=1e-5, rtol=1e-5)
+
+
+def _points_on_two_views(n, hh, ww, seed):
+    """n points over two hh x ww views (every other point on the second),
+    the right and bottom borders and exact corners included."""
+    g = torch.Generator().manual_seed(seed)
+    ix = torch.rand(n, generator=g) * (ww - 1)
+    iy = torch.rand(n, generator=g) * (hh - 1)
+    ix[: n // 8] = ww - 1
+    iy[n // 16: n // 4] = hh - 1
+    k = min(n, 5)
+    ix[-k:], iy[-k:] = torch.arange(k, dtype=torch.float32) % ww, torch.arange(k, dtype=torch.float32) % hh
+    base, w = tgs.bilinear_pair_bases(ix, iy, hh, ww)
+    base[1::2] += hh * ww
+    return base, w
+
+
+def _assert_a_equals_plain(table, base, w, ww, out_dtype, piece=131072):
+    before = gather_bilerp.launches
+    out = gather_bilerp(table, base, w, ww, out_dtype)
+    torch.cuda.synchronize()
+    assert gather_bilerp.launches == before + 1
+    assert out.shape == (base.shape[0], table.shape[1]) and out.dtype == out_dtype
+    for s in range(0, base.shape[0], piece):
+        ref = gather_bilerp_plain(table, base[s:s + piece], w[s:s + piece], ww, out_dtype)
+        torch.testing.assert_close(out[s:s + piece], ref, atol=0, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pair", A_PAIRS, ids=A_PAIR_IDS)
+@pytest.mark.parametrize("c", A_WIDTHS)
+@pytest.mark.parametrize("n", [1, 31, 33, 100_003])
+def test_gather_kernel_at_every_width_cuda(cuda_device, n, c, pair):
+    """Kernel A bit-equal to its plain version at every lane count, dtype
+    pair and a ragged last chunk (31, 33, 100,003 points) on a two-view
+    table of 9 x 7 maps."""
+    table_dtype, out_dtype = pair
+    hh, ww = 9, 7
+    table = torch.randn((2 * hh * ww, c), generator=torch.Generator().manual_seed(c)).to(table_dtype)
+    base, w = _points_on_two_views(n, hh, ww, seed=n)
+    _assert_a_equals_plain(*(a.to(cuda_device) for a in (table, base, w)), ww, out_dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pair", [A_PAIRS[0], A_PAIRS[3]], ids=[A_PAIR_IDS[0], A_PAIR_IDS[3]])
+@pytest.mark.parametrize("c", [64, 128, 512, 1536])
+def test_gather_kernel_walks_many_chunks_cuda(cuda_device, c, pair):
+    """2^20 - 3 points: 4,096 chunks of 256, more than the persistent
+    grid's blocks (SMs x resident blocks), so each block walks several
+    chunks, and the last group is ragged at every lane count."""
+    table_dtype, out_dtype = pair
+    hh = ww = 64
+    table = torch.randn((2 * hh * ww, c), generator=torch.Generator().manual_seed(c)).to(table_dtype)
+    base, w = _points_on_two_views(2 ** 20 - 3, hh, ww, seed=c)
+    _assert_a_equals_plain(*(a.to(cuda_device) for a in (table, base, w)), ww, out_dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pair", [A_PAIRS[0], A_PAIRS[3]], ids=[A_PAIR_IDS[0], A_PAIR_IDS[3]])
+@pytest.mark.parametrize("c", [64, 128, 256, 512])
+def test_gather_kernel_on_request_points_cuda(cuda_device, c, pair):
+    """Kernel A on one request's coarse points (the bench's ray-major
+    points, many of them border-clamped), bit-equal to its plain version."""
+    bench = _bench_a_module()
+    table_dtype, out_dtype = pair
+    hh, ww = bench.MAPS[c]
+    table = torch.randn((hh * ww, c), generator=torch.Generator().manual_seed(c)).to(table_dtype).to(cuda_device)
+    base, w, _ = bench.request_points(hh, ww, cuda_device)
+    _assert_a_equals_plain(table, base, w, ww, out_dtype)
+
+
+@pytest.mark.cuda
+def test_fused_field_kernel_equals_b_fed_by_a_at_the_srn_widths_cuda(cuda_device):
+    """Kernel D at the SRN widths (512-channel latent, d_hidden 512) on
+    request-shaped points, a ragged count, bit-equal to kernel B fed by
+    kernel A: D's gather (gather_common.cuh) and A's own lerp agree."""
+    from pixelnerf_tpu_torch.models.resnetfc import ResnetFC
+
+    bench = _bench_a_module()
+    mlp = ResnetFC(d_in=42, d_latent=512, d_hidden=512, n_blocks=5, combine_layer=3, dtype=torch.bfloat16)
+    g = torch.Generator().manual_seed(5)
+    with torch.no_grad():
+        for blk in mlp.blocks:
+            blk.fc_1.weight.copy_(torch.randn(blk.fc_1.weight.shape, generator=g) * 0.02)
+    weights = fm.pack_weights(mlp.to(cuda_device))
+    hh, ww = bench.MAPS[512]
+    table = torch.randn((hh * ww, 512), generator=g).to(torch.bfloat16).to(cuda_device)
+    base, wg, _ = bench.request_points(hh, ww, cuda_device)
+    n = 70_001
+    base, wg = base[:n].contiguous(), wg[:n].contiguous()
+    x = torch.randn((n, 42), generator=g).to(torch.bfloat16).to(cuda_device)
+    out = fused_gather_resnetfc_infer(table, base, wg, x, weights, 5, 3, ww)
+    z = gather_bilerp(table, base, wg, ww, torch.bfloat16)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, fused_resnetfc_infer(z, x, weights, 5, 3), atol=0, rtol=0)

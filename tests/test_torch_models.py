@@ -237,7 +237,8 @@ def test_port_imports_nothing_of_jax():
     files = [os.path.join(REPO, "chip_smoke.py")] + [
         os.path.join(REPO, "scripts", f"{name}.py")
         for name in ("profile_torch_render", "profile_torch_train", "bench_gather_torch",
-                     "probe_gather_kernels_torch", "stress_fused_mlp_torch", "bench_gather_rows_bwd_torch")
+                     "probe_gather_kernels_torch", "stress_fused_mlp_torch", "bench_gather_rows_bwd_torch",
+                     "bench_gather_a_torch")
     ]
     for root, _, names in os.walk(os.path.join(REPO, "pixelnerf_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]

@@ -116,10 +116,12 @@ def test_bilinear_pair_bases_matches_jax():
     np.testing.assert_allclose(tw.numpy(), np.asarray(jw), atol=1e-6)
 
 
-def test_gather_plain_matches_pallas_interpret():
+@pytest.mark.parametrize("c", [8, 64, 128, 512])
+def test_gather_plain_matches_pallas_interpret(c):
     """Kernel A's plain version against gather_packed_lerp in interpret
-    mode: the same bf16 rows, the same float32 lerp order."""
-    feats, grid = _pair_inputs()
+    mode: the same bf16 rows, the same float32 lerp order, at widths from
+    one 16-byte piece a row (8 channels) to the SRN latent's 512."""
+    feats, grid = _pair_inputs(c=c)
     hh, ww, c = feats.shape
     ix = jgs._compute_source_index(jnp.asarray(grid[:, 0]), ww, "border", True)
     iy = jgs._compute_source_index(jnp.asarray(grid[:, 1]), hh, "border", True)
