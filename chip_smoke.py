@@ -30,6 +30,10 @@ blocks, 64 coarse + 32 fine samples), weights random from a seed:
 - the model variants: the global encoder, the custom conv encoder, SPADE
   and softplus with ``feature_scale``, ImplicitNet fields and the quad
   gather, three requests each, and a train step of three of them;
+- mesh extraction, f32: ``apps.recon --reso 128`` on the SRN workflow's
+  model, its OBJ read back and rasterized;
+- the multi-GPU layer at world size 1 (NCCL): the sharded render and the
+  sharded train step against their single-process forms;
 - the DTU workflow, f32, at three source views and 400x300
   (``conf/exp/dtu.conf``): ``apps.train -F dvr_dtu -V 3`` ->
   ``apps.eval -F dvr_dtu -P "22 25 28"`` on a DTU-layout fixture.
@@ -111,7 +115,23 @@ Phases, one JSON line each:
     ``apps.train --profile_dir`` for 2 steps (C, C-bwd; the trace names the
     port's kernels)
 
-22. variants (run last): the model variants of the SRN model at full
+22. recon (run after 21, on srn_workflow's fixture and checkpoint; SRN
+    model, f32): a level from ``eval_sigma_grid`` at 32^3 (its 95th
+    percentile), then ``apps.recon --reso 128`` (2,097,152 points in 32
+    queries of 65,536: kernel A; the colours at the vertices: A), with the
+    grid, surface, colour and OBJ write times; the mesh's counts and index
+    range; the OBJ read back with the port's ``load_obj`` and rasterized
+    to one 128x128 view; one grid chunk through A held to its plain
+    version
+
+23. parallel (run after 18): a process group of world size 1 over NCCL,
+    ``make_mesh()`` (1 x 1), ``make_sharded_render(fast=True)`` and
+    ``FullRenderer(mesh=)`` on one 128x128 request of the bf16 SRN model
+    bit-equal to ``FullRenderer`` on the same draws (A, B), one train step
+    of config (a) with ``mesh=`` bit-equal in every parameter to the step
+    without it (C, C-bwd); one card measures no scaling
+
+24. variants (run last): the model variants of the SRN model at full
     width, bf16, three requests each through ``FullRenderer(fast=True)``
     with A's and B's launches asserted per config: ``global`` (a ResNet34
     global encoder, latent 128: B at z 640), ``custom`` (the custom conv
@@ -1642,6 +1662,213 @@ def run_apps_workflow(dev, tmp, train_features):
     return res
 
 
+# mesh extraction (apps.recon) on srn_workflow's checkpoint and fixture:
+# the grid's resolution, the probe grid that picks the level, the view the
+# OBJ is rasterized to
+RECON_RESO = 128
+RECON_PROBE_RESO = 32
+RECON_PERCENTILE = 95.0
+RECON_CHUNK = 65536
+
+
+def run_recon(dev, tmp):
+    """``apps.recon`` on the card, on ``srn_workflow``'s fixture and
+    checkpoint in ``tmp`` (the SRN model at full width, f32): a level from
+    the library's ``eval_sigma_grid`` at 32^3 (its 95th percentile, so that
+    the mesh of a briefly trained model is not empty), then the app at
+    ``--reso 128`` (2,097,152 points, 32 queries of 65,536, each one launch
+    of kernel A; then one launch per 65,536 vertices for the colours);
+    its grid, surface, colour and write times; the mesh's counts and index
+    range; its OBJ read back with the port's ``load_obj`` and rasterized to
+    one 128x128 view; one grid chunk through kernel A held to the same
+    chunk through its plain version."""
+    import contextlib
+    import io
+
+    import numpy as np
+
+    from pixelnerf_tpu_torch.apps import recon
+    from pixelnerf_tpu_torch.apps.args import parse_args
+    from pixelnerf_tpu_torch.apps.eval import load_net_and_state
+    from pixelnerf_tpu_torch.data import dataset_kwargs_from_conf, get_split_dataset
+    from pixelnerf_tpu_torch.utils import mesh_raster
+    from pixelnerf_tpu_torch.utils.recon import eval_sigma_grid, grid_points
+
+    smi = nvidia_smi_line()
+    data = os.path.join(tmp, "data", "cars")
+    out = os.path.join(tmp, "mesh_out")
+    argv = ["-c", os.path.join(REPO, "conf", "exp", "srn.conf"), "-F", "srn", "-D", data, "--device", str(dev),
+            "--checkpoints_path", os.path.join(tmp, "ck"), "-P", str(SRN_SOURCE), "--subset", "0"]
+    args, conf = parse_args(recon.extra_args, argv=argv)
+    dset = get_split_dataset("srn", data, want_split=args.split, training=False, **dataset_kwargs_from_conf(conf))
+    d = dset[0]
+    with contextlib.redirect_stdout(io.StringIO()):
+        net = load_net_and_state(args, conf, dev)
+    with torch.inference_mode():
+        enc = net.encode(torch.from_numpy(d["images"][None, [SRN_SOURCE]]).to(dev),
+                         torch.from_numpy(d["poses"][None, [SRN_SOURCE]]).to(dev), torch.as_tensor(d["focal"]),
+                         c=torch.from_numpy(d["c"][None]))
+
+        def query(xyz, viewdirs, coarse, use_kernels=True):
+            return net.query(enc, xyz, viewdirs, coarse=coarse, use_kernels=use_kernels)
+
+        probe = eval_sigma_grid(query, (RECON_PROBE_RESO,) * 3, (-1.0, 1.0), device=dev)
+    level = float(np.percentile(probe, RECON_PERCENTILE))
+    emit({"phase": "recon_level", "probe_reso": RECON_PROBE_RESO, "percentile": RECON_PERCENTILE, "level": level,
+          "probe_sigma_range": [float(probe.min()), float(probe.max())]})
+
+    res, lines, seconds, got = run_app(recon, argv + ["--reso", str(RECON_RESO), "--isosurface", repr(level),
+                                                      "-O", out])
+    verts, faces = res["verts"], res["faces"]
+    n_grid = -(-RECON_RESO ** 3 // RECON_CHUNK)
+    expect = {k: 0 for k in got}
+    expect["gather_bilerp"] = n_grid + -(-len(verts) // RECON_CHUNK)
+    rec = {"phase": "recon", "model": "conf/exp/srn.conf, float32", "reso": RECON_RESO, "points": RECON_RESO ** 3,
+           "queries": n_grid, "level": level, "vertices": len(verts), "faces": len(faces),
+           "ms": res["ms"], "app_seconds": seconds, "obj_bytes": os.path.getsize(res["path"]),
+           "launches": got, "expected_launches": expect, "printed": lines[-2:], "card": smi}
+    if got != expect:
+        raise AssertionError(f"recon: launch counts {got} != expected {expect}")
+    if not (len(verts) and len(faces)) or faces.min() < 0 or faces.max() >= len(verts):
+        raise AssertionError(f"recon: an empty mesh or a face index out of range: {rec}")
+    if not (np.isfinite(verts).all() and np.isfinite(res["colors"]).all()):
+        raise AssertionError("recon: non-finite vertices or colours")
+
+    # the OBJ read back and rasterized from the object's first view
+    t0 = time.perf_counter()
+    v, f, c = mesh_raster.load_obj(res["path"])
+    rec["load_obj_ms"] = (time.perf_counter() - t0) * 1e3
+    if not (np.array_equal(v, verts) and np.array_equal(f, faces)):
+        raise AssertionError("recon: the OBJ does not read back to the mesh the app made")
+    t0 = time.perf_counter()
+    rgb, depth, alpha = mesh_raster.rasterize(v, f, c, d["poses"][0], IMAGE, IMAGE, float(np.mean(d["focal"])))
+    rec["rasterize_ms"] = (time.perf_counter() - t0) * 1e3
+    rec["rasterized_pixels"] = int(alpha.sum())
+    if not alpha.any():
+        raise AssertionError(f"recon: the rasterized view covers no pixel: {rec}")
+
+    # one grid chunk (the middle one) through kernel A and through its plain version
+    pts = torch.from_numpy(grid_points((RECON_RESO,) * 3, (-1.0, 1.0))[None, n_grid // 2 * RECON_CHUNK:
+                                                                        (n_grid // 2 + 1) * RECON_CHUNK]).to(dev)
+    dirs = torch.zeros_like(pts)
+    with torch.inference_mode():
+        k_out = query(pts, dirs, True)
+        p_out = query(pts, dirs, True, use_kernels=False)
+    err = (k_out - p_out).abs().max().item()
+    rec["chunk_kernel_vs_plain"] = {"points": RECON_CHUNK, "max_abs_err": err, "tolerance": 1e-6}
+    if err > 1e-6 or not torch.isfinite(k_out).all():
+        raise AssertionError(f"recon: the grid chunk through kernel A differs from plain: {err}")
+    emit(rec)
+    return rec
+
+
+def run_parallel(dev, net, cfg, enc, pose):
+    """The multi-GPU layer at world size 1 on this card: a process group
+    over NCCL (a ``file://`` store in a temporary directory), ``make_mesh()``
+    of shape 1 x 1, ``make_sharded_render(fast=True)`` and
+    ``FullRenderer(mesh=)`` on one 128x128 request of the SRN model in bf16,
+    each bit-equal to ``FullRenderer`` on the same draws, and one train
+    step of config (a) with ``mesh=`` bit-equal, in every parameter, to the
+    same step without it; the group destroyed after. One card measures no
+    scaling: the collectives run over one rank."""
+    import torch.distributed as dist
+
+    from pixelnerf_tpu_torch.eval import FullRenderer
+    from pixelnerf_tpu_torch.parallel import make_mesh, make_sharded_render, shard_batch, shard_rays
+    from pixelnerf_tpu_torch.render import draw_noise
+    from pixelnerf_tpu_torch.train import make_render_loss, make_train_step
+    from pixelnerf_tpu_torch.utils import geometry
+
+    smi = nvidia_smi_line()
+    counters = {**inference_kernels(), **train_kernels()}
+    rec = {"phase": "parallel", "world_size": 1, "backend": "nccl", "card": smi}
+    with tempfile.TemporaryDirectory() as store:
+        dist.init_process_group("nccl", init_method=f"file://{os.path.join(store, 'store')}", rank=0,
+                                world_size=1)
+        try:
+            mesh = make_mesh()
+            rec["mesh"] = dict(mesh.shape)
+            if rec["mesh"] != {"data": 1, "ray": 1}:
+                raise AssertionError(f"parallel: mesh {rec['mesh']}")
+
+            # one request: the sharded render and FullRenderer(mesh=) against FullRenderer
+            rays = geometry.gen_rays(pose[None], IMAGE, IMAGE, FOCAL, NEAR, FAR, device=dev).reshape(1, -1, 8)
+            noise = draw_noise(rays, cfg, torch.Generator(device=dev).manual_seed(12))
+            sharded = make_sharded_render(net, cfg, mesh, fast=True, staged=True)
+            renders, ms, launches = {}, {}, {}
+            for name, fn in (
+                ("full_renderer", lambda: FullRenderer(net, cfg, ray_chunk=RAY_CHUNK, fast=True)
+                 .render_batch(enc, rays, noise=[noise])),
+                ("sharded_render", lambda: sharded(enc, shard_rays(mesh, rays), noise=noise)),
+                ("full_renderer_mesh", lambda: FullRenderer(net, cfg, ray_chunk=RAY_CHUNK, fast=True, mesh=mesh)
+                 .render_batch(enc, rays, noise=[noise])),
+            ):
+                # twice: the first call of the sharded render also sets up
+                # NCCL's communicator
+                for c in counters.values():
+                    c.launches = 0
+                ms[name] = []
+                for _ in range(2):
+                    torch.cuda.synchronize()
+                    t0 = time.time()
+                    renders[name] = fn()
+                    torch.cuda.synchronize()
+                    ms[name].append((time.time() - t0) * 1e3)
+                launches[name] = {k: c.launches for k, c in counters.items()}
+            ref = renders["full_renderer"]
+            errs = {name: max((out[b][k].float() - ref[b][k].float()).abs().max().item()
+                              for b in ref for k in ref[b]) for name, out in renders.items()}
+            rec["render"] = {"rays": rays.shape[1], "ms": ms, "max_abs_err": errs, "tolerance": 0.0,
+                             "launches": launches}
+            expect = {k: 0 for k in counters}
+            expect.update({"gather_bilerp": 2 * 2, "fused_resnetfc_infer": 2 * 3})
+            if any(v != expect for v in launches.values()):
+                raise AssertionError(f"parallel: render launch counts {launches} != {expect} each")
+            if any(errs.values()):
+                raise AssertionError(f"parallel: the sharded render differs from FullRenderer: {errs}")
+
+            # one step of train config (a) with and without the mesh, from one
+            # state, batch and draw seed; cuDNN's deterministic algorithms, as
+            # its default backward convolutions sum in an order that varies
+            # between calls (two steps without a mesh differ in the encoder)
+            params, metrics, step_ms = {}, {}, {}
+            deterministic = torch.backends.cudnn.deterministic
+            torch.backends.cudnn.deterministic = True
+            for name in ("plain", "mesh"):
+                tnet, tcfg, tconf, batches = train_setup(dev, "a")
+                opt = torch.optim.Adam(tnet.parameters(), lr=TRAIN_LR, betas=(0.9, 0.999), eps=1e-8)
+                step = make_train_step(tnet, tcfg, opt, make_render_loss(tconf["loss"]),
+                                       mesh=mesh if name == "mesh" else None)
+                batch = shard_batch(mesh, batches[0]) if name == "mesh" else batches[0]
+                for c in counters.values():
+                    c.launches = 0
+                torch.cuda.synchronize()
+                t0 = time.time()
+                m = step(batch, generator=torch.Generator(device=dev).manual_seed(13))
+                torch.cuda.synchronize()
+                step_ms[name] = (time.time() - t0) * 1e3
+                launches[f"train_{name}"] = {k: c.launches for k, c in counters.items()}
+                metrics[name] = {k: v.item() for k, v in m.items()}
+                params[name] = {k: v.detach().clone() for k, v in tnet.state_dict().items()}
+            torch.backends.cudnn.deterministic = deterministic
+            unequal = [k for k in params["plain"] if not torch.equal(params["plain"][k], params["mesh"][k])]
+            per_step = train_launches_per_step()["a"]
+            expect_train = {k: 0 for k in counters}
+            expect_train.update({"gather_rows_lerp": per_step, "gather_rows_lerp_bwd": per_step})
+            rec["train"] = {"config": "a", "step_ms": step_ms, "metrics": metrics, "unequal_tensors": unequal,
+                            "tensors": len(params["plain"]), "launches": launches["train_mesh"]}
+            if launches["train_mesh"] != expect_train or launches["train_plain"] != expect_train:
+                raise AssertionError(f"parallel: train launch counts {launches} != {expect_train}")
+            if unequal or metrics["plain"] != metrics["mesh"]:
+                raise AssertionError(f"parallel: the step with mesh= differs from the step without: {rec['train']}")
+        finally:
+            dist.destroy_process_group()
+    rec["launches"] = {k: launches["sharded_render"][k] + launches["full_renderer_mesh"][k] + launches["train_mesh"][k]
+                       for k in counters}
+    emit(rec)
+    return rec
+
+
 # the DTU workflow (conf/exp/dtu.conf: the SRN model's widths, 64 + 32
 # samples, no white background, near 0.1, far 5.0): DTU's 49 views of
 # 400x300 RGB per scan, its three source views, two target views
@@ -2370,6 +2597,7 @@ def main():
     with tempfile.TemporaryDirectory() as srn_tmp:
         srn = run_srn_workflow(dev, srn_tmp)
         apps = run_apps_workflow(dev, srn_tmp, train_runs["b"])
+        recon = run_recon(dev, srn_tmp)
     dtu = run_dtu_workflow(dev)
     for k in train_launches:
         train_launches[k] += srn["launches"][k] + dtu["launches"][k] + apps["launches"][k]
@@ -2416,6 +2644,11 @@ def main():
         if max(err.values()) > tols[name]:
             raise AssertionError(f"{name}: renders disagree: {err} > {tols[name]}")
 
+    # the multi-GPU layer at world size 1: the sharded render and train step
+    parallel = run_parallel(dev, net, cfg, enc, targets[0])
+    for k in train_launches:
+        train_launches[k] += parallel["launches"][k]
+
     variants = run_variants(dev, g, targets, rgen, smi, main_res["request_ms"], crop, noise)
     for rec in variants["train"].values():
         for k in train_launches:
@@ -2424,12 +2657,14 @@ def main():
     keys = ("name", "route", "source", "replaces", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")
     # launches: A over the staged inference path, the SRN and DTU
-    # workflows and the video and real-image apps, B over the staged path,
-    # B's z_is_tz variant over the baked path, D over the fused path, C and
-    # C-bwd over both training configs, the train app, the two workflows,
-    # the "dots" run and the profiled train app, the study's formulations
-    # over its bench script
-    launches["gather_bilerp"] += sum(r["launches"]["gather_bilerp"] for r in (srn, dtu, apps))
+    # workflows, the video and real-image apps, recon and the sharded
+    # render, B over the staged path and the sharded render, B's z_is_tz
+    # variant over the baked path, D over the fused path, C and C-bwd over
+    # both training configs, the train app, the two workflows, the "dots"
+    # run, the profiled train app and the sharded train step, the study's
+    # formulations over its bench script
+    launches["gather_bilerp"] += sum(r["launches"]["gather_bilerp"] for r in (srn, dtu, apps, recon, parallel))
+    launches["fused_resnetfc_infer"] += parallel["launches"]["fused_resnetfc_infer"]
     launches.update(train_launches)
     launches["fused_resnetfc_infer[z_is_tz]"] = baked_res["launches"]["fused_resnetfc_infer"]
     launches["fused_gather_resnetfc_infer"] = fused_res["launches"]["fused_gather_resnetfc_infer"]

@@ -2,7 +2,7 @@
 
 A second package beside the JAX one, for NVIDIA Hopper (H100). It mirrors
 the JAX package's layout (``config/``, ``utils/``, ``models/``, ``ops/``,
-``render/``, ``eval/``, ``train/``, ``data/``, ``apps/``) so each module's
+``render/``, ``eval/``, ``train/``, ``data/``, ``parallel/``, ``apps/``) so each module's
 counterpart is easy to find, keeps the JAX layouts at its public functions
 (NHWC images, ``(N, Hl, Wl, C)`` latents, ``(SB, B, 8)`` rays), and
 replaces each Pallas TPU kernel on its path with a CUDA C++ kernel for
@@ -27,6 +27,9 @@ _LAZY = {
     "RenderConfig": ("pixelnerf_tpu_torch.render", "RenderConfig"),
     "FullRenderer": ("pixelnerf_tpu_torch.eval", "FullRenderer"),
     "load_config": ("pixelnerf_tpu_torch.config", "load_config"),
+    "marching_cubes": ("pixelnerf_tpu_torch.utils.recon", "marching_cubes"),
+    "make_mesh": ("pixelnerf_tpu_torch.parallel", "make_mesh"),
+    "make_sharded_render": ("pixelnerf_tpu_torch.parallel", "make_sharded_render"),
 }
 
 

@@ -11,8 +11,11 @@ import argparse
 import os
 from typing import Callable, Optional, Tuple
 
+import torch
+
 from ..config import ConfigNode, load_config
 from ..config.hocon import _parse_value
+from ..parallel.mesh import init_distributed, make_mesh, world_size
 
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
@@ -41,6 +44,10 @@ def parse_args(
     parser.add_argument("--epochs", type=int, default=10000000)
     parser.add_argument("--datadir", "-D", type=str, default=None)
     parser.add_argument("--ray_batch_size", "-R", type=int, default=default_ray_batch_size)
+    parser.add_argument("--mesh_data", type=int, default=None,
+                        help="object-axis size of the mesh of ranks (under torchrun)")
+    parser.add_argument("--mesh_ray", type=int, default=None,
+                        help="ray-axis size of the mesh of ranks (under torchrun)")
     parser.add_argument("--device", type=str, default=None,
                         help="torch device to run on (default cuda); the CPU only when asked for")
     parser.add_argument("--cpu", action="store_true", help="run on the host CPU: the same as --device cpu")
@@ -95,3 +102,20 @@ def parse_args(
     if args.dataset_format is None:
         args.dataset_format = conf.get_string("data.format", "dvr")
     return args, conf
+
+
+def device_and_mesh(args, data: Optional[int] = None, ray: Optional[int] = None):
+    """The device this process runs on, and the mesh of ranks: under
+    ``torchrun`` with more than one rank and without ``--no_mesh``, this
+    rank joins the process group (its card is ``cuda:<LOCAL_RANK>``) and
+    the ranks form a ``data`` x ``ray`` mesh (defaults as
+    ``parallel.make_mesh``); else the mesh is None, the counterpart of the
+    JAX apps' ``jax.device_count() > 1`` test.
+
+    :return: (torch.device, Mesh or None)
+    """
+    if getattr(args, "no_mesh", False) or world_size() <= 1:
+        return torch.device(args.device), None
+    device = torch.device(init_distributed(args.device))
+    mesh = make_mesh(data=data, ray=ray)
+    return device, mesh

@@ -20,11 +20,12 @@ from ..config import ConfigNode
 from ..data import dataset_kwargs_from_conf, get_split_dataset
 from ..eval.common import FullRenderer, depth_cmap, resize_area_like_cv2
 from ..models import coarse_only, load_reference_state_dict, make_model
+from ..parallel.mesh import is_main_process
 from ..render.renderer import RenderConfig
 from ..train.state import load_variables
 from ..utils import geometry, metrics, png
 from ..utils.exr import write_exr
-from .args import parse_args
+from .args import device_and_mesh, parse_args
 
 
 def extra_args(parser):
@@ -53,6 +54,8 @@ def extra_args(parser):
                         help="accepted for reference-CLI compatibility; rays are "
                         "regenerated per object, so varying poses are always handled")
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--no_mesh", action="store_true",
+                        help="no mesh of ranks even under torchrun (each process renders alone)")
 
 
 def load_net_and_state(args, conf, device):
@@ -62,16 +65,17 @@ def load_net_and_state(args, conf, device):
     net = make_model(conf["model"], device=device, generator=torch.Generator().manual_seed(0))
     ckpt_dir = os.path.join(args.checkpoints_path, args.name)
     restored = load_variables(ckpt_dir, device)
+    say = print if is_main_process() else (lambda *a: None)
     if restored is not None:
         net.load_state_dict(restored["model"])
-        print(f"Loaded checkpoint at step {restored['step']} from {ckpt_dir}")
+        say(f"Loaded checkpoint at step {restored['step']} from {ckpt_dir}")
         return net
     torch_path = os.path.join(ckpt_dir, "pixel_nerf_latest")
     if os.path.exists(torch_path):
         load_reference_state_dict(net, torch.load(torch_path, map_location=device, weights_only=True))
-        print(f"Loaded reference torch checkpoint {torch_path}")
+        say(f"Loaded reference torch checkpoint {torch_path}")
         return net
-    print("WARNING: no checkpoint found; evaluating a random-init model")
+    say("WARNING: no checkpoint found; evaluating a random-init model")
     return net
 
 
@@ -122,7 +126,8 @@ def render_object(renderer, data, src, target_views, z_near, z_far, scale=1.0, g
 
 def main(argv=None):
     args, conf = parse_args(extra_args, argv=argv)
-    device = torch.device(args.device)
+    device, mesh = device_and_mesh(args)
+    main_rank = is_main_process()     # rank 0 alone writes and prints
     dset = get_split_dataset(
         args.dataset_format, args.datadir, want_split=args.split, training=False,
         **dataset_kwargs_from_conf(conf),
@@ -144,9 +149,10 @@ def main(argv=None):
     net = load_net_and_state(args, conf, device)
     if args.coarse:
         net = coarse_only(net)  # the fine pass reuses the coarse MLP
-    renderer = FullRenderer(net, cfg, ray_chunk=args.ray_batch_size, debug_nans=args.debug_nans)
+    renderer = FullRenderer(net, cfg, ray_chunk=args.ray_batch_size, debug_nans=args.debug_nans, mesh=mesh)
 
-    os.makedirs(args.output, exist_ok=True)
+    if main_rank:
+        os.makedirs(args.output, exist_ok=True)
     finish_path = os.path.join(args.output, "finish.txt")
     finished = {}
     if os.path.exists(finish_path):
@@ -155,7 +161,7 @@ def main(argv=None):
                 parts = line.split()
                 if len(parts) == 4:
                     finished[parts[0]] = (float(parts[1]), float(parts[2]), int(parts[3]))
-    finish_file = open(finish_path, "a", buffering=1)
+    finish_file = open(finish_path, "a", buffering=1) if main_rank else None
 
     total_psnr = sum(v[0] * v[2] for v in finished.values())
     total_ssim = sum(v[1] * v[2] for v in finished.values())
@@ -193,12 +199,15 @@ def main(argv=None):
         if eval_views is not None:
             target_views = np.array([v for v in target_views if v in eval_views])
             if target_views.size == 0:
-                print(f"skip {obj_name}: no target views in eval_view_list")
+                if main_rank:
+                    print(f"skip {obj_name}: no target views in eval_view_list")
                 continue
 
         rgb_all, depth_all = render_object(
             renderer, data, src, target_views, dset.z_near, dset.z_far, args.scale, generator
         )
+        if not main_rank:
+            continue
         rgb_all, depth_all = rgb_all.cpu().numpy(), depth_all.cpu().numpy()
         rH, rW = rgb_all.shape[1:3]
 
@@ -239,6 +248,8 @@ def main(argv=None):
             f" | running psnr {total_psnr/cnt:.3f} ssim {total_ssim/cnt:.4f}"
         )
         finish_file.write(f"{obj_name} {obj_psnr} {obj_ssim} {n}\n")
+    if not main_rank:
+        return
     finish_file.close()
     if cnt:
         print(f"FINAL psnr {total_psnr/cnt:.4f} ssim {total_ssim/cnt:.4f} over {cnt} views")

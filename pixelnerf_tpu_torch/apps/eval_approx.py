@@ -15,7 +15,8 @@ from ..data import dataset_kwargs_from_conf, get_split_dataset
 from ..eval.common import FullRenderer
 from ..models import coarse_only
 from ..utils import geometry, metrics
-from .args import parse_args
+from ..parallel.mesh import is_main_process
+from .args import device_and_mesh, parse_args
 from .eval import eval_render_config, load_net_and_state
 
 
@@ -28,6 +29,8 @@ def extra_args(parser):
                         help="objects rendered per batch (the reference evaluates SB=4 objects at once)")
     parser.add_argument("--coarse", action="store_true",
                         help="coarse network as fine: drop the fine MLP, keep a 64/128 hierarchy")
+    parser.add_argument("--no_mesh", action="store_true",
+                        help="no mesh of ranks even under torchrun (each process renders alone)")
 
 
 def pick_targets(dset, source, n_objs, seed):
@@ -82,7 +85,8 @@ def render_group(renderer, group, z_near, z_far, generator=None, noise=None):
 
 def main(argv=None):
     args, conf = parse_args(extra_args, argv=argv)
-    device = torch.device(args.device)
+    device, mesh = device_and_mesh(args)
+    main_rank = is_main_process()     # rank 0 alone writes and prints
     dset = get_split_dataset(
         args.dataset_format, args.datadir, want_split=args.split, training=False,
         **dataset_kwargs_from_conf(conf),
@@ -93,7 +97,7 @@ def main(argv=None):
     net = load_net_and_state(args, conf, device)
     if args.coarse:
         net = coarse_only(net)  # the fine pass reuses the coarse MLP
-    renderer = FullRenderer(net, cfg, ray_chunk=args.ray_batch_size, debug_nans=args.debug_nans)
+    renderer = FullRenderer(net, cfg, ray_chunk=args.ray_batch_size, debug_nans=args.debug_nans, mesh=mesh)
 
     generator = torch.Generator(device=device).manual_seed(args.seed)
     total_psnr = total_ssim = 0.0
@@ -111,10 +115,12 @@ def main(argv=None):
             total_psnr += p
             total_ssim += s
             cnt += 1
-            print(f"[{cnt}/{len(entries)}] psnr {p:.3f} ssim {s:.4f} "
-                  f"| running {total_psnr/cnt:.3f} / {total_ssim/cnt:.4f}")
+            if main_rank:
+                print(f"[{cnt}/{len(entries)}] psnr {p:.3f} ssim {s:.4f} "
+                      f"| running {total_psnr/cnt:.3f} / {total_ssim/cnt:.4f}")
     if cnt:
-        print(f"APPROX FINAL psnr {total_psnr/cnt:.4f} ssim {total_ssim/cnt:.4f}")
+        if main_rank:
+            print(f"APPROX FINAL psnr {total_psnr/cnt:.4f} ssim {total_ssim/cnt:.4f}")
         return total_psnr / cnt, total_ssim / cnt
 
 

@@ -26,7 +26,8 @@ from ..config import ConfigNode
 from ..eval.common import FullRenderer, resize_area_like_cv2
 from ..render.renderer import RenderConfig
 from ..utils import geometry, gif, png
-from .args import parse_args
+from ..parallel.mesh import is_main_process
+from .args import device_and_mesh, parse_args
 from .eval import load_net_and_state
 from .gen_video import render_frames
 
@@ -54,6 +55,8 @@ def extra_args(parser):
     parser.add_argument("--no_vid", action="store_true",
                         help="skip the video; only frame PNGs are written")
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--no_mesh", action="store_true",
+                        help="no mesh of ranks even under torchrun (each process renders alone)")
 
 
 def gather_inputs(spec: str):
@@ -90,7 +93,8 @@ def read_input(path: str, size: int) -> np.ndarray:
 
 def main(argv=None):
     args, conf = parse_args(extra_args, argv=argv)
-    device = torch.device(args.device)
+    device, mesh = device_and_mesh(args)
+    main_rank = is_main_process()     # rank 0 alone writes and prints
     inputs = gather_inputs(args.input)
     if not inputs:
         raise FileNotFoundError(f"no input images matched {args.input!r}")
@@ -108,9 +112,10 @@ def main(argv=None):
     cam_pose[2, 3] = args.radius
 
     net = load_net_and_state(args, conf, device)
-    renderer = FullRenderer(net, cfg, ray_chunk=args.ray_batch_size, debug_nans=args.debug_nans)
+    renderer = FullRenderer(net, cfg, ray_chunk=args.ray_batch_size, debug_nans=args.debug_nans, mesh=mesh)
 
-    os.makedirs(args.output, exist_ok=True)
+    if main_rank:
+        os.makedirs(args.output, exist_ok=True)
     # a spherical orbit, its poses taken from Blender's axes
     from_blender = geometry.coord_from_blender()
     angles = np.linspace(-180, 180, args.num_views + 1)[:-1]
@@ -127,6 +132,8 @@ def main(argv=None):
                 torch.as_tensor(args.focal),
             )
         frames = list(render_frames(renderer, enc, rays, generator))
+        if not main_rank:
+            continue
         base = os.path.splitext(os.path.basename(img_path))[0]
         frames_dir = os.path.join(args.output, f"{base}_frames")
         os.makedirs(frames_dir, exist_ok=True)

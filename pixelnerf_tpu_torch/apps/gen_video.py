@@ -25,7 +25,8 @@ from ..data import dataset_kwargs_from_conf, get_split_dataset
 from ..eval.common import FullRenderer
 from ..render.renderer import RenderConfig
 from ..utils import geometry, gif, png
-from .args import parse_args
+from ..parallel.mesh import is_main_process
+from .args import device_and_mesh, parse_args
 from .eval import load_net_and_state
 
 
@@ -45,6 +46,8 @@ def extra_args(parser):
                              "spherical orbit otherwise (reference behavior)")
     parser.add_argument("--output", "-O", type=str, default="video_out")
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--no_mesh", action="store_true",
+                        help="no mesh of ranks even under torchrun (each process renders alone)")
 
 
 def spherical_trajectory(num_views, elevation, radius):
@@ -131,7 +134,8 @@ def render_frames(renderer, enc, rays, generator):
 
 def main(argv=None):
     args, conf = parse_args(extra_args, argv=argv)
-    device = torch.device(args.device)
+    device, mesh = device_and_mesh(args)
+    main_rank = is_main_process()     # rank 0 alone writes and prints
     dset = get_split_dataset(
         args.dataset_format, args.datadir, want_split=args.split, training=False,
         **dataset_kwargs_from_conf(conf),
@@ -147,7 +151,7 @@ def main(argv=None):
         raise ValueError("no valid source views")
 
     net = load_net_and_state(args, conf, device)
-    renderer = FullRenderer(net, cfg, ray_chunk=args.ray_batch_size, debug_nans=args.debug_nans)
+    renderer = FullRenderer(net, cfg, ray_chunk=args.ray_batch_size, debug_nans=args.debug_nans, mesh=mesh)
 
     traj = args.traj
     if traj == "auto":
@@ -172,7 +176,10 @@ def main(argv=None):
     frames = []
     for frame in render_frames(renderer, enc, rays, torch.Generator(device=device).manual_seed(args.seed)):
         frames.append(frame)
-        print(f"frame {len(frames)}/{len(rays)}")
+        if main_rank:
+            print(f"frame {len(frames)}/{len(rays)}")
+    if not main_rank:
+        return frames
 
     os.makedirs(args.output, exist_ok=True)
     name = f"{args.name}_obj{args.subset}"

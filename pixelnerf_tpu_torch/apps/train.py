@@ -20,11 +20,12 @@ from ..config import ConfigNode
 from ..data import RayBatchPipeline, dataset_kwargs_from_conf, get_split_dataset
 from ..eval.common import FullRenderer, depth_cmap
 from ..models import load_pretrained_encoder, make_model
+from ..parallel.mesh import is_main_process
 from ..render.renderer import RenderConfig, RenderSchedule
 from ..train.trainer import Trainer
 from ..utils import geometry, metrics
 from ..utils.profiling import trace
-from .args import parse_args
+from .args import device_and_mesh, parse_args
 
 
 def extra_args(parser):
@@ -52,6 +53,8 @@ def extra_args(parser):
                         help="torchvision resnet state_dict (.pth) to initialize the "
                         "spatial encoder from ImageNet weights, as the reference does")
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--no_mesh", action="store_true",
+                        help="no mesh of ranks even under torchrun (each process trains alone)")
 
 
 # rays per chunk of the visual's full-frame render: with its weights, the
@@ -59,12 +62,13 @@ def extra_args(parser):
 VIS_RAY_CHUNK = 1024
 
 
-def make_vis_step(net, vis_dset, render_cfg, views):
+def make_vis_step(net, vis_dset, render_cfg, views, mesh=None):
     """The trainer's visual: one full novel view of a seeded object of
     ``vis_dset`` from its first source views, one row per pass with the
     columns [source | gt | depth colormap | rgb | alpha], and its PSNR
-    (the fine pass's where there is one)."""
-    vis_renderer = FullRenderer(net, render_cfg, ray_chunk=VIS_RAY_CHUNK, want_weights=True)
+    (the fine pass's where there is one). With a ``mesh`` every rank
+    renders its slice of the view's rays."""
+    vis_renderer = FullRenderer(net, render_cfg, ray_chunk=VIS_RAY_CHUNK, want_weights=True, mesh=mesh)
 
     def vis_step(generator, epoch, batch_idx):
         d = vis_dset[int(np.random.default_rng(epoch * 1000 + batch_idx).integers(len(vis_dset)))]
@@ -109,7 +113,8 @@ def make_vis_step(net, vis_dset, render_cfg, views):
             ))
             psnr = metrics.psnr(rgb, gt)  # fine overwrites coarse
         vis = np.concatenate(rows, axis=0)
-        print(f"*** vis psnr {psnr:.2f}")
+        if is_main_process():
+            print(f"*** vis psnr {psnr:.2f}")
         return vis, {"psnr": psnr}
 
     return vis_step
@@ -118,7 +123,9 @@ def make_vis_step(net, vis_dset, render_cfg, views):
 def main(argv=None):
     args, conf = parse_args(extra_args, default_ray_batch_size=128, argv=argv)
     views = tuple(int(v) for v in args.nviews.split())
-    device = torch.device(args.device)
+    device, mesh = device_and_mesh(args, data=args.mesh_data, ray=args.mesh_ray)
+    if mesh is not None and is_main_process():
+        print("Device mesh:", dict(mesh.shape))
 
     dset_kwargs = dataset_kwargs_from_conf(conf)
     train_dset = get_split_dataset(args.dataset_format, args.datadir, want_split="train", **dset_kwargs)
@@ -158,9 +165,11 @@ def main(argv=None):
     if args.pretrained_encoder:
         # resume (inside Trainer) still wins over this warm start
         load_pretrained_encoder(net, torch.load(args.pretrained_encoder, map_location=device, weights_only=True))
-        print(f"Encoder initialized from {args.pretrained_encoder}")
+        if is_main_process():
+            print(f"Encoder initialized from {args.pretrained_encoder}")
     n_params = sum(p.numel() for p in net.parameters())
-    print(f"Model parameters: {n_params / 1e6:.2f}M; d_in={net.d_in} device={device}")
+    if is_main_process():
+        print(f"Model parameters: {n_params / 1e6:.2f}M; d_in={net.d_in} device={device}")
 
     trainer = Trainer(
         net=net,
@@ -178,14 +187,15 @@ def main(argv=None):
         epoch_batches=args.epoch_batches,
         train_encoder=not args.freeze_enc,
         resume=args.resume,
-        vis_fn=make_vis_step(net, test_dset if has_test else train_dset, render_cfg, views),
+        vis_fn=make_vis_step(net, test_dset if has_test else train_dset, render_cfg, views, mesh),
         render_schedule=RenderSchedule.from_conf(conf.get_config("renderer", ConfigNode()), render_cfg),
         train_ray_chunk=args.train_ray_chunk,
         train_remat={"true": True, "false": False}.get(args.train_remat, args.train_remat),
         seed=args.seed,
         debug_nans=args.debug_nans,
+        mesh=mesh,
     )
-    with trace(args.profile_dir):
+    with trace(args.profile_dir if is_main_process() else None):
         trainer.start()
     return trainer
 

@@ -3,7 +3,8 @@
 
 The eval and serving paths render NV*H*W rays per object in fixed-size
 chunks; here each chunk is one ``render_rays`` call in a Python loop
-(PyTorch runs eagerly, so no chunk is padded).
+(PyTorch runs eagerly, so no chunk is padded, but on a mesh to a multiple
+of its ranks).
 """
 from __future__ import annotations
 
@@ -15,6 +16,27 @@ import torch
 
 from ..render.renderer import RenderConfig, render_rays_chunked
 from ..utils.nans import raise_if_not_finite
+
+
+def field(net, enc, fast: bool = False, use_kernels: bool = True, staged: bool = True):
+    """The renderer's field for ``net`` on ``enc``: the staged pair
+    ``(features_fn, mlp_fn)`` (the fine pass reuses the coarse samples'
+    features), or ``net.query`` unstaged when ``staged`` is False or the
+    encoding is baked per MLP (``bake_encoding`` of a model with a separate
+    fine MLP, whose staged pair would feed the fine MLP the coarse MLP's
+    injections)."""
+
+    def features_fn(xyz, viewdirs):
+        return net.query_features(enc, xyz, viewdirs, use_kernels=use_kernels)
+
+    def mlp_fn(feats, coarse):
+        return net.query_mlp(enc, feats, coarse=coarse, fast=fast, use_kernels=use_kernels)
+
+    def query_fn(xyz, viewdirs, coarse):
+        return net.query(enc, xyz, viewdirs, coarse=coarse, fast=fast, use_kernels=use_kernels)
+
+    baked_per_mlp = enc.tz_coarse is not None and net.mlp_fine is not None
+    return (features_fn, mlp_fn) if (staged and not baked_per_mlp) else query_fn
 
 
 class FullRenderer:
@@ -32,6 +54,9 @@ class FullRenderer:
         comparing the two on the card
     :param debug_nans: raise ``FloatingPointError`` at a render output that
         holds a NaN or an infinity (the apps' ``--debug_nans``)
+    :param mesh: a ``parallel.Mesh``: every rank renders its slice of each
+        chunk's rays (one render per chunk, no microbatches), and every
+        rank gets the whole result; every rank of the mesh must call it
     """
 
     def __init__(
@@ -44,6 +69,7 @@ class FullRenderer:
         use_kernels: bool = True,
         staged: bool = True,
         debug_nans: bool = False,
+        mesh=None,
     ):
         self.net = net
         self.cfg = cfg
@@ -53,6 +79,12 @@ class FullRenderer:
         self.use_kernels = use_kernels
         self.staged = staged
         self.debug_nans = debug_nans
+        self.mesh = mesh
+        if mesh is not None:
+            from ..parallel.render import make_sharded_render
+
+            self._sharded = make_sharded_render(net, cfg, mesh, want_weights, fast=fast, staged=staged,
+                                                use_kernels=use_kernels)
 
     @torch.inference_mode()
     def render_batch(
@@ -68,29 +100,39 @@ class FullRenderer:
         :param noise: one pre-drawn noise dict per ray chunk (see
             ``render/renderer.py``), or None to draw from ``generator``
         """
-        net = self.net
-
-        def features_fn(xyz, viewdirs):
-            return net.query_features(enc, xyz, viewdirs, use_kernels=self.use_kernels)
-
-        def mlp_fn(feats, coarse):
-            return net.query_mlp(
-                enc, feats, coarse=coarse, fast=self.fast, use_kernels=self.use_kernels
+        if self.mesh is not None:
+            out = self._render_sharded(enc, rays, generator, noise)
+        else:
+            q = field(self.net, enc, self.fast, self.use_kernels, self.staged)
+            out = render_rays_chunked(
+                q, rays, self.cfg, self.ray_chunk, generator, noise, self.want_weights, self.net.use_viewdirs,
             )
-
-        def query_fn(xyz, viewdirs, coarse):
-            return net.query(
-                enc, xyz, viewdirs, coarse=coarse, fast=self.fast, use_kernels=self.use_kernels
-            )
-
-        baked_per_mlp = enc.tz_coarse is not None and net.mlp_fine is not None
-        q = (features_fn, mlp_fn) if (self.staged and not baked_per_mlp) else query_fn
-        out = render_rays_chunked(
-            q, rays, self.cfg, self.ray_chunk, generator, noise, self.want_weights, net.use_viewdirs,
-        )
         if self.debug_nans:
             raise_if_not_finite("the render output", out)
         return out
+
+    def _render_sharded(self, enc, rays, generator, noise):
+        """The mesh path: each chunk of ``ray_chunk`` rays, padded to a
+        multiple of the mesh's ranks with copies of its last ray, is one
+        sharded render (each rank renders its slice, the results are
+        gathered), then trimmed."""
+        from ..parallel.mesh import shard_rays
+
+        size = self.mesh.size
+        outs = []
+        for i, start in enumerate(range(0, rays.shape[1], self.ray_chunk)):
+            part = rays[:, start : start + self.ray_chunk]
+            n = part.shape[1]
+            pad = -n % size
+            chunk_noise = None if noise is None else noise[i]
+            if pad:
+                part = torch.cat([part, part[:, -1:].expand(-1, pad, -1)], dim=1)
+                if chunk_noise is not None:
+                    chunk_noise = {k: torch.cat([v, v[:, -1:].expand(-1, pad, -1)], dim=1)
+                                   for k, v in chunk_noise.items()}
+            out = self._sharded(enc, shard_rays(self.mesh, part), generator, chunk_noise)
+            outs.append({b: {k: v[:, :n] for k, v in d.items()} for b, d in out.items()})
+        return {b: {k: torch.cat([o[b][k] for o in outs], dim=1) for k in outs[0][b]} for b in outs[0]}
 
     def __call__(self, enc, rays: torch.Tensor, generator=None, noise=None) -> dict:
         """:param rays: (NR, 8) -> {'coarse': {'rgb': (NR, 3), ...}, ...}"""

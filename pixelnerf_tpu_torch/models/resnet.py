@@ -41,10 +41,19 @@ class BatchNorm2d(nn.BatchNorm2d):
     as ``0.9 * running + 0.1 * batch`` with that biased variance (torch
     would store the unbiased one), and the normalisation runs in float32
     before the cast back to the input's dtype.
+
+    ``sync_group``: a process group over which training reduces the
+    statistics, as flax does under ``jit`` over a batch sharded on a mesh's
+    data axis: the sums of x and x^2 and the element count are summed over
+    the group's ranks (autograd-aware, so the backward carries the other
+    ranks' terms) before the mean and the biased variance are taken. None
+    (the default): this process's batch alone. ``parallel.mesh`` sets it
+    for the duration of a sharded train step.
     """
 
     def __init__(self, features: int):
         super().__init__(features, eps=BN_EPS, momentum=0.1)
+        self.sync_group = None
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         dt = x.dtype
@@ -54,8 +63,18 @@ class BatchNorm2d(nn.BatchNorm2d):
                 self.weight.to(dt), self.bias.to(dt), False, 0.0, self.eps,
             )
         xf = x.float()
-        mean = xf.mean(dim=(0, 2, 3))
-        var = xf.square().mean(dim=(0, 2, 3)) - mean.square()
+        if self.sync_group is None:
+            mean = xf.mean(dim=(0, 2, 3))
+            var = xf.square().mean(dim=(0, 2, 3)) - mean.square()
+        else:
+            from torch.distributed.nn.functional import all_reduce
+
+            count = xf.new_full((1,), xf.numel() // xf.shape[1])
+            sums = all_reduce(torch.cat([xf.sum(dim=(0, 2, 3)), xf.square().sum(dim=(0, 2, 3)), count]),
+                              group=self.sync_group)
+            c = xf.shape[1]
+            mean = sums[:c] / sums[-1]
+            var = sums[c : 2 * c] / sums[-1] - mean.square()
         var = torch.maximum(var, var.new_zeros(()))       # jnp.maximum: ties split the gradient
         with torch.no_grad():
             self.running_mean.mul_(1.0 - self.momentum).add_(self.momentum * mean)

@@ -14,6 +14,9 @@ from typing import Dict, List, Optional, Union
 
 import torch
 
+from ..eval.common import FullRenderer
+from ..parallel.mesh import DATA_AXIS, RAY_AXIS, average_over_ranks, local_noise, split_noise, synced_batch_norms
+from ..parallel.render import global_draws
 from ..render.renderer import RenderConfig, render_rays, render_rays_chunked
 from ..utils.nans import raise_if_not_finite
 
@@ -56,11 +59,14 @@ def make_train_step(
     accu_grad: int = 1,
     use_kernels: bool = True,
     debug_nans: bool = False,
+    mesh=None,
 ):
     """Build ``step(batch, generator=None, noise=None) -> metrics``.
 
     batch: images (SB, NS, H, W, 3), poses (SB, NS, 4, 4), focal, c, rays
-    (SB, R, 8), rgb_gt (SB, R, 3), tensors on the model's device.
+    (SB, R, 8), rgb_gt (SB, R, 3), tensors on the model's device; with a
+    ``mesh``, this rank's slice of the global batch (``shard_batch``), whose
+    SB divides the data axis and R the ray axis.
 
     :param optimizer: over the model's parameters; ``torch.optim.Adam(lr,
         betas=(0.9, 0.999), eps=1e-8)`` is ``optax.adam``
@@ -78,11 +84,18 @@ def make_train_step(
         before its backward, and run the step under autograd's anomaly
         detection, which raises at a backward function's NaN output (the
         counterpart of ``jax_debug_nans``; off, it costs nothing)
+    :param mesh: a ``parallel.Mesh`` (the JAX step's ``mesh``): each rank
+        renders its slice of the rays with its slice of the draws made on
+        the global shape, the encoders' batch norms reduce their statistics
+        over the data axis, and the gradients and the losses are averaged
+        over every rank before the update, so that each rank applies the
+        gradient of the mean loss over the global batch. Every rank of the
+        mesh must call the step
     :return: the step; ``noise`` is one pre-drawn noise dict per ray chunk
-        (one entry when the step does not chunk), else the draws come from
-        ``generator``. Metrics: ``rc``, ``rf``, ``t`` (the losses) and
-        ``gnorm`` (the global L2 norm of this call's gradients), detached
-        0-d tensors.
+        (one entry when the step does not chunk; with a mesh, on the global
+        shape), else the draws come from ``generator``. Metrics: ``rc``,
+        ``rf``, ``t`` (the losses) and ``gnorm`` (the global L2 norm of this
+        call's gradients), detached 0-d tensors.
     """
     if accu_grad < 1:
         raise ValueError(f"accu_grad must be >= 1, got {accu_grad}")
@@ -96,12 +109,14 @@ def make_train_step(
     ) -> Dict[str, torch.Tensor]:
         for p in params:
             p.grad = None
-        with anomaly():
+        rays = batch["rays"]
+        if mesh is not None:
+            noise = _local_train_noise(mesh, cfg, rays, ray_chunk, generator, noise)
+        with anomaly(), synced_batch_norms(net, mesh):
             enc = net.encode(
                 batch["images"], batch["poses"], batch["focal"], batch.get("c"), train=train_encoder
             )
             stages = _stages(net, enc, use_kernels, differentiable=True)
-            rays = batch["rays"]
             if ray_chunk is not None and rays.shape[1] > ray_chunk:
                 outputs = render_rays_chunked(
                     stages, rays, cfg, ray_chunk, generator, noise,
@@ -117,6 +132,9 @@ def make_train_step(
                 raise_if_not_finite("the train loss", loss)
             loss.backward()
         grads = [p.grad for p in params]
+        if mesh is not None:
+            metrics = {k: v.detach().clone() for k, v in metrics.items()}
+            average_over_ranks(mesh, grads + list(metrics.values()))
         sq = [g.float().square().sum() for g in grads if g is not None]
         gnorm = torch.sqrt(torch.stack(sq).sum()) if sq else torch.zeros(())
         update = True
@@ -141,18 +159,40 @@ def make_train_step(
     return step
 
 
-def make_eval_step(net, cfg: RenderConfig, loss_fn):
+def _local_train_noise(mesh, cfg, rays, ray_chunk, generator, noise):
+    """This rank's draws for its (SB / data, R / ray) block of the rays, one
+    dict per chunk of its render: the global draws (``noise``, else drawn
+    from ``generator`` as the single-process step draws them) sliced."""
+    SB, R = rays.shape[0] * mesh.shape[DATA_AXIS], rays.shape[1] * mesh.shape[RAY_AXIS]
+    if noise is None:
+        if generator is None:
+            raise ValueError("pass a torch.Generator or pre-drawn noise")
+        chunked = ray_chunk is not None and R > ray_chunk
+        noise = global_draws(cfg, generator, (SB, R), ray_chunk if chunked else None, rays.device, rays.dtype,
+                             train=True)
+    sb = slice(mesh.data_index * rays.shape[0], (mesh.data_index + 1) * rays.shape[0])
+    b = slice(mesh.ray_index * rays.shape[1], (mesh.ray_index + 1) * rays.shape[1])
+    return split_noise(local_noise(noise, sb, b), ray_chunk)
+
+
+def make_eval_step(net, cfg: RenderConfig, loss_fn, mesh=None):
     """Loss-only step on a held-out batch: ``eval_step(batch, generator=None,
     noise=None) -> metrics``, no gradients, the unchunked inference render
-    (kernel A's gather)."""
+    (kernel A's gather). With a ``mesh`` every rank takes the whole batch
+    and renders its slice of the rays (``FullRenderer(mesh=)``); every rank
+    of the mesh must call it."""
 
     @torch.no_grad()
     def step(batch, generator=None, noise=None):
         enc = net.encode(batch["images"], batch["poses"], batch["focal"], batch.get("c"))
-        outputs = render_rays(
-            _stages(net, enc, use_kernels=True, differentiable=False), batch["rays"], cfg,
-            generator, noise, use_viewdirs=net.use_viewdirs,
-        )
+        if mesh is not None:
+            renderer = FullRenderer(net, cfg, ray_chunk=batch["rays"].shape[1], mesh=mesh)
+            outputs = renderer.render_batch(enc, batch["rays"], generator, None if noise is None else [noise])
+        else:
+            outputs = render_rays(
+                _stages(net, enc, use_kernels=True, differentiable=False), batch["rays"], cfg,
+                generator, noise, use_viewdirs=net.use_viewdirs,
+            )
         _, metrics = loss_fn(outputs, batch["rgb_gt"])
         return metrics
 

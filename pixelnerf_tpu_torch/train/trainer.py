@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from ..config import ConfigNode
+from ..parallel.mesh import is_main_process, shard_batch
 from ..render.renderer import RenderConfig
 from ..utils import png
 from .loss import make_render_loss
@@ -50,8 +51,13 @@ class Trainer:
         visual_dir: Optional[str] = None,
         log_dir: Optional[str] = None,
         debug_nans: bool = False,
+        mesh=None,
     ):
         self.net = net
+        # a mesh of ranks (parallel.make_mesh): each step takes this rank's
+        # slice of the batch; rank 0 alone prints and writes files
+        self.mesh = mesh
+        self.is_main = is_main_process()
         self.device = next(net.parameters()).device
         self.render_cfg = render_cfg
         self.name = name
@@ -71,8 +77,9 @@ class Trainer:
         self.ckpt_dir = ckpt_dir or os.path.join(out_dir, "checkpoints", name)
         self.visual_dir = visual_dir or os.path.join(out_dir, "visuals", name)
         self._log_dir = log_dir or os.path.join(out_dir, "logs", name)
-        os.makedirs(self.ckpt_dir, exist_ok=True)
-        os.makedirs(self.visual_dir, exist_ok=True)
+        if self.is_main:
+            os.makedirs(self.ckpt_dir, exist_ok=True)
+            os.makedirs(self.visual_dir, exist_ok=True)
 
         # per-epoch ExponentialLR as a staircase: an epoch is
         # epoch_batches * num_epoch_repeats optimizer updates
@@ -110,7 +117,7 @@ class Trainer:
         self._vis_gen = self._generator(0xFFFFFFFF)   # a counter the steps never reach
 
         self.writer = None
-        if os.environ.get("PIXELNERF_NO_TB") != "1":
+        if self.is_main and os.environ.get("PIXELNERF_NO_TB") != "1":
             try:
                 from torch.utils.tensorboard import SummaryWriter
 
@@ -128,9 +135,9 @@ class Trainer:
                 make_train_step(
                     self.net, cfg, self.optimizer, self.loss_fn,
                     train_encoder=self.train_encoder, ray_chunk=self.train_ray_chunk,
-                    remat=self.train_remat, accu_grad=self.accu_grad, debug_nans=self.debug_nans,
+                    remat=self.train_remat, accu_grad=self.accu_grad, debug_nans=self.debug_nans, mesh=self.mesh,
                 ),
-                make_eval_step(self.net, cfg, self.loss_fn),
+                make_eval_step(self.net, cfg, self.loss_fn, mesh=self.mesh),
             )
         return self._step_cache[cfg]
 
@@ -168,6 +175,9 @@ class Trainer:
 
     def _print_pending(self):
         p_epoch, p_bidx, p_step, p_metrics, p_dt = self._pending
+        self._pending = None
+        if not self.is_main:
+            return
         p_metrics = {k: float(v) for k, v in p_metrics.items()}
         print(
             f"E{p_epoch} B{p_bidx} "
@@ -175,7 +185,6 @@ class Trainer:
             + f" ({p_dt:.2f}s)"
         )
         self._log("train", p_metrics, p_step)
-        self._pending = None
 
     def start(self):
         train_iter = iter(self.train_pipeline)
@@ -199,7 +208,10 @@ class Trainer:
         t_last = time.time()
         for epoch in range(self.num_epochs):
             for batch_idx in range(self.epoch_batches * self.num_epoch_repeats):
-                batch = self._to_device(next(train_iter))
+                batch = next(train_iter)
+                if self.mesh is not None:
+                    batch = shard_batch(self.mesh, {k: v for k, v in batch.items() if k != "step"})
+                batch = self._to_device(batch)
                 if self.render_schedule is not None:
                     cfg = self.render_schedule.at_step(self.step)
                     if cfg not in self._step_cache:
@@ -224,22 +236,24 @@ class Trainer:
                     test_batch = self._to_device(next(test_iter))
                     test_metrics = self.eval_step(test_batch, generator=self._eval_gen)
                     test_metrics = {k: float(v) for k, v in test_metrics.items()}
-                    print("*** eval: " + " ".join(f"{k}:{v:.5f}" for k, v in test_metrics.items()))
-                    self._log("test", test_metrics, self.step)
+                    if self.is_main:
+                        print("*** eval: " + " ".join(f"{k}:{v:.5f}" for k, v in test_metrics.items()))
+                        self._log("test", test_metrics, self.step)
 
-                if batch_idx % self.save_interval == 1 and (epoch > 0 or batch_idx > 0):
+                if batch_idx % self.save_interval == 1 and (epoch > 0 or batch_idx > 0) and self.is_main:
                     save_checkpoint(self.ckpt_dir, self.net, self.optimizer, self.step)
                     self.extra_save_state()
 
                 if self.vis_fn is not None and batch_idx % self.vis_interval == 1:
                     vis, vis_metrics = self.vis_fn(self._vis_gen, epoch, batch_idx)
-                    if vis is not None:
+                    if vis is not None and self.is_main:
                         self._save_visual(vis, epoch, batch_idx)
                     if vis_metrics:
                         self._log("vis", vis_metrics, self.step)
 
                 self.post_batch(epoch, batch_idx)
-            save_checkpoint(self.ckpt_dir, self.net, self.optimizer, self.step)
+            if self.is_main:
+                save_checkpoint(self.ckpt_dir, self.net, self.optimizer, self.step)
 
     def _save_visual(self, vis: np.ndarray, epoch: int, batch_idx: int):
         path = os.path.join(self.visual_dir, f"{epoch:04d}_{batch_idx:04d}_vis.png")

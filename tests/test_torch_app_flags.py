@@ -1,7 +1,9 @@
-"""The port's apps take every flag of the JAX apps' parsers but the mesh
-flags: ``--gpu_id`` (ignored), ``--cpu`` (``--device cpu``) and
-``--debug_nans`` (a non-finite train loss or render output raises), on
-the CPU. No JAX model is built and no JAX step compiled."""
+"""The port's apps take every flag of the JAX apps' parsers: ``--gpu_id``
+(ignored), ``--cpu`` (``--device cpu``), ``--debug_nans`` (a non-finite
+train loss or render output raises) and the mesh flags ``--no_mesh``,
+``--mesh_data``, ``--mesh_ray`` (a mesh of ranks only under a process
+group of more than one rank), on the CPU. No JAX model is built and no
+JAX step compiled."""
 import importlib
 
 import numpy as np
@@ -17,9 +19,7 @@ from pixelnerf_tpu_torch.train import make_render_loss, make_train_step
 
 from torch_port_utils import FOCAL, W, novel_rays, small_conf, source_view, t
 
-APPS = ["train", "eval", "eval_approx", "gen_video", "eval_real"]
-# the multi-GPU slice's flags, not ported yet
-MESH_FLAGS = {"--no_mesh", "--mesh_data", "--mesh_ray"}
+APPS = ["train", "eval", "eval_approx", "gen_video", "eval_real", "recon"]
 
 
 class _Parser(Exception):
@@ -44,8 +44,9 @@ def _flags(package, app):
 @pytest.mark.parametrize("app", APPS)
 def test_port_apps_take_every_flag_of_the_jax_apps(app):
     jax_flags = _flags("pixelnerf_tpu", app)
-    assert {"--gpu_id", "--cpu", "--debug_nans"} <= jax_flags
-    assert jax_flags - MESH_FLAGS <= _flags("pixelnerf_tpu_torch", app)
+    assert {"--gpu_id", "--cpu", "--debug_nans", "--mesh_data", "--mesh_ray"} <= jax_flags
+    assert ("--no_mesh" in jax_flags) == (app != "recon")
+    assert jax_flags <= _flags("pixelnerf_tpu_torch", app)
     mod = importlib.import_module(f"pixelnerf_tpu_torch.apps.{app}")
     args, _ = mod.parse_args(mod.extra_args, argv=["--gpu_id", "0", "--cpu", "--debug_nans"])
     assert (args.gpu_id, args.device, args.debug_nans) == ("0", "cpu", True)
@@ -58,6 +59,25 @@ def test_port_apps_take_every_flag_of_the_jax_apps(app):
 def test_cpu_flag_is_device_cpu(argv, device):
     args, _ = port_args.parse_args(argv=argv)
     assert args.device == device and not args.debug_nans
+
+
+@pytest.mark.parametrize("argv, world", [
+    ([], "1"), (["--mesh_data", "2", "--mesh_ray", "1"], None), (["--no_mesh"], "4"),
+])
+def test_mesh_flags_build_a_mesh_only_over_several_ranks(argv, world, monkeypatch):
+    """``device_and_mesh``: no mesh without a process group of more than
+    one rank (``WORLD_SIZE`` from torchrun's environment) or with
+    ``--no_mesh``; the device is ``--device`` then."""
+    from pixelnerf_tpu_torch.apps import train
+
+    if world is None:
+        monkeypatch.delenv("WORLD_SIZE", raising=False)
+    else:
+        monkeypatch.setenv("WORLD_SIZE", world)
+    args, _ = train.parse_args(train.extra_args, argv=argv + ["--cpu"])
+    assert (args.mesh_data, args.mesh_ray) == ((2, 1) if "--mesh_data" in argv else (None, None))
+    device, mesh = port_args.device_and_mesh(args, args.mesh_data, args.mesh_ray)
+    assert device == torch.device("cpu") and mesh is None
 
 
 def test_cpu_and_a_cuda_device_disagree(capsys):

@@ -20,8 +20,6 @@ import re
 import subprocess
 import sys
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -29,44 +27,14 @@ import torch
 from torch_port_utils import (
     REPO,
     SRN_CONF,
+    TINY,
+    TINY_OVERRIDES as OVERRIDES,
     write_dtu_fixture,
+    write_jax_reference_weights as _jax_weights,
     write_multi_obj_fixture,
     write_nmr_fixture,
     write_srn_fixture,
 )
-
-OVERRIDES = {
-    "model.encoder.num_layers": "2", "model.mlp_coarse.d_hidden": "32", "model.mlp_fine.d_hidden": "32",
-    "renderer.n_coarse": "8", "renderer.n_fine": "4", "renderer.n_fine_depth": "2",
-    "data.image_size": "[32, 32]",
-}
-TINY = [a for k, v in OVERRIDES.items() for a in ("--override", f"{k}={v}")]
-
-
-def _jax_weights(path):
-    """A JAX model of the TINY config, its variables moved off the init,
-    written as a reference ``pixel_nerf_latest`` that both packages' apps
-    load."""
-    from pixelnerf_tpu.config import load_config as jax_load_config
-    from pixelnerf_tpu.models import make_model as jax_make_model
-    from pixelnerf_tpu.train.state import TrainState, export_torch_checkpoint
-
-    from torch_port_utils import perturb
-
-    conf = jax_load_config(SRN_CONF)
-    conf["model"]["encoder"]["num_layers"] = 2
-    conf["model"]["mlp_coarse"]["d_hidden"] = conf["model"]["mlp_fine"]["d_hidden"] = 32
-    net = jax_make_model(conf["model"])
-    variables = net.init(jax.random.PRNGKey(0), jnp.zeros((1, 1, 32, 32, 3)), jnp.tile(jnp.eye(4), (1, 1, 1, 1)),
-                         jnp.asarray(40.0), jnp.zeros((1, 4, 3)), jnp.ones((1, 4, 3)))
-    variables = perturb(jax.tree_util.tree_map(np.asarray, jax.device_get(variables)), 1)
-    for mlp in ("mlp_coarse", "mlp_fine"):
-        variables["params"][mlp]["lin_out"]["bias"][3] += 3.0
-    os.makedirs(os.path.dirname(path), exist_ok=True)
-    state = TrainState(params=variables["params"], batch_stats=variables["batch_stats"], opt_state=None,
-                       step=jnp.zeros((), jnp.int32))
-    export_torch_checkpoint(state, path)
-
 
 @pytest.fixture(scope="module")
 def work(tmp_path_factory):

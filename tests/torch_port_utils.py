@@ -111,6 +111,36 @@ def build_pair(d_hidden=64, num_layers=2, dtype=None, seed=0, SB=1):
     return jnet, variables, tnet, jconf, tconf
 
 
+# the apps' tests' model: the SRN config narrowed by --override flags
+TINY_OVERRIDES = {
+    "model.encoder.num_layers": "2", "model.mlp_coarse.d_hidden": "32", "model.mlp_fine.d_hidden": "32",
+    "renderer.n_coarse": "8", "renderer.n_fine": "4", "renderer.n_fine_depth": "2",
+    "data.image_size": "[32, 32]",
+}
+TINY = [a for k, v in TINY_OVERRIDES.items() for a in ("--override", f"{k}={v}")]
+
+
+def write_jax_reference_weights(path):
+    """A JAX model of the TINY config, its variables moved off the init,
+    written as a reference ``pixel_nerf_latest`` that both packages' apps
+    load."""
+    from pixelnerf_tpu.train.state import TrainState, export_torch_checkpoint
+
+    conf = jax_load_config(SRN_CONF)
+    conf["model"]["encoder"]["num_layers"] = 2
+    conf["model"]["mlp_coarse"]["d_hidden"] = conf["model"]["mlp_fine"]["d_hidden"] = 32
+    net = jax_make_model(conf["model"])
+    variables = net.init(jax.random.PRNGKey(0), jnp.zeros((1, 1, 32, 32, 3)), jnp.tile(jnp.eye(4), (1, 1, 1, 1)),
+                         jnp.asarray(40.0), jnp.zeros((1, 4, 3)), jnp.ones((1, 4, 3)))
+    variables = perturb(jax.tree_util.tree_map(np.asarray, jax.device_get(variables)), 1)
+    for mlp in ("mlp_coarse", "mlp_fine"):
+        variables["params"][mlp]["lin_out"]["bias"][3] += 3.0
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    state = TrainState(params=variables["params"], batch_stats=variables["batch_stats"], opt_state=None,
+                       step=jnp.zeros((), jnp.int32))
+    export_torch_checkpoint(state, path)
+
+
 def mlp_pair(dtype="float32", d_hidden=64, d_latent=128, seed=0):
     """A JAX ResnetFC (42 -> 5 blocks, combine_layer 3) with perturbed
     variables and the port's ResnetFC holding the same weights."""
