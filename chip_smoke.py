@@ -115,6 +115,15 @@ Phases, one JSON line each:
     ``apps.train --profile_dir`` for 2 steps (C, C-bwd; the trace names the
     port's kernels)
 
+21b. preproc (run after 21, on srn_workflow's checkpoint): ``apps.preproc
+    --backend grabcut`` on ``raw/photo1.png`` and ``raw/photo2.png``
+    (420x420), GrabCut's per-pixel work on the card, then with ``--cpu``;
+    the card's outputs held to the CPU's (equal, or foreground IoU >= 0.99
+    with the differing pixels counted); per photo the ms of each step (each
+    GrabCut pass's device work and host cut apart), the foreground share,
+    the ellipse and crop radius; then ``apps.eval_real --debug_nans`` on
+    the card's outputs at 128x128 (4 views each; A, launches counted)
+
 22. recon (run after 21, on srn_workflow's fixture and checkpoint; SRN
     model, f32): a level from ``eval_sigma_grid`` at 32^3 (its 95th
     percentile), then ``apps.recon --reso 128`` (2,097,152 points in 32
@@ -1375,6 +1384,7 @@ def run_srn_workflow(dev, tmp):
 # real-image input, and the seed of the LPIPS weights
 VIDEO_FRAMES = {"spherical": 8, "spline": 4}
 REAL_VIEWS = 4
+PREPROC_PHOTOS = ("photo1.png", "photo2.png")   # committed 420x420 photos under raw/
 LPIPS_SEED = 11
 
 
@@ -1760,6 +1770,90 @@ def run_recon(dev, tmp):
         raise AssertionError(f"recon: the grid chunk through kernel A differs from plain: {err}")
     emit(rec)
     return rec
+
+
+def run_preproc(dev, tmp):
+    """``apps.preproc --backend grabcut`` on the committed 420x420 photos
+    ``raw/photo1.png`` and ``raw/photo2.png``, GrabCut's per-pixel work on
+    the card, then the same app with ``--cpu``: the card's
+    ``*_normalize.png`` held to the CPU's (equal, or a foreground IoU of
+    at least 0.99 with the count of differing pixels printed, where the
+    float64 densities round differently on the two devices); per photo the
+    ms of each step (read, each GrabCut pass's per-pixel work and host cut,
+    cleanup, ellipse, resize, write), the mask's foreground share, the
+    ellipse and the crop radius; a non-empty mask and a 128x128x3 output
+    with white and non-white pixels. Then ``apps.eval_real --debug_nans``
+    on the card's outputs (the SRN workflow's checkpoint in ``tmp``, f32,
+    ``REAL_VIEWS`` views each; kernel A, its launches counted)."""
+    import shutil
+
+    import numpy as np
+
+    from pixelnerf_tpu_torch.apps import eval_real, preproc
+    from pixelnerf_tpu_torch.apps.args import parse_args
+    from pixelnerf_tpu_torch.utils import png
+
+    smi = nvidia_smi_line()
+    raw = os.path.join(tmp, "preproc_raw")
+    os.makedirs(raw)
+    for name in PREPROC_PHOTOS:
+        shutil.copy(os.path.join(REPO, "raw", name), raw)
+    outs = {"card": os.path.join(tmp, "preproc_card"), "cpu": os.path.join(tmp, "preproc_cpu")}
+    runs = {}
+    for where, flags in (("card", ["--device", str(dev)]), ("cpu", ["--cpu"])):
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        report, _, seconds, got = run_app(preproc, ["--input", raw, "--output", outs[where], "--backend",
+                                                    "grabcut", "--size", str(IMAGE)] + flags)
+        runs[where] = {"report": report, "seconds": seconds, "launches": got,
+                       "peak_memory_mb": (torch.cuda.max_memory_allocated() - before) / 1e6}
+        if any(got.values()):
+            raise AssertionError(f"preproc ({where}) launched a kernel: {got}")
+    # the card's run works on the card, the CPU's does not touch it
+    if runs["card"]["peak_memory_mb"] <= 0 or runs["cpu"]["peak_memory_mb"] != 0:
+        raise AssertionError(f"preproc: device memory of the card's and the CPU's runs: "
+                             f"{[runs[w]['peak_memory_mb'] for w in runs]} MB")
+    for name in PREPROC_PHOTOS:
+        path = os.path.join(raw, name)
+        base = os.path.splitext(name)[0] + "_normalize.png"
+        card, cpu = (png.imread(os.path.join(outs[w], base)) for w in ("card", "cpu"))
+        rep = runs["card"]["report"][path]
+        fg_card, fg_cpu = np.any(card < 255, -1), np.any(cpu < 255, -1)
+        iou = float((fg_card & fg_cpu).sum() / max((fg_card | fg_cpu).sum(), 1))
+        rec = {"phase": "preproc", "photo": name, "card": smi, "ms_card": rep["ms"],
+               "ms_cpu": runs["cpu"]["report"][path]["ms"], "foreground": rep["foreground"],
+               "ellipse_center": rep["center"], "ellipse_axes": rep["axes"], "crop_radius": rep["radius"],
+               "foreground_cpu": runs["cpu"]["report"][path]["foreground"],
+               "differing_pixels_card_vs_cpu": int(np.any(card != cpu, -1).sum()), "foreground_iou": iou,
+               "output_shape": list(card.shape), "app_seconds": {w: runs[w]["seconds"] for w in runs},
+               "peak_memory_mb_card": runs["card"]["peak_memory_mb"]}
+        emit(rec)
+        if not rep["foreground"] > 0:
+            raise AssertionError(f"preproc {name}: an empty mask")
+        if card.shape != (IMAGE, IMAGE, 3) or not (card == 255).all(-1).any() or fg_card.sum() == 0:
+            raise AssertionError(f"preproc {name}: the output is not a 128x128x3 white composite: {rec}")
+        if iou < 0.99:
+            raise AssertionError(f"preproc {name}: the card's output differs from the CPU's: {rec}")
+
+    out = os.path.join(tmp, "preproc_real_out")
+    argv = ["-c", os.path.join(REPO, "conf", "exp", "srn.conf"), "--device", str(dev), "--checkpoints_path",
+            os.path.join(tmp, "ck"), "--input", outs["card"], "--size", str(IMAGE), "--num_views",
+            str(REAL_VIEWS), "--debug_nans", "-O", out]
+    _, lines, seconds, got = run_app(eval_real, argv)
+    chunk = int(parse_args(eval_real.extra_args, argv=argv)[0].ray_batch_size)
+    expect = {k: 0 for k in got}
+    expect["gather_bilerp"] = 2 * len(PREPROC_PHOTOS) * REAL_VIEWS * -(-IMAGE * IMAGE // chunk)
+    frames = [png.imread(os.path.join(out, f"{os.path.splitext(n)[0]}_normalize_frames", f"{i:04}.png"))
+              for n in PREPROC_PHOTOS for i in range(REAL_VIEWS)]
+    rec = {"phase": "preproc_eval_real", "card": smi, "seconds": seconds,
+           "ms_per_view_app": seconds * 1e3 / (len(PREPROC_PHOTOS) * REAL_VIEWS), "launches": got,
+           "expected_launches": expect, "printed": lines}
+    emit(rec)
+    if got != expect:
+        raise AssertionError(f"preproc eval_real: launch counts {got} != expected {expect}")
+    if not all(f.shape == (IMAGE, IMAGE, 3) and f.std() > 0 for f in frames):
+        raise AssertionError("preproc eval_real: degenerate frames")
+    return {"runs": runs, "launches": got}
 
 
 def run_parallel(dev, net, cfg, enc, pose):
@@ -2597,6 +2691,7 @@ def main():
     with tempfile.TemporaryDirectory() as srn_tmp:
         srn = run_srn_workflow(dev, srn_tmp)
         apps = run_apps_workflow(dev, srn_tmp, train_runs["b"])
+        preproc = run_preproc(dev, srn_tmp)
         recon = run_recon(dev, srn_tmp)
     dtu = run_dtu_workflow(dev)
     for k in train_launches:
@@ -2657,13 +2752,15 @@ def main():
     keys = ("name", "route", "source", "replaces", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")
     # launches: A over the staged inference path, the SRN and DTU
-    # workflows, the video and real-image apps, recon and the sharded
+    # workflows, the video and real-image apps, eval_real on preproc's
+    # outputs, recon and the sharded
     # render, B over the staged path and the sharded render, B's z_is_tz
     # variant over the baked path, D over the fused path, C and C-bwd over
     # both training configs, the train app, the two workflows, the "dots"
     # run, the profiled train app and the sharded train step, the study's
     # formulations over its bench script
-    launches["gather_bilerp"] += sum(r["launches"]["gather_bilerp"] for r in (srn, dtu, apps, recon, parallel))
+    launches["gather_bilerp"] += sum(r["launches"]["gather_bilerp"] for r in (srn, dtu, apps, preproc, recon,
+                                                                             parallel))
     launches["fused_resnetfc_infer"] += parallel["launches"]["fused_resnetfc_infer"]
     launches.update(train_launches)
     launches["fused_resnetfc_infer[z_is_tz]"] = baked_res["launches"]["fused_resnetfc_infer"]

@@ -23,9 +23,10 @@ import numpy as np
 import torch
 
 from ..config import ConfigNode
-from ..eval.common import FullRenderer, resize_area_like_cv2
+from ..eval.common import FullRenderer
 from ..render.renderer import RenderConfig
 from ..utils import geometry, gif, png
+from ..utils.imgproc import resize_area
 from ..parallel.mesh import is_main_process
 from .args import device_and_mesh, parse_args
 from .eval import load_net_and_state
@@ -66,18 +67,6 @@ def gather_inputs(spec: str):
     return [h for h in hits if h.lower().endswith((".png", ".jpg", ".jpeg"))]
 
 
-def resize_uint8_like_cv2(img: np.ndarray, out_h: int, out_w: int) -> np.ndarray:
-    """``cv2.resize(img, (out_w, out_h), interpolation=cv2.INTER_AREA)`` of
-    an (H, W, C) uint8 image, for downscales by 1, 2 or 4 per axis: each
-    block's mean (exact in float32 for uint8 sums), rounded half up by
-    OpenCV's 2x2 path and half to even by its other integer-factor path.
-    Other sizes raise ``NotImplementedError`` (``resize_area_like_cv2``)."""
-    mean = resize_area_like_cv2(img.astype(np.float32), out_h, out_w)
-    if (img.shape[0] // out_h, img.shape[1] // out_w) == (2, 2):
-        return np.floor(mean + 0.5).astype(np.uint8)
-    return np.rint(mean).astype(np.uint8)
-
-
 def read_input(path: str, size: int) -> np.ndarray:
     """The image at ``path`` as a (size, size, 3) array in [-1, 1]."""
     if not path.lower().endswith(".png"):
@@ -87,7 +76,7 @@ def read_input(path: str, size: int) -> np.ndarray:
         )
     img = png.imread(path)[..., :3]
     if img.shape[:2] != (size, size):
-        img = resize_uint8_like_cv2(img, size, size)
+        img = resize_area(img, size, size)
     return (img.astype(np.float32) / 255.0 - 0.5) / 0.5
 
 

@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from ..render.renderer import RenderConfig, render_rays_chunked
+from ..utils.imgproc import resize_area
 from ..utils.nans import raise_if_not_finite
 
 
@@ -183,37 +184,7 @@ def depth_cmap(depth: np.ndarray, z_near: float = None, z_far: float = None):
 
 
 def resize_area_like_cv2(img: np.ndarray, out_h: int, out_w: int) -> np.ndarray:
-    """Area downscale of an (H, W, C) float32 image by a factor of 1, 2 or
-    4 per axis, bit for bit as OpenCV's ``cv2.resize(img, (out_w, out_h),
-    interpolation=cv2.INTER_AREA)``: each output pixel is the mean of its
-    fy x fx block, summed in float32 in OpenCV's order (a 2x2 block of a
-    3-channel image sample by sample along its rows, every other block row
-    by row, then the row sums) and scaled by the exact ``1 / (fy * fx)``.
-    Other sizes (factors of 8 and more, odd or fractional ratios, upscales)
-    raise ``NotImplementedError``: OpenCV's float32 sums or weights there
-    are not reproduced."""
-    img = np.asarray(img, np.float32)
-    h, w = img.shape[:2]
-    if (h, w) == (out_h, out_w):
-        return img.copy()
-    fy, fx = (h // out_h, w // out_w) if 0 < out_h <= h and 0 < out_w <= w else (0, 0)
-    if not (fy in (1, 2, 4) and fx in (1, 2, 4) and fy * out_h == h and fx * out_w == w):
-        raise NotImplementedError(
-            f"area resize {h}x{w} -> {out_h}x{out_w} is not a downscale by 1, 2 or 4 per axis; "
-            "OpenCV's INTER_AREA is reproduced for those only"
-        )
-    blocks = img.reshape(out_h, fy, out_w, fx, *img.shape[2:])
-    zero = np.zeros((out_h, out_w) + img.shape[2:], np.float32)
-    if (fy, fx) == (2, 2) and img.ndim == 3 and img.shape[2] == 3:
-        acc = zero
-        for dy in range(2):
-            for dx in range(2):
-                acc = acc + blocks[:, dy, :, dx]
-    else:
-        acc = zero
-        for dy in range(fy):
-            row = zero
-            for dx in range(fx):
-                row = row + blocks[:, dy, :, dx]
-            acc = acc + row
-    return acc * np.float32(1.0 / (fy * fx))
+    """``cv2.resize(img, (out_w, out_h), interpolation=cv2.INTER_AREA)`` of
+    an (H, W, C) float32 image, bit for bit: ``utils.imgproc.resize_area``
+    (any downscale; an upscale raises ``NotImplementedError``)."""
+    return resize_area(np.asarray(img, np.float32), out_h, out_w)

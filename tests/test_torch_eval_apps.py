@@ -92,7 +92,7 @@ def test_eval_app_matches_jax_app_files_finish_and_resume(work, capsys):
                                                                        if l.startswith("FINAL")]
 
 
-def test_eval_app_flags(work, capsys):
+def test_eval_app_flags(work, capsys, monkeypatch):
     from pixelnerf_tpu_torch.apps import eval as eval_app
     from pixelnerf_tpu_torch.utils import png
 
@@ -105,8 +105,23 @@ def test_eval_app_flags(work, capsys):
                                    "--scale", "0.5", "--limit", "1", "-O", out])
     assert _objects(out) == {"test0": ["000000.png", "000003.png"]}
     assert png.imread(os.path.join(out, "test0", "000000.png")).shape == (16, 16, 3)
-    with pytest.raises(NotImplementedError, match="not a downscale by 1, 2 or 4"):
-        eval_app.main(_common(work) + ["-P", "1", "--scale", "0.75", "--limit", "1", "-O", str(root / "e75")])
+    # --scale 0.75: the ground truth's 32 -> 24 area downscale is OpenCV's, bit for bit
+    import cv2
+
+    seen = []
+    real = eval_app.resize_area_like_cv2
+
+    def recording(img, h, w):
+        seen.append((img.copy(), real(img, h, w)))
+        return seen[-1][1]
+
+    monkeypatch.setattr(eval_app, "resize_area_like_cv2", recording)
+    eval_app.main(_common(work) + ["-P", "1", "-R", "512", "--eval_view_list", views, "--scale", "0.75",
+                                   "--limit", "1", "-O", str(root / "e75")])
+    assert png.imread(os.path.join(root / "e75", "test0", "000003.png")).shape == (24, 24, 3)
+    assert len(seen) == 2 and all(out.shape == (24, 24, 3) for _, out in seen)
+    for img, out in seen:
+        np.testing.assert_array_equal(out, cv2.resize(img, (24, 24), interpolation=cv2.INTER_AREA))
     # a per-object source list, the sources among the targets, category-named objects
     vl = str(root / "viewlist.txt")
     with open(vl, "w") as f:

@@ -221,7 +221,8 @@ def test_eval_real_matches_jax_app(work, tmp_path, capsys):
     # the resize is OpenCV's: the encoded input is the JAX app's
     import cv2
 
-    from pixelnerf_tpu_torch.apps.eval_real import read_input, resize_uint8_like_cv2
+    from pixelnerf_tpu_torch.apps.eval_real import read_input
+    from pixelnerf_tpu_torch.utils.imgproc import resize_area
 
     a = imageio.imread(str(inp / "a_normalize.png"))
     np.testing.assert_array_equal(read_input(str(inp / "a_normalize.png"), 32),
@@ -229,12 +230,16 @@ def test_eval_real_matches_jax_app(work, tmp_path, capsys):
                                    - 0.5) / 0.5)
     rng = np.random.default_rng(0)
     for shape, out in (((64, 64, 3), (32, 32)), ((128, 128, 3), (32, 32)), ((64, 128, 3), (32, 32)),
-                       ((64, 32, 3), (32, 32))):
+                       ((64, 32, 3), (32, 32)), ((48, 48, 3), (32, 32)), ((300, 300, 3), (128, 128))):
         img = rng.integers(0, 256, shape).astype(np.uint8)
-        np.testing.assert_array_equal(resize_uint8_like_cv2(img, *out),
+        np.testing.assert_array_equal(resize_area(img, *out),
                                       cv2.resize(img, out[::-1], interpolation=cv2.INTER_AREA))
-    with pytest.raises(NotImplementedError, match="not a downscale by 1, 2 or 4"):
-        resize_uint8_like_cv2(np.zeros((48, 48, 3), np.uint8), 32, 32)
+    # a 300x300 input of eval_real at --size 128 (ratio 2.34)
+    big = rng.integers(0, 256, (300, 300, 3)).astype(np.uint8)
+    png.imwrite(str(tmp_path / "big_normalize.png"), big)
+    np.testing.assert_array_equal(read_input(str(tmp_path / "big_normalize.png"), 128),
+                                  (cv2.resize(big, (128, 128), interpolation=cv2.INTER_AREA).astype(np.float32)
+                                   / 255.0 - 0.5) / 0.5)
     # --no_vid: frames only; a JPEG input raises
     eval_real.main(_common(work) + flags + ["-O", str(tmp_path / "novid"), "--no_vid"])
     assert sorted(os.listdir(tmp_path / "novid")) == ["a_normalize_frames", "b_normalize_frames"]
