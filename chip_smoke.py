@@ -43,6 +43,10 @@ Phases, one JSON line each:
 1. device: ``nvidia-smi`` name and power limit, torch and CUDA versions
 2. build: the five CUDA sources of ``pixelnerf_tpu_torch/csrc`` for
    sm_90a, one nvcc each, in parallel
+2b. jpeg: the port's JPEG reader (host code) on every committed fixture of
+   ``tests/fixtures/jpeg/``, bit-equal to its expected decode; ms per image
+   and megapixels/s of the 420x420 photo and of the largest fixture, beside
+   the PNG reader's ms on the same pixels
 3. kernel A (gather) and 4. kernel B (fused MLP) against their plain
    PyTorch versions at the inference path's shapes, with times, the bound
    and a library call's time; A also on the baked path's 1536-wide rows,
@@ -98,8 +102,10 @@ Phases, one JSON line each:
     version, ``finish.txt``'s PSNR against the written PNGs, C-bwd at the
     DTU train step's 360,000-row f32 table (against plain, two launches
     bit-equal), the NMR (``-F dvr``) and multi-object readers pulled on
-    this host with no imaging library loaded; launch counts per view and
-    per step, seconds per batch, ms per view, the DTU item's ms
+    this host with no imaging library loaded (``readers_jpeg``: an NMR
+    object of the committed 64x64 JPEG views, its item equal to its twin's
+    of decoded PNG views); launch counts per view and per step, seconds per
+    batch, ms per view, the DTU item's ms
 
 21. apps_workflow (run after 19, on its fixture, checkpoint and eval
     output; SRN model, f32): ``apps.gen_video`` (8 frames of a spherical
@@ -122,7 +128,10 @@ Phases, one JSON line each:
     with the differing pixels counted); per photo the ms of each step (each
     GrabCut pass's device work and host cut apart), the foreground share,
     the ellipse and crop radius; then ``apps.eval_real --debug_nans`` on
-    the card's outputs at 128x128 (4 views each; A, launches counted)
+    the card's outputs at 128x128 (4 views each; A, launches counted). The
+    photos also hold photo1 as the committed JPEG (quality 90, 4:2:0) and
+    as a PNG of its expected decode, whose outputs must be equal; then
+    ``apps.eval_real`` on that 420x420 JPEG itself (A, launches counted)
 
 22. recon (run after 21, on srn_workflow's fixture and checkpoint; SRN
     model, f32): a level from ``eval_sigma_grid`` at 32^3 (its 95th
@@ -1197,6 +1206,65 @@ def png_decode_ms(paths, data):
     return res
 
 
+JPEG_FIXTURES = os.path.join(REPO, "tests", "fixtures", "jpeg")
+JPEG_TIMED = ("photo1", "texture_400x300")    # the 420x420 photo and the largest fixture
+JPEG_REPEATS = 5
+
+
+def run_jpeg(tmp):
+    """The port's JPEG reader on this host: every committed fixture of
+    ``tests/fixtures/jpeg/`` decoded by ``jpeg.imread`` and held bit for bit
+    to its expected decode (``expected.npz``, imageio's decode where the
+    fixtures were made), and through ``image_io.imread``; then the ms per
+    image (the least and the median of JPEG_REPEATS decodes) and megapixels
+    per second of the photo and of the largest fixture, beside the PNG
+    reader's ms on the same pixels written by the port's PNG writer."""
+    import glob
+
+    import numpy as np
+
+    from pixelnerf_tpu_torch.utils import image_io, jpeg, png
+
+    expected = np.load(os.path.join(JPEG_FIXTURES, "expected.npz"))
+    paths = sorted(glob.glob(os.path.join(JPEG_FIXTURES, "*.jpg")))
+    names = [os.path.splitext(os.path.basename(p))[0] for p in paths]
+    if sorted(names) != sorted(expected.files) or not paths:
+        raise AssertionError(f"jpeg: the fixtures {names} and their decodes {expected.files} differ")
+    differing = {}
+    for name, path in zip(names, paths):
+        for how, got in (("jpeg", jpeg.imread(path)), ("image_io", image_io.imread(path))):
+            ref = expected[name]
+            if got.shape != ref.shape or got.dtype != ref.dtype or not np.array_equal(got, ref):
+                differing[f"{name} ({how})"] = (list(got.shape), list(ref.shape), int(np.sum(got != ref))
+                                               if got.shape == ref.shape else None)
+    timed = {}
+    for name in JPEG_TIMED:
+        path = os.path.join(JPEG_FIXTURES, f"{name}.jpg")
+        ms = []
+        for _ in range(JPEG_REPEATS):
+            t0 = time.perf_counter()
+            jpeg.imread(path)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        as_png = os.path.join(tmp, f"{name}.png")
+        png.imwrite(as_png, expected[name])
+        png_ms = []
+        for _ in range(JPEG_REPEATS):
+            t0 = time.perf_counter()
+            png.imread(as_png)
+            png_ms.append((time.perf_counter() - t0) * 1e3)
+        h, w = expected[name].shape[:2]
+        timed[name] = {"size": [w, h], "bytes": os.path.getsize(path), "ms_min": min(ms),
+                       "ms_median": float(np.median(ms)), "megapixels_per_s": h * w / 1e3 / float(np.median(ms)),
+                       "png_ms_median": float(np.median(png_ms)), "png_bytes": os.path.getsize(as_png)}
+    rec = {"phase": "jpeg", "card": nvidia_smi_line(), "files": len(paths),
+           "bit_equal": len(paths) - len({k.split(" ")[0] for k in differing}), "differing": differing,
+           "timed": timed, "repeats": JPEG_REPEATS}
+    emit(rec)
+    if differing:
+        raise AssertionError(f"jpeg: decodes differ from the expected ones: {differing}")
+    return rec
+
+
 def psnr_interval_from_png(pred_u8, gt):
     """The PSNR of a float render whose ``(x * 255).astype(uint8)`` is
     ``pred_u8``, bounded from the written image: the float differs from
@@ -1384,7 +1452,9 @@ def run_srn_workflow(dev, tmp):
 # real-image input, and the seed of the LPIPS weights
 VIDEO_FRAMES = {"spherical": 8, "spline": 4}
 REAL_VIEWS = 4
-PREPROC_PHOTOS = ("photo1.png", "photo2.png")   # committed 420x420 photos under raw/
+# committed 420x420 photos under raw/; photo1 as a JPEG (tests/fixtures/jpeg/photo1.jpg,
+# quality 90, 4:2:0) and as a PNG of that JPEG's expected decode
+PREPROC_PHOTOS = ("photo1.png", "photo2.png", "photo1_q90.jpg", "photo1_q90_decoded.png")
 LPIPS_SEED = 11
 
 
@@ -1784,7 +1854,12 @@ def run_preproc(dev, tmp):
     ellipse and the crop radius; a non-empty mask and a 128x128x3 output
     with white and non-white pixels. Then ``apps.eval_real --debug_nans``
     on the card's outputs (the SRN workflow's checkpoint in ``tmp``, f32,
-    ``REAL_VIEWS`` views each; kernel A, its launches counted)."""
+    ``REAL_VIEWS`` views each; kernel A, its launches counted). The photos
+    are ``raw/photo1.png``, ``raw/photo2.png``, the committed JPEG of photo1
+    and a PNG of that JPEG's expected decode: the JPEG's outputs (card and
+    CPU) must equal the decoded PNG's. Last, ``apps.eval_real`` on the
+    420x420 JPEG itself (``read_input`` decodes and area-resizes it, equal
+    to its decoded PNG's array; kernel A, its launches counted)."""
     import shutil
 
     import numpy as np
@@ -1796,8 +1871,11 @@ def run_preproc(dev, tmp):
     smi = nvidia_smi_line()
     raw = os.path.join(tmp, "preproc_raw")
     os.makedirs(raw)
-    for name in PREPROC_PHOTOS:
+    for name in PREPROC_PHOTOS[:2]:
         shutil.copy(os.path.join(REPO, "raw", name), raw)
+    jpg = os.path.join(raw, PREPROC_PHOTOS[2])
+    shutil.copy(os.path.join(JPEG_FIXTURES, "photo1.jpg"), jpg)
+    png.imwrite(os.path.join(raw, PREPROC_PHOTOS[3]), np.load(os.path.join(JPEG_FIXTURES, "expected.npz"))["photo1"])
     outs = {"card": os.path.join(tmp, "preproc_card"), "cpu": os.path.join(tmp, "preproc_cpu")}
     runs = {}
     for where, flags in (("card", ["--device", str(dev)]), ("cpu", ["--cpu"])):
@@ -1834,6 +1912,13 @@ def run_preproc(dev, tmp):
             raise AssertionError(f"preproc {name}: the output is not a 128x128x3 white composite: {rec}")
         if iou < 0.99:
             raise AssertionError(f"preproc {name}: the card's output differs from the CPU's: {rec}")
+    # the JPEG photo's outputs are its decode's
+    for where in outs:
+        a, b = (png.imread(os.path.join(outs[where], os.path.splitext(n)[0] + "_normalize.png"))
+                for n in PREPROC_PHOTOS[2:])
+        emit({"phase": "preproc_jpeg_vs_decoded_png", "where": where, "differing_pixels": int(np.any(a != b, -1).sum())})
+        if not np.array_equal(a, b):
+            raise AssertionError(f"preproc ({where}): the JPEG photo's output differs from its decoded PNG's")
 
     out = os.path.join(tmp, "preproc_real_out")
     argv = ["-c", os.path.join(REPO, "conf", "exp", "srn.conf"), "--device", str(dev), "--checkpoints_path",
@@ -1853,7 +1938,29 @@ def run_preproc(dev, tmp):
         raise AssertionError(f"preproc eval_real: launch counts {got} != expected {expect}")
     if not all(f.shape == (IMAGE, IMAGE, 3) and f.std() > 0 for f in frames):
         raise AssertionError("preproc eval_real: degenerate frames")
-    return {"runs": runs, "launches": got}
+    launches = dict(got)
+
+    # eval_real on the 420x420 JPEG photo itself, area-resized to IMAGE
+    if not np.array_equal(eval_real.read_input(jpg, IMAGE),
+                          eval_real.read_input(os.path.join(raw, PREPROC_PHOTOS[3]), IMAGE)):
+        raise AssertionError("eval_real: read_input of the JPEG differs from its decoded PNG's")
+    out = os.path.join(tmp, "jpeg_real_out")
+    at = argv.index("--input")
+    argv = argv[:at] + ["--input", jpg] + argv[at + 2 : -1] + [out]
+    _, lines, seconds, got = run_app(eval_real, argv)
+    expect = {k: 0 for k in got}
+    expect["gather_bilerp"] = 2 * REAL_VIEWS * -(-IMAGE * IMAGE // chunk)
+    base = os.path.splitext(PREPROC_PHOTOS[2])[0]
+    frames = [png.imread(os.path.join(out, f"{base}_frames", f"{i:04}.png")) for i in range(REAL_VIEWS)]
+    emit({"phase": "eval_real_jpeg", "card": smi, "input": PREPROC_PHOTOS[2], "seconds": seconds,
+          "ms_per_view_app": seconds * 1e3 / REAL_VIEWS, "launches": got, "expected_launches": expect,
+          "printed": lines})
+    if got != expect:
+        raise AssertionError(f"eval_real on a JPEG: launch counts {got} != expected {expect}")
+    if not all(f.shape == (IMAGE, IMAGE, 3) and f.std() > 0 for f in frames):
+        raise AssertionError("eval_real on a JPEG: degenerate frames")
+    launches["gather_bilerp"] += got["gather_bilerp"]
+    return {"runs": runs, "launches": launches}
 
 
 def run_parallel(dev, net, cfg, enc, pose):
@@ -2084,13 +2191,75 @@ def write_nmr_and_multi_obj_fixtures(root):
     return nmr, multi
 
 
+def write_jpeg_nmr_objects(root):
+    """Two NMR-layout objects (``-F dvr``) alike but for their views: one
+    whose ``image/*.jpg`` are the committed ``tests/fixtures/jpeg/nmr_*.jpg``
+    (64x64), one whose ``image/*.png`` are their expected decodes written by
+    the port's PNG writer; the same PNG masks and cameras. Returns their
+    ``-D`` paths."""
+    import glob
+    import shutil
+
+    import numpy as np
+
+    from pixelnerf_tpu_torch.utils import png
+
+    expected = np.load(os.path.join(JPEG_FIXTURES, "expected.npz"))
+    views = sorted(glob.glob(os.path.join(JPEG_FIXTURES, "nmr_*.jpg")))
+    world = np.array([[1, 0, 0, 0], [0, 0, -1, 0], [0, 1, 0, 0], [0, 0, 0, 1]], np.float64)
+    cam = np.diag([1.0, -1.0, -1.0, 1.0])
+    yy, xx = np.mgrid[:64, :64]
+    paths = {}
+    for kind in ("jpeg", "decoded"):
+        top = os.path.join(root, f"nmr_{kind}")
+        obj = os.path.join(top, "02958343", "obj0")
+        os.makedirs(os.path.join(obj, "image"))
+        os.makedirs(os.path.join(obj, "mask"))
+        cams = {}
+        for v, src in enumerate(views):
+            if kind == "jpeg":
+                shutil.copy(src, os.path.join(obj, "image", f"{v:04d}.jpg"))
+            else:
+                png.imwrite(os.path.join(obj, "image", f"{v:04d}.png"),
+                            expected[os.path.splitext(os.path.basename(src))[0]])
+            disc = (xx - 32 - v) ** 2 + (yy - 30) ** 2 < 18 ** 2
+            png.imwrite(os.path.join(obj, "mask", f"{v:04d}.png"), disc.astype(np.uint8) * 255)
+            c2w = _orbit_pose(v, len(views), 2.7, 0.9)
+            cams[f"world_mat_{v}"] = np.linalg.inv(np.linalg.inv(world) @ c2w @ np.linalg.inv(cam)).astype(np.float32)
+            cams[f"camera_mat_{v}"] = np.diag([1.75, 1.75, 1.0, 1.0]).astype(np.float32)
+        np.savez(os.path.join(obj, "cameras.npz"), **cams)
+        with open(os.path.join(top, "02958343", "softras_train.lst"), "w") as f:
+            f.write("obj0\n")
+        paths[kind] = top
+    return paths
+
+
 def pull_dvr_and_multi_obj(root):
     """Pull the NMR and multi-object fixtures' items on this host through
     ``get_split_dataset`` (``-F dvr``, ``-F multi_obj``): shapes, finite
-    values, host ms; and that no imaging library was loaded."""
+    values, host ms; the NMR object of JPEG views (``write_jpeg_nmr_objects``)
+    whose item must equal, key for key and bit for bit, the item of its twin
+    of decoded PNG views, with the host ms of each; and that no imaging
+    library was loaded."""
     import numpy as np
 
     from pixelnerf_tpu_torch.data import get_split_dataset
+
+    twins = write_jpeg_nmr_objects(root)
+    items, item_ms = {}, {}
+    for kind, path in twins.items():
+        dset = get_split_dataset("dvr", path, "train")
+        t0 = time.perf_counter()
+        items[kind] = dset[0]
+        item_ms[kind] = (time.perf_counter() - t0) * 1e3
+    a, b = items["jpeg"], items["decoded"]
+    same = set(a) == set(b) and all(
+        k == "path" or (np.asarray(a[k]).dtype == np.asarray(b[k]).dtype and np.array_equal(a[k], b[k])) for k in a)
+    rec = {"phase": "readers_jpeg", "card": nvidia_smi_line(), "views": int(a["images"].shape[0]),
+           "image": list(a["images"].shape[1:]), "item_ms": item_ms, "equal": same}
+    emit(rec)
+    if not same:
+        raise AssertionError(f"readers: the JPEG object's item differs from its decoded twin's: {rec}")
 
     nmr, multi = write_nmr_and_multi_obj_fixtures(root)
     res = {}
@@ -2107,6 +2276,7 @@ def pull_dvr_and_multi_obj(root):
         if not ok or not 0.0 < d["masks"].mean() < 1.0:
             raise AssertionError(f"dtu_workflow: the {fmt} reader's item is wrong: {res[fmt]}")
     loaded = sorted(m for m in ("cv2", "imageio", "PIL") if m in sys.modules)
+    res["jpeg_item_ms"] = item_ms
     res["imaging_libraries_loaded"] = loaded
     if loaded:
         raise AssertionError(f"dtu_workflow: a reader loaded {loaded}")
@@ -2637,6 +2807,9 @@ def main():
     emit({"phase": "build", "seconds": time.time() - t0,
           "ptxas": {k: [l.strip() for l in v.splitlines() if "Used" in l or "spill" in l]
                     for k, v in logs.items()}})
+
+    with tempfile.TemporaryDirectory() as jpeg_tmp:
+        run_jpeg(jpeg_tmp)
 
     g = torch.Generator().manual_seed(0)
     net, cfg = make_srn_model(dev, g)

@@ -18,7 +18,8 @@ LPIPS is the port's module (``utils/lpips.py``), run on ``--device`` (the
 GPU by default) in batches of ``--lpips_batch_size``; pass
 ``--lpips_weights`` a torch .pth holding either a whole
 ``lpips.LPIPS(net='vgg')`` state_dict or torchvision vgg16 weights merged
-with the lin heads. Images are read by the port's PNG reader.
+with the lin heads. Images are read by the port's PNG and JPEG readers
+(``utils/image_io.py``): ground truth may be either, as in the JAX app.
 """
 from __future__ import annotations
 
@@ -32,7 +33,7 @@ import numpy as np
 import torch
 
 from ..config.hocon import _parse_value
-from ..utils import metrics, png
+from ..utils import image_io, metrics, png
 
 # the 15 corrupt/background-heavy DTU views the reference hardcodes
 # (eval/calc_metrics.py:142-145)
@@ -159,7 +160,7 @@ def run_map(args):
                 continue
             if eval_views is not None and view_id not in eval_views:
                 continue
-            gt = png.imread(osp.join(im_root, im_name)).astype(np.float32)
+            gt = image_io.imread(osp.join(im_root, im_name)).astype(np.float32)
             gt = gt[..., :3] / 255.0
             pred = png.imread(rend_path).astype(np.float32)[..., :3] / 255.0
             psnr_avg += metrics.psnr(pred, gt)

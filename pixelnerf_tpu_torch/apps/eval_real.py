@@ -7,10 +7,11 @@ The SRN-car conventions: the dummy camera at z = ``--radius`` (1.3)
 looking at the origin, focal 131.25 for 128x128, z in [0.8, 1.8].
 
 Where the JAX app writes an mp4 (or, with ``--gif`` or without an mp4
-encoder, a GIF), the port writes the GIF: its host has no mp4 encoder. An
-input whose size differs from ``--size`` is area-resized as OpenCV's
-``INTER_AREA`` resizes uint8 images, for factors of 1, 2 and 4 per axis
-only; other sizes and JPEG inputs raise ``NotImplementedError``.
+encoder, a GIF), the port writes the GIF: its host has no mp4 encoder.
+Inputs are PNG or JPEG files, read by the port's own decoders
+(``utils/image_io.py``) as imageio reads them; one whose size differs from
+``--size`` is area-resized as OpenCV's ``INTER_AREA`` resizes uint8
+images.
 
     python -m pixelnerf_tpu_torch.apps.eval_real -n srn_car --input input/
 """
@@ -25,7 +26,7 @@ import torch
 from ..config import ConfigNode
 from ..eval.common import FullRenderer
 from ..render.renderer import RenderConfig
-from ..utils import geometry, gif, png
+from ..utils import geometry, gif, image_io, png
 from ..utils.imgproc import resize_area
 from ..parallel.mesh import is_main_process
 from .args import device_and_mesh, parse_args
@@ -68,13 +69,8 @@ def gather_inputs(spec: str):
 
 
 def read_input(path: str, size: int) -> np.ndarray:
-    """The image at ``path`` as a (size, size, 3) array in [-1, 1]."""
-    if not path.lower().endswith(".png"):
-        raise NotImplementedError(
-            f"{path}: the port decodes PNG files only (its machines have no JPEG decoder); "
-            "convert the image to PNG"
-        )
-    img = png.imread(path)[..., :3]
+    """The image at ``path`` (PNG or JPEG) as a (size, size, 3) array in [-1, 1]."""
+    img = image_io.imread(path)[..., :3]
     if img.shape[:2] != (size, size):
         img = resize_area(img, size, size)
     return (img.astype(np.float32) / 255.0 - 0.5) / 0.5

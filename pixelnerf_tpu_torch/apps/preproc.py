@@ -10,9 +10,11 @@ Segmentation backends:
   prior: its per-pixel work on ``--device`` (the GPU by default), its cut
   on the host.
 
-The port reads and writes PNG only (``utils/png.py``): a JPEG input raises
-``NotImplementedError``, a gray or 16-bit PNG ``ValueError``. The image
-operations are the port's own (``utils/imgproc.py``), equal to OpenCV's.
+The port reads PNG and JPEG inputs with its own decoders
+(``utils/image_io.py``: ``utils/png.py``, ``utils/jpeg.py``), as imageio
+reads them, and writes PNG; a gray or 16-bit input raises ``ValueError``.
+The image operations are the port's own (``utils/imgproc.py``), equal to
+OpenCV's.
 
     python -m pixelnerf_tpu_torch.apps.preproc --input raw/ --output input/
 """
@@ -27,7 +29,7 @@ from typing import Optional
 import numpy as np
 
 from ..utils import grabcut as gc
-from ..utils import imgproc, png
+from ..utils import image_io, imgproc, png
 
 
 def _segment_pointrend(img_bgr, coco_class: int):
@@ -154,16 +156,11 @@ def normalize_image(img_rgb: np.ndarray, mask: np.ndarray, size: int = 128,
 
 
 def read_rgb(path: str) -> np.ndarray:
-    """The RGB image at ``path`` (an alpha channel dropped, as the JAX app
-    drops it); PNG only."""
-    if not path.lower().endswith(".png"):
-        raise NotImplementedError(
-            f"{path}: the port decodes PNG files only (its machines have no JPEG decoder); "
-            "convert the image to PNG"
-        )
-    img = png.imread(path)
+    """The RGB image at ``path``, a PNG or a JPEG (an alpha channel dropped,
+    as the JAX app drops it)."""
+    img = image_io.imread(path)
     if img.dtype != np.uint8 or img.ndim != 3 or img.shape[2] not in (3, 4):
-        raise ValueError(f"{path}: expected an 8-bit RGB or RGBA PNG, got {img.dtype} of shape {img.shape}")
+        raise ValueError(f"{path}: expected an 8-bit RGB or RGBA image, got {img.dtype} of shape {img.shape}")
     return img[..., :3]
 
 

@@ -14,8 +14,9 @@ objects of a split. Two sub-formats:
   reference does).
 
 The same dict and the same float32 values as the JAX reader. Images and
-masks are decoded by the port's own PNG reader (``utils/png.py``), an
-object's views in one ``imread_many``; the projection matrices are
+masks are decoded by the port's own readers (``utils/image_io.py``): an
+object's PNG views in one ``png.imread_many``, its JPEG views one by one
+(``utils/jpeg.py``); the projection matrices are
 decomposed in numpy (:func:`decompose_projection`) with OpenCV's sign
 conventions, so no imaging library is needed.
 """
@@ -26,7 +27,7 @@ import os
 
 import numpy as np
 
-from ..utils.png import imread_many
+from ..utils.image_io import imread_many
 from .base import DatasetBase, image_to_tensor, mask_bbox, mask_to_tensor, resize_area_np
 
 _SHAPENET_WORLD = np.array(
@@ -67,17 +68,6 @@ def decompose_projection(P: np.ndarray):
     D = np.diag([d0, d1, d0 * d1])
     K, R = K @ D, D @ R
     return K / K[2, 2], R, -np.linalg.solve(M, P[:, 3])
-
-
-def _read_png_views(paths):
-    """An object's views, decoded together; JPEG files raise."""
-    for p in paths:
-        if not p.endswith(".png"):
-            raise NotImplementedError(
-                f"{p}: the port decodes PNG files only (its machines have no JPEG decoder); "
-                "convert the images to PNG"
-            )
-    return imread_many(paths)
 
 
 class DVRDataset(DatasetBase):
@@ -152,8 +142,8 @@ class DVRDataset(DatasetBase):
         # the views the JAX reader's loop visits (zip stops at the shorter list)
         pairs = list(zip(rgb_paths, mask_paths))
         has_masks = mask_paths[0] is not None
-        rgbs = _read_png_views([r for r, _ in pairs])
-        mask_imgs = _read_png_views([m for _, m in pairs]) if has_masks else [None] * len(pairs)
+        rgbs = imread_many([r for r, _ in pairs])
+        mask_imgs = imread_many([m for _, m in pairs]) if has_masks else [None] * len(pairs)
 
         imgs, poses, masks, bboxes = [], [], [], []
         focal = None

@@ -3,8 +3,9 @@
 Layout ``<path>_<stage>/<obj>/{intrinsics.txt, rgb/*, pose/*}``, with a
 white-background mask inferred from the non-white pixels and a tight bbox
 per view; NHWC float32 numpy output, the same dict as the JAX reader's.
-Images are decoded by the port's own PNG reader (``utils/png.py``), all
-of an object's views in one ``imread_many``.
+Images are decoded by the port's own readers (``utils/image_io.py``), all
+of an object's PNG views in one ``png.imread_many``, JPEG views (which the
+JAX reader reads too) one by one.
 """
 from __future__ import annotations
 
@@ -13,7 +14,7 @@ import os
 
 import numpy as np
 
-from ..utils.png import imread_many
+from ..utils.image_io import imread_many
 from .base import DatasetBase, image_to_tensor, mask_bbox, resize_area_np
 
 # SRN poses are OpenCV-style (y down, z forward); flip to the y-up/-z

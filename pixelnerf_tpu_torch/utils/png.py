@@ -10,11 +10,12 @@ returns what ``imageio.v2.imread`` (Pillow) returns for the same file:
   sample its high byte (Pillow reduces 16-bit colour to 8 bits);
 - 1-bit gray (H, W) bool; 2- and 4-bit gray (H, W) uint8, each level
   scaled to 0-255 (x 85, x 17), as Pillow unpacks them;
-- 8-bit palette: (H, W, 3) uint8 RGB. A ``tRNS`` chunk is read and not
-  applied, as Pillow's conversion of a palette image to its palette's mode
-  does not apply it.
-
-Palettes below 8 bits and interlaced files raise ``NotImplementedError``.
+- palettes of 1, 2, 4 and 8 bits: (H, W, 3) uint8 RGB. A ``tRNS`` chunk
+  is read and not applied, as Pillow's conversion of a palette image to its
+  palette's mode does not apply it;
+- Adam7 interlaced files of any of these kinds: each of the seven passes is
+  a small image of its own, unfiltered as below, and its pixels are placed
+  on its grid.
 
 Rows are unfiltered with numpy: None, Sub (a cumulative sum per channel)
 and Up rows one row at a time; when a file has an Average or Paeth row,
@@ -40,6 +41,8 @@ from numpy.lib.stride_tricks import as_strided
 SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # colour type -> channels
 _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+# the seven passes of Adam7 interlacing: first column, first row, steps
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
 
 
 def _chunks(buf: bytes, path: str):
@@ -148,7 +151,8 @@ def _scanlines(data: bytes, height: int, row_bytes: int, path: str):
 
 
 def _parse(path: str):
-    """A file's (header fields, palette, filter types, filtered scanlines)."""
+    """A file's (header fields, palette, passes): one pass (its grid, filter
+    types, filtered scanlines) for a file not interlaced, up to seven for Adam7."""
     with open(path, "rb") as f:
         buf = f.read()
     header = palette = None
@@ -163,18 +167,27 @@ def _parse(path: str):
     if header is None:
         raise ValueError(f"{path}: no IHDR chunk")
     width, height, depth, ctype, _, _, interlace = header
-    if interlace:
-        raise NotImplementedError(f"{path}: interlaced PNG is not supported")
     if ctype not in _CHANNELS:
         raise ValueError(f"{path}: unknown colour type {ctype}")
-    supported = depth == 8 or (depth == 16 and ctype != 3) or (depth in (1, 2, 4) and ctype == 0)
+    supported = depth == 8 or (depth == 16 and ctype != 3) or (depth in (1, 2, 4) and ctype in (0, 3))
     if not supported:
         raise NotImplementedError(f"{path}: bit depth {depth} (colour type {ctype}) is not supported")
+    if interlace > 1:
+        raise ValueError(f"{path}: unknown interlace method {interlace}")
     if ctype == 3 and palette is None:
         raise ValueError(f"{path}: palette image without PLTE")
-    row_bytes = -(-width * _CHANNELS[ctype] * depth // 8)
-    ft, x = _scanlines(zlib.decompress(b"".join(idat)), height, row_bytes, path)
-    return (width, height, depth, ctype), palette, ft, x
+    data = zlib.decompress(b"".join(idat))
+    parts = []
+    pos = 0
+    for x0, y0, dx, dy in _ADAM7 if interlace else ((0, 0, 1, 1),):
+        w, h = -(-(width - x0) // dx), -(-(height - y0) // dy)
+        if w <= 0 or h <= 0:
+            continue                                      # an empty pass has no bytes
+        row_bytes = -(-w * _CHANNELS[ctype] * depth // 8)
+        ft, x = _scanlines(data[pos:], h, row_bytes, path)
+        parts.append(((x0, y0, dx, dy), ft, x))
+        pos += h * (row_bytes + 1)
+    return (width, height, depth, ctype), palette, parts
 
 
 def _filter_bpp(depth: int, ctype: int) -> int:
@@ -184,18 +197,23 @@ def _filter_bpp(depth: int, ctype: int) -> int:
 
 
 def _pixels(fields, palette, rows: np.ndarray) -> np.ndarray:
-    """Reconstructed scanlines -> the array ``imageio.v2.imread`` returns."""
+    """Reconstructed (H, row_bytes) scanlines of an image or pass of
+    ``fields`` ``(width, height, depth, ctype)`` -> the array
+    ``imageio.v2.imread`` returns."""
     width, height, depth, ctype = fields
     channels = _CHANNELS[ctype]
-    if ctype == 3:
-        return palette[rows.reshape(height, width)]
     if depth < 8:
-        # gray, packed most significant bits first; a row ends on a byte
+        # gray levels or palette indices, packed most significant bits
+        # first; a row ends on a byte
         bits = np.unpackbits(rows, axis=1)[:, : width * depth].reshape(height, width, depth)
         level = np.zeros((height, width), np.uint8)
         for b in range(depth):
             level = (level << 1) | bits[..., b]
+        if ctype == 3:
+            return palette[level]
         return level.astype(bool) if depth == 1 else level * np.uint8(255 // ((1 << depth) - 1))
+    if ctype == 3:
+        return palette[rows.reshape(height, width)]
     if depth == 16:
         px = rows.reshape(height, width, channels, 2)
         if ctype == 0:
@@ -217,26 +235,39 @@ def imread_many(paths: Sequence[str]) -> list:
     wavefront are reconstructed together, a group of one size and pixel
     format at a time."""
     parsed = [_parse(p) for p in paths]
-    rows = [None] * len(parsed)
+    # every image's passes (one for a file not interlaced), by (image, pass)
+    passes = [(i, j, ft, x) for i, (_, _, parts) in enumerate(parsed) for j, (_, ft, x) in enumerate(parts)]
+    rows = {}
     groups = {}
-    for i, (fields, _, ft, x) in enumerate(parsed):
-        _, _, depth, ctype = fields
+    for i, j, ft, x in passes:
+        _, _, depth, ctype = parsed[i][0]
         bpp = _filter_bpp(depth, ctype)
         if np.all(ft <= 2):
-            rows[i] = _unfilter_rows(ft, x, bpp)
+            rows[i, j] = _unfilter_rows(ft, x, bpp)
         else:
-            groups.setdefault((x.shape, bpp), []).append(i)
-    for ((h, row_bytes), bpp), idx in groups.items():
+            groups.setdefault((x.shape, bpp), []).append((i, j, ft, x))
+    for ((h, row_bytes), bpp), members in groups.items():
         w = row_bytes // bpp
         per_image = 2 * 2 * (h + 1) * (w + h) * bpp       # pad and s, int16
         step = max(1, _GROUP_BYTES // per_image)
-        for k in range(0, len(idx), step):
-            part = idx[k : k + step]
-            out = _unfilter_wavefront(np.stack([parsed[i][2] for i in part]),
-                                      np.stack([parsed[i][3] for i in part]), bpp)
-            for i, r in zip(part, out):
-                rows[i] = r
-    return [_pixels(fields, palette, r) for (fields, palette, _, _), r in zip(parsed, rows)]
+        for k in range(0, len(members), step):
+            part = members[k : k + step]
+            out = _unfilter_wavefront(np.stack([m[2] for m in part]), np.stack([m[3] for m in part]), bpp)
+            for (i, j, _, _), r in zip(part, out):
+                rows[i, j] = r
+    images = []
+    for i, ((width, height, depth, ctype), palette, parts) in enumerate(parsed):
+        if len(parts) == 1 and parts[0][0] == (0, 0, 1, 1):
+            images.append(_pixels((width, height, depth, ctype), palette, rows[i, 0]))
+            continue
+        img = None
+        for j, ((x0, y0, dx, dy), _, x) in enumerate(parts):
+            px = _pixels((-(-(width - x0) // dx), x.shape[0], depth, ctype), palette, rows[i, j])
+            if img is None:
+                img = np.zeros((height, width) + px.shape[2:], px.dtype)
+            img[y0::dy, x0::dx] = px
+        images.append(img)
+    return images
 
 
 def imread(path: str) -> np.ndarray:

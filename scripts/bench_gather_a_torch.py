@@ -21,8 +21,10 @@ Each reading: ms a launch by CUDA events, whether the output equals the
 plain version bit for bit (compared in slices of 131,072 points), the
 bound (the output written once, the 16-byte records and the table rows
 that the points touch read once at 3.35 TB/s, or 6 flops a channel at 67 TFLOP/s, whichever is
-longer), the bound's share of the time, and ``F.grid_sample``'s ms on the
-NCHW map at the same points.
+longer), the bound's share of the time, the plain version's ms
+(``gather_bilerp_plain`` over the same points in slices of 131,072, whose
+float32 copies stay small; the sum of the slices' times), and
+``F.grid_sample``'s ms on the NCHW map at the same points.
 
 Usage, on a machine with one NVIDIA GPU, from the repository root:
 ``python3 scripts/bench_gather_a_torch.py [--widths 128,512] [--json out.json]``.
@@ -141,11 +143,12 @@ def max_err_against_plain(out, table, base, w, wl, out_dtype):
 
 def reading(table, base, w, grid, hl, wl, out_dtype, reps=20, library=True):
     """Kernel A on one table and set of points: ms, max_abs_err against the
-    plain version (0 is bit-equal), bound_ms, bound_by, bound_share and
-    ``F.grid_sample``'s library_ms (None when ``library`` is false)."""
+    plain version (0 is bit-equal), bound_ms, bound_by, bound_share, the
+    plain version's plain_ms and ``F.grid_sample``'s library_ms (None when
+    ``library`` is false)."""
     import torch.nn.functional as F
 
-    from pixelnerf_tpu_torch.ops.gather import gather_bilerp
+    from pixelnerf_tpu_torch.ops.gather import gather_bilerp, gather_bilerp_plain
 
     n, c = base.shape[0], table.shape[1]
     out = gather_bilerp(table, base, w, wl, out_dtype)
@@ -154,8 +157,10 @@ def reading(table, base, w, grid, hl, wl, out_dtype, reps=20, library=True):
     del out
     ms = time_ms(lambda: gather_bilerp(table, base, w, wl, out_dtype), reps)
     b_ms, b_by = bound_ms(base, table, wl, out_dtype)
+    plain_ms = time_ms(lambda: [gather_bilerp_plain(table, base[s:s + COMPARE_SLICE], w[s:s + COMPARE_SLICE], wl,
+                                                    out_dtype) for s in range(0, n, COMPARE_SLICE)], max(2, reps // 4))
     res = {"points": n, "table": [table.shape[0], c], "max_abs_err": err, "ms": ms,
-           "bound_ms": b_ms, "bound_by": b_by, "bound_share": b_ms / ms, "library_ms": None}
+           "bound_ms": b_ms, "bound_by": b_by, "bound_share": b_ms / ms, "plain_ms": plain_ms, "library_ms": None}
     if library:
         fmap = table.reshape(1, hl, wl, c).permute(0, 3, 1, 2).contiguous()
         g4 = grid.to(table.dtype).reshape(1, 1, n, 2)
@@ -204,7 +209,7 @@ def main():
         lib = f"{r['library_ms']:8.4f}" if r["library_ms"] is not None else "    none"
         print(f"A {r['channels']:5d} ch {r['map'][0]}x{r['map'][1]} {r['pair']:4s} {r['points_kind']:8s}: "
               f"{r['ms']:8.4f} ms  bound {r['bound_ms']:.4f} ({r['bound_by']})  share {r['bound_share']:.3f}  "
-              f"max_abs_err {r['max_abs_err']}  grid_sample {lib} ms")
+              f"max_abs_err {r['max_abs_err']}  plain {r['plain_ms']:.4f}  grid_sample {lib} ms")
     if args.json:
         with open(args.json, "w") as f:
             json.dump({"device": torch.cuda.get_device_name(0), "readings": results}, f, indent=1)

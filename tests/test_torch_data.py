@@ -59,8 +59,24 @@ def _chunk(kind, data):
     return struct.pack(">I", len(data)) + kind + data + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF)
 
 
+ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
+
+
 def _png_bytes(samples, depth, ctype, filters, extra=b"", interlace=0):
-    """samples: (H, W, C) integers; each row filtered with filters[y]."""
+    """samples: (H, W, C) integers; each row filtered with filters[y]. With
+    ``interlace`` the seven Adam7 passes, each filtered as an image of its
+    own (an empty pass has no bytes)."""
+    h, w, c = samples.shape
+    if interlace:
+        data = b"".join(_scanline_bytes(samples[y0::dy, x0::dx], depth, filters)
+                        for x0, y0, dx, dy in ADAM7 if samples[y0::dy, x0::dx].size)
+    else:
+        data = _scanline_bytes(samples, depth, filters)
+    return (png.SIGNATURE + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, ctype, 0, 0, interlace))
+            + extra + _chunk(b"IDAT", zlib.compress(data)) + _chunk(b"IEND", b""))
+
+
+def _scanline_bytes(samples, depth, filters):
     h, w, c = samples.shape
     if depth < 8:
         # most significant bits first, each row padded to a whole byte
@@ -81,8 +97,7 @@ def _png_bytes(samples, depth, ctype, filters, extra=b"", interlace=0):
         row = raw[y * row_bytes : (y + 1) * row_bytes]
         data += _filter_row(int(filters[y % len(filters)]), row, prev, bpp)
         prev = row
-    return (png.SIGNATURE + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, ctype, 0, 0, interlace))
-            + extra + _chunk(b"IDAT", zlib.compress(data)) + _chunk(b"IEND", b""))
+    return data
 
 
 # colour type, bit depth, channels in the file
@@ -91,6 +106,7 @@ COLOUR_TYPES = {
     "gray16": (0, 16, 1), "gray_alpha16": (4, 16, 2), "rgb16": (2, 16, 3), "rgba16": (6, 16, 4),
     "palette": (3, 8, 1), "palette_trns": (3, 8, 1),
     "gray1": (0, 1, 1), "gray2": (0, 2, 1), "gray4": (0, 4, 1),
+    "palette1": (3, 1, 1), "palette2": (3, 2, 1), "palette4": (3, 4, 1),
 }
 FILTERS = {"none": [0], "sub": [1], "up": [2], "average": [3], "paeth": [4], "mixed": [4, 0, 3, 1, 2, 4, 3]}
 
@@ -109,19 +125,43 @@ def test_png_reader_matches_imageio_on_hand_built_files(tmp_path, filt):
     rng = np.random.default_rng(len(filt))
     for name, (ctype, depth, ch) in COLOUR_TYPES.items():
         h, w = 13, 11
-        top = 16 if ctype == 3 else (1 << depth)
+        top = min(16, 1 << depth) if ctype == 3 else (1 << depth)
         samples = rng.integers(0, top, (h, w, ch))
         # a smooth gradient in half the image so the predictors matter
         samples[: h // 2] = (np.arange(w)[None, :, None] * 7 + np.arange(h // 2)[:, None, None] * 3) % top
         extra = b""
         if ctype == 3:
-            extra = _chunk(b"PLTE", rng.integers(0, 256, (16, 3)).astype(np.uint8).tobytes())
+            extra = _chunk(b"PLTE", rng.integers(0, 256, (top, 3)).astype(np.uint8).tobytes())
             if name == "palette_trns":
                 extra += _chunk(b"tRNS", rng.integers(0, 256, 10).astype(np.uint8).tobytes())
         path = str(tmp_path / f"{name}.png")
         with open(path, "wb") as f:
             f.write(_png_bytes(samples, depth, ctype, FILTERS[filt], extra))
         _assert_same_read(path)
+
+
+@pytest.mark.parametrize("filt", ["none", "paeth", "mixed"])
+@pytest.mark.parametrize("shape", [(13, 11), (1, 1), (3, 9), (9, 2)])
+def test_png_reader_matches_imageio_on_interlaced_files(tmp_path, filt, shape):
+    """Adam7 interlaced files of every colour type and depth, sizes where
+    some passes are empty: the port reads what imageio reads, alone and in
+    ``imread_many`` beside a file not interlaced."""
+    rng = np.random.default_rng(len(filt) + shape[0])
+    paths = []
+    for name, (ctype, depth, ch) in COLOUR_TYPES.items():
+        top = min(16, 1 << depth) if ctype == 3 else (1 << depth)
+        samples = rng.integers(0, top, shape + (ch,))
+        extra = _chunk(b"PLTE", rng.integers(0, 256, (top, 3)).astype(np.uint8).tobytes()) if ctype == 3 else b""
+        for interlace in (1, 0):
+            path = str(tmp_path / f"{name}_{interlace}.png")
+            with open(path, "wb") as f:
+                f.write(_png_bytes(samples, depth, ctype, FILTERS[filt], extra, interlace=interlace))
+            paths.append(path)
+        _assert_same_read(paths[-2])
+    for path, img in zip(paths, png.imread_many(paths)):
+        ref = imageio.imread(path)
+        assert img.shape == ref.shape and img.dtype == ref.dtype
+        np.testing.assert_array_equal(img, ref)
 
 
 def test_png_read_many_matches_imageio(tmp_path, monkeypatch):
@@ -162,6 +202,20 @@ def test_png_reader_matches_imageio_on_pillow_1_bit_files(tmp_path, shape):
     assert png.imread(path).dtype == np.bool_
 
 
+@pytest.mark.parametrize("bits", [1, 2, 4])
+def test_png_reader_matches_imageio_on_pillow_palette_files(tmp_path, bits):
+    """Palette images that Pillow writes with 1, 2 and 4 bits a pixel."""
+    from PIL import Image
+
+    rng = np.random.default_rng(bits)
+    im = Image.fromarray(rng.integers(0, 1 << bits, (13, 21)).astype(np.uint8), "P")
+    im.putpalette(rng.integers(0, 256, 3 << bits).astype(np.uint8).tobytes())
+    path = str(tmp_path / "p.png")
+    im.save(path, bits=bits)
+    assert open(path, "rb").read()[24] == bits           # the IHDR's bit depth
+    _assert_same_read(path)
+
+
 @pytest.mark.parametrize("shape,dtype", [((17, 9), np.uint8), ((17, 9, 2), np.uint8), ((17, 9, 3), np.uint8),
                                          ((17, 9, 4), np.uint8), ((17, 9), np.uint16)])
 def test_png_reader_matches_imageio_on_imageio_files(tmp_path, shape, dtype):
@@ -192,20 +246,19 @@ def test_png_writer_roundtrips_through_imageio(tmp_path, channels):
 
 
 def test_png_reader_refuses_what_it_does_not_read(tmp_path):
-    samples = np.zeros((4, 4, 3), np.int64)
+    """What it once refused it now reads as imageio does (an interlaced file,
+    a 4-bit palette); a CRC error and a write of uint16 still raise."""
+    samples = np.arange(4 * 4 * 3).reshape(4, 4, 3) * 5
     path = str(tmp_path / "interlaced.png")
     with open(path, "wb") as f:
         f.write(_png_bytes(samples, 8, 2, [0], interlace=1))
-    with pytest.raises(NotImplementedError, match="interlaced.png"):
-        png.imread(path)
-    # palettes below 8 bits (gray of 1, 2 and 4 bits is read)
+    _assert_same_read(path)
+    np.testing.assert_array_equal(png.imread(path), samples)
     path = str(tmp_path / "palette4.png")
     with open(path, "wb") as f:
-        f.write(png.SIGNATURE + _chunk(b"IHDR", struct.pack(">IIBBBBB", 4, 4, 4, 3, 0, 0, 0))
-                + _chunk(b"PLTE", bytes(16 * 3)) + _chunk(b"IDAT", zlib.compress(bytes(4 * 3)))
-                + _chunk(b"IEND", b""))
-    with pytest.raises(NotImplementedError, match="palette4.png"):
-        png.imread(path)
+        f.write(_png_bytes(np.arange(16).reshape(4, 4, 1)[::-1], 4, 3, [0, 1, 2, 4],
+                           _chunk(b"PLTE", bytes(range(16 * 3)))))
+    _assert_same_read(path)
     good = str(tmp_path / "good.png")
     png.imwrite(good, np.zeros((4, 4, 3), np.uint8))
     blob = bytearray(open(good, "rb").read())

@@ -320,6 +320,9 @@ def test_port_names_no_imaging_library():
     files = [os.path.join(REPO, "chip_smoke.py")]
     for root, _, names in os.walk(os.path.join(REPO, "pixelnerf_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    # the port's own image readers are among them
+    readers = {os.path.join("pixelnerf_tpu_torch", "utils", f"{m}.py") for m in ("png", "jpeg", "image_io")}
+    assert readers <= {os.path.relpath(f, REPO) for f in files}
     bad = set()
     for f in files:
         for node in ast.walk(ast.parse(open(f).read(), f)):

@@ -378,10 +378,16 @@ def test_preproc_then_eval_real_on_the_cpu(tmp_path, capsys):
 
 
 def test_preproc_raises_on_jpeg_and_gray_png(tmp_path):
+    """A truncated JPEG raises, naming the file (imageio raises too), and a
+    whole one is read as imageio reads it; a gray input raises."""
     (tmp_path / "a.jpg").write_bytes(b"\xff\xd8\xff")
-    with pytest.raises(NotImplementedError, match="PNG files only"):
+    with pytest.raises((OSError, SyntaxError)):              # Pillow's errors
+        imageio.imread(str(tmp_path / "a.jpg"))
+    with pytest.raises(ValueError, match="a.jpg: truncated"):
         preproc.main(["--input", str(tmp_path / "a.jpg"), "--output", str(tmp_path / "o"), "--cpu",
                       "--backend", "grabcut"])
+    cv2.imwrite(str(tmp_path / "b.jpg"), np.ascontiguousarray(_sphere()[..., ::-1]))      # OpenCV's encoder
+    np.testing.assert_array_equal(preproc.read_rgb(str(tmp_path / "b.jpg")), imageio.imread(str(tmp_path / "b.jpg")))
     png.imwrite(str(tmp_path / "g.png"), np.full((16, 16), 90, np.uint8))
     with pytest.raises(ValueError, match="8-bit RGB"):
         preproc.main(["--input", str(tmp_path / "g.png"), "--output", str(tmp_path / "o"), "--cpu",

@@ -240,12 +240,19 @@ def test_eval_real_matches_jax_app(work, tmp_path, capsys):
     np.testing.assert_array_equal(read_input(str(tmp_path / "big_normalize.png"), 128),
                                   (cv2.resize(big, (128, 128), interpolation=cv2.INTER_AREA).astype(np.float32)
                                    / 255.0 - 0.5) / 0.5)
-    # --no_vid: frames only; a JPEG input raises
+    # --no_vid: frames only; a truncated JPEG input raises, naming the file,
+    # as imageio raises; a JPEG input is read as imageio reads it
     eval_real.main(_common(work) + flags + ["-O", str(tmp_path / "novid"), "--no_vid"])
     assert sorted(os.listdir(tmp_path / "novid")) == ["a_normalize_frames", "b_normalize_frames"]
     (tmp_path / "c.jpg").write_bytes(b"\xff\xd8\xff")
-    with pytest.raises(NotImplementedError, match="PNG files only"):
+    with pytest.raises((OSError, SyntaxError)):              # Pillow's errors
+        imageio.imread(str(tmp_path / "c.jpg"))
+    with pytest.raises(ValueError, match="c.jpg: truncated"):
         eval_real.main(_common(work) + ["--input", str(tmp_path / "c.jpg"), "-O", str(tmp_path / "jpg")])
+    Image.fromarray(big).save(str(tmp_path / "d.jpg"), quality=90)
+    np.testing.assert_array_equal(read_input(str(tmp_path / "d.jpg"), 128),
+                                  (cv2.resize(imageio.imread(str(tmp_path / "d.jpg")), (128, 128),
+                                              interpolation=cv2.INTER_AREA).astype(np.float32) / 255.0 - 0.5) / 0.5)
     capsys.readouterr()
 
 
