@@ -92,7 +92,10 @@ Phases, one JSON line each:
     two-scene table); launch counts against the chunking, the eval render
     through A bit-equal to its plain version, ``finish.txt``'s PSNR
     against the written PNGs, seconds per step, ms per view and PNG
-    decode ms
+    decode ms; then ``apps.eval --scale 2`` of one object's two target
+    views at 256x256 (A: 131,072 rays in 3 chunks, 6 launches), its
+    upscaled ground truth in the comparison image equal to the same area
+    upscale made on this host, its PSNR within the written images'
 20. dtu_workflow (run after 19): a DTU-layout fixture (3 scans x 49 views
     at 400x300, DTU-like cameras: fx, fy ~ 720, an off-centre principal
     point, P of two positive scales, a scale_mat), ``apps.train -F dvr_dtu -V
@@ -149,6 +152,19 @@ Phases, one JSON line each:
     of config (a) with ``mesh=`` bit-equal in every parameter to the step
     without it (C, C-bwd); one card measures no scaling
 
+23b. tools (run after 20): the port's user tools on the card's host, each
+    step timed: ``scripts/make_multi_obj_dataset_torch.py`` (6 scenes x 8
+    views at 64^2) read by ``MultiObjectDataset``; ``apps.train -F
+    multi_obj`` for 2 batches and 2 more resumed (C, C-bwd; its eval and
+    visual through A) with ``snapshot_watcher_torch``'s rule after each;
+    ``quality_curve_torch`` over the two snapshots and the live file (A);
+    ``export_demo_checkpoint_torch`` (bf16, its size against the full
+    file's) and ``eval_approx`` on it (A); ``render_shapenet_objs_torch
+    --backend software`` on two cube models (ms per view) read by
+    ``MultiObjectDataset``; ``make_real_layout_fixtures_torch`` read by the
+    SRN and DVR readers; ``make_real_input_torch`` against
+    ``raw/photo*.png`` (differing values counted)
+
 24. variants (run last): the model variants of the SRN model at full
     width, bf16, three requests each through ``FullRenderer(fast=True)``
     with A's and B's launches asserted per config: ``global`` (a ResNet34
@@ -164,7 +180,8 @@ Phases, one JSON line each:
     asserted, none for quad); C and C-bwd at the custom encoder's table (C bit-equal to
     plain, C-bwd's grad_table bit-equal to its mirror)
 
-then the ``kernels`` line, the card's name and power limit, and
+then the seconds of every phase (``phase_seconds``), the ``kernels``
+line, the card's name and power limit, and
 ``{"ok": true, ...}`` as the last line. Any failure raises and exits
 non-zero; without a GPU it exits non-zero before printing anything.
 
@@ -1144,6 +1161,7 @@ SRN_OBJECTS = 2
 SRN_VIEWS = {"train": 50, "val": 50, "test": 251}
 SRN_SOURCE = 64
 SRN_TARGETS = (0, 31, 63, 95, 127, 159, 191, 250)
+SRN_SCALE_TARGETS = (31, 127)      # apps.eval --scale 2 of one object: 256x256, 131,072 rays
 
 
 def write_srn_fixture(root):
@@ -1304,6 +1322,7 @@ def run_srn_workflow(dev, tmp):
     from pixelnerf_tpu_torch.apps.args import parse_args
     from pixelnerf_tpu_torch.data import get_split_dataset
     from pixelnerf_tpu_torch.eval import FullRenderer
+    from pixelnerf_tpu_torch.eval.common import resize_area_like_cv2
     from pixelnerf_tpu_torch.utils import png
     from pixelnerf_tpu_torch.utils.exr import read_exr
 
@@ -1398,6 +1417,41 @@ def run_srn_workflow(dev, tmp):
     if approx is None or not all(math.isfinite(v) for v in approx):
         raise AssertionError(f"srn_workflow eval_approx: {approx}")
 
+    # 4b. eval --scale 2: one object's two target views at 256x256 (the
+    # ground truth area-upscaled from 128x128 as OpenCV's INTER_AREA does)
+    scale_views = os.path.join(tmp, "views_scale2.txt")
+    with open(scale_views, "w") as f:
+        f.write(" ".join(str(v) for v in SRN_SCALE_TARGETS) + "\n")
+    scale_dir = os.path.join(tmp, "eval_scale2")
+    argv = common + ["-P", str(SRN_SOURCE), "--eval_view_list", scale_views, "--scale", "2", "--limit", "1",
+                     "--write_compare", "-O", scale_dir]
+    _, lines, seconds["eval_scale2"], launches = run_app(eval_app, argv)
+    chunk = int(parse_args(eval_app.extra_args, argv=argv)[0].ray_batch_size)
+    side = 2 * IMAGE
+    expect = {"gather_rows_lerp": 0, "gather_rows_lerp_bwd": 0,
+              "gather_bilerp": 2 * -(-len(SRN_SCALE_TARGETS) * side * side // chunk), "fused_resnetfc_infer": 0,
+              "fused_gather_resnetfc_infer": 0}
+    name, psnr, ssim, n = open(os.path.join(scale_dir, "finish.txt")).read().split()
+    gt_src = test_set[0]["images"] * 0.5 + 0.5
+    bounds, gt_equal = [], []
+    for v in SRN_SCALE_TARGETS:
+        # the app's upscale on this host against the same resize made here,
+        # as the written comparison image holds it
+        gt = np.clip(resize_area_like_cv2(gt_src[v], side, side), 0.0, 1.0)
+        compare = png.imread(os.path.join(scale_dir, name, f"{v:06d}_compare.png"))
+        gt_equal.append(bool(np.array_equal(compare[:, :side], (gt * 255).astype(np.uint8))))
+        bounds.append(psnr_interval_from_png(png.imread(os.path.join(scale_dir, name, f"{v:06d}.png")), gt))
+    lo, hi = (sum(b[i] for b in bounds) / len(bounds) for i in (0, 1))
+    res["eval_scale2"] = {"image": side, "rays": len(SRN_SCALE_TARGETS) * side * side, "ray_chunk": chunk,
+                          "finish": [name, psnr, ssim, n], "psnr_from_png": [lo, hi], "gt_equal": gt_equal,
+                          "launches": launches, "expected_launches": expect,
+                          "ms_per_view": seconds["eval_scale2"] * 1e3 / len(SRN_SCALE_TARGETS)}
+    if launches != expect:
+        raise AssertionError(f"srn_workflow eval --scale 2: launch counts {launches} != expected {expect}")
+    if not (all(gt_equal) and int(n) == len(SRN_SCALE_TARGETS) and math.isfinite(float(psnr))
+            and lo <= float(psnr) <= hi and math.isfinite(float(ssim))):
+        raise AssertionError(f"srn_workflow eval --scale 2: {res['eval_scale2']}")
+
     # 5. one object's eval render through kernel A and through its plain
     # version, the same checkpoint and draws: bit for bit
     args, cfg_tree = parse_args(eval_app.extra_args, argv=common + ["-P", str(SRN_SOURCE)])
@@ -1429,7 +1483,7 @@ def run_srn_workflow(dev, tmp):
     res["train_seconds_per_batch"] = seconds["train"] / 2
     res["eval_ms_per_view"] = seconds["eval"] * 1e3 / views
     res["render_ms_per_view"] = seconds["render_kernels"] * 1e3 / len(SRN_TARGETS)
-    res["launches"] = {k: sum(res[p]["launches"][k] for p in ("train", "eval", "eval_approx"))
+    res["launches"] = {k: sum(res[p]["launches"][k] for p in ("train", "eval", "eval_approx", "eval_scale2"))
                        for k in ("gather_bilerp", "gather_rows_lerp", "gather_rows_lerp_bwd")}
     # rgb = sum(w c) + (1 - sum(w)) over the fine pass's K samples is at
     # most 1 in exact arithmetic; float32 rounds each K-term sum by at most
@@ -1749,6 +1803,206 @@ RECON_RESO = 128
 RECON_PROBE_RESO = 32
 RECON_PERCENTILE = 95.0
 RECON_CHUNK = 65536
+
+
+# tools phase: the port's user tools on the card's host, in a temporary
+# directory: 6 scenes x 8 views of 64^2 for the multi-object dataset, two
+# snapshots of a 2 + 2 step run, two cube models for the OBJ renderer
+TOOLS_SCENES, TOOLS_VIEWS, TOOLS_IMAGE = 6, 8, 64
+TOOLS_MESH_SCENES, TOOLS_MESH_VIEWS = 2, 4
+# values of each photo that may differ from raw/photo*.png by one level
+PHOTO_DIFF_ALLOWANCE = 100
+
+
+def write_cube_model(model_dir, color):
+    """A ShapeNet-layout model: ``models/model_normalized.obj``, a unit
+    cube of six quads, and its .mtl with one diffuse colour."""
+    os.makedirs(os.path.join(model_dir, "models"), exist_ok=True)
+    with open(os.path.join(model_dir, "models", "cube.mtl"), "w") as f:
+        f.write(f"newmtl m\nKd {color[0]} {color[1]} {color[2]}\n")
+    verts = [(-1, -1, -1), (1, -1, -1), (1, 1, -1), (-1, 1, -1), (-1, -1, 1), (1, -1, 1), (1, 1, 1), (-1, 1, 1)]
+    quads = [(1, 2, 3, 4), (5, 8, 7, 6), (1, 5, 6, 2), (2, 6, 7, 3), (3, 7, 8, 4), (5, 1, 4, 8)]
+    with open(os.path.join(model_dir, "models", "model_normalized.obj"), "w") as f:
+        f.write("mtllib cube.mtl\nusemtl m\n")
+        f.writelines(f"v {x} {y} {z}\n" for x, y, z in verts)
+        f.writelines("f " + " ".join(str(i) for i in q) + "\n" for q in quads)
+
+
+def run_tools(dev):
+    """The port's user tools (``scripts/*_torch.py``) on the card's host,
+    each step timed: ``make_multi_obj_dataset_torch`` read by the port's
+    ``MultiObjectDataset``; ``apps.train -F multi_obj`` on it for 2 + 2
+    batches (the second run resumed; kernels C and C-bwd, its eval and
+    visual through A) with ``snapshot_watcher_torch``'s rule snapshotting
+    the live checkpoint after each run; ``quality_curve_torch`` over the
+    snapshots and the live file (``eval_approx`` through A);
+    ``export_demo_checkpoint_torch`` (bf16, no optimizer) and
+    ``eval_approx`` on its output (A); ``render_shapenet_objs_torch
+    --backend software`` on two cube models read by ``MultiObjectDataset``;
+    ``make_real_layout_fixtures_torch`` (SRN, DTU, NMR) read by the three
+    readers; ``make_real_input_torch`` held to the committed
+    ``raw/photo*.png`` (differing values counted). Launch counts are set to
+    0 before each app and read after it."""
+    import contextlib
+    import io
+
+    import numpy as np
+
+    sys.path.insert(0, os.path.join(REPO, "scripts"))
+    import export_demo_checkpoint_torch
+    import make_multi_obj_dataset_torch
+    import make_real_input_torch
+    import make_real_layout_fixtures_torch
+    import quality_curve_torch
+    import render_shapenet_objs_torch
+    import snapshot_watcher_torch
+
+    from pixelnerf_tpu_torch.apps import eval_approx
+    from pixelnerf_tpu_torch.apps import train as train_app
+    from pixelnerf_tpu_torch.apps.train import VIS_RAY_CHUNK
+    from pixelnerf_tpu_torch.data import DVRDataset, MultiObjectDataset, SRNDataset
+    from pixelnerf_tpu_torch.train.state import CKPT_NAME
+    from pixelnerf_tpu_torch.utils import png
+
+    os.environ["PIXELNERF_NO_TB"] = "1"
+    seconds, res, wrong = {}, {"phase": "tools"}, []
+
+    def quiet(fn, *args):
+        with contextlib.redirect_stdout(io.StringIO()):
+            return fn(*args)
+
+    def expect(step, launches, want):
+        res[step]["launches"], res[step]["expected_launches"] = launches, want
+        if launches != want:
+            wrong.append(f"{step}: launch counts {launches} != expected {want}")
+
+    none = {"gather_bilerp": 0, "gather_rows_lerp": 0, "gather_rows_lerp_bwd": 0, "fused_resnetfc_infer": 0,
+            "fused_gather_resnetfc_infer": 0}
+    with tempfile.TemporaryDirectory() as tmp:
+        # 1. the multi-object dataset, read back
+        data = os.path.join(tmp, "multi")
+        t0 = time.time()
+        quiet(make_multi_obj_dataset_torch.main, ["--out", data, "--scenes", str(TOOLS_SCENES), "--views",
+                                                  str(TOOLS_VIEWS), "--size", str(TOOLS_IMAGE)])
+        seconds["make_multi_obj_dataset"] = time.time() - t0
+        t0 = time.time()
+        item = MultiObjectDataset(data, stage="train")[0]
+        seconds["multi_obj_item"] = time.time() - t0
+        res["make_multi_obj_dataset"] = {"splits": {s: len(os.listdir(os.path.join(data, s)))
+                                                    for s in ("train", "val", "test")},
+                                         "item_images": list(item["images"].shape)}
+        if item["images"].shape != (TOOLS_VIEWS, TOOLS_IMAGE, TOOLS_IMAGE, 3) or not np.isfinite(item["images"]).all():
+            raise AssertionError(f"tools: multi-object item {res['make_multi_obj_dataset']}")
+
+        # 2. train on it, 2 batches, then 2 more resumed; a snapshot after each run
+        conf = os.path.join(REPO, "conf", "exp", "multi_obj.conf")
+        ck = os.path.join(tmp, "ck")
+        live = os.path.join(ck, "tools", CKPT_NAME)
+        argv = ["-n", "tools", "-c", conf, "-F", "multi_obj", "-D", data, "--device", str(dev),
+                "--checkpoints_path", ck, "-B", "2", "-V", "1", "--epochs", "1", "--epoch_batches", "2",
+                "--workers", "1", "--logs_path", os.path.join(tmp, "logs"), "--visual_path", os.path.join(tmp, "vis")]
+        last_snap = -2
+        res["train"] = {"steps": [], "losses": [], "snapshot_steps": []}
+        launches_sum = dict(none)
+        for run in range(2):
+            trainer, lines, seconds[f"train_{run}"], launches = run_app(train_app, argv + ["--resume"] * run)
+            res["train"]["steps"].append(trainer.step)
+            res["train"]["losses"] += [float(l.split(" t:")[1].split()[0]) for l in lines if l.startswith("E")]
+            for k in launches_sum:
+                launches_sum[k] += launches[k]
+            t0 = time.time()
+            last_snap = quiet(snapshot_watcher_torch.snapshot_if_due, live, last_snap, 2)
+            seconds[f"snapshot_{run}"] = time.time() - t0
+            res["train"]["snapshot_steps"].append(last_snap)
+        vis = 2 * -(-TOOLS_IMAGE * TOOLS_IMAGE // VIS_RAY_CHUNK)
+        expect("train", launches_sum, {**none, "gather_rows_lerp": 2 * 4, "gather_rows_lerp_bwd": 2 * 4,
+                                       "gather_bilerp": 2 * (2 + vis)})
+        snaps = sorted(f for f in os.listdir(os.path.dirname(live)) if "_step" in f)
+        res["train"]["snapshots"] = snaps
+        if (res["train"]["steps"] != [2, 4] or snaps != ["train_state_step2.pt", "train_state_step4.pt"]
+                or not all(math.isfinite(v) for v in res["train"]["losses"])):
+            raise AssertionError(f"tools: train and snapshots {res['train']}")
+
+        # 3. the quality curve over the two snapshots and the live file
+        approx = ["-c", conf, "-F", "multi_obj", "-D", data, "-P", "0", "-B", "1", "--device", str(dev)]
+        curve, _, seconds["quality_curve"], launches = run_app(
+            quality_curve_torch, ["-n", "tools", "--checkpoints_path", ck] + approx)
+        res["quality_curve"] = {"curve": curve}
+        expect("quality_curve", launches, {**none, "gather_bilerp": 2 * 3})
+        if [p["step"] for p in curve] != [2, 4, 4] or not all(math.isfinite(p["psnr"]) for p in curve):
+            raise AssertionError(f"tools: quality curve {curve}")
+
+        # 4. the exported bf16 checkpoint, and eval_approx on it
+        demo = os.path.join(tmp, "demo")
+        t0 = time.time()
+        quiet(export_demo_checkpoint_torch.main, ["--src", os.path.dirname(live), "--dst", os.path.join(demo, "tools")])
+        seconds["export_demo_checkpoint"] = time.time() - t0
+        sizes = [os.path.getsize(live), os.path.getsize(os.path.join(demo, "tools", CKPT_NAME))]
+        approx_demo, lines, seconds["eval_approx_demo"], launches = run_app(
+            eval_approx, ["-n", "tools", "--checkpoints_path", demo] + approx)
+        res["export_demo_checkpoint"] = {"bytes": sizes, "ratio": sizes[1] / sizes[0],
+                                         "psnr_ssim": approx_demo, "live_psnr": curve[-1]["psnr"]}
+        expect("export_demo_checkpoint", launches, {**none, "gather_bilerp": 2})
+        if sizes[1] * 5 > sizes[0] or approx_demo is None or not all(math.isfinite(v) for v in approx_demo) \
+                or not any(l.startswith("Loaded checkpoint at step 4") for l in lines):
+            raise AssertionError(f"tools: export {res['export_demo_checkpoint']}")
+
+        # 5. OBJ meshes through the software rasterizer, read back
+        src, out = os.path.join(tmp, "shapenet"), os.path.join(tmp, "shapenet_ds")
+        for i, col in enumerate([(0.8, 0.2, 0.1), (0.1, 0.4, 0.9)]):
+            write_cube_model(os.path.join(src, f"model{i:02d}"), col)
+        t0 = time.time()
+        quiet(render_shapenet_objs_torch.main, [
+            "--backend", "software", "--src", src, "--out", out, "--split", "train", "--n_scenes",
+            str(TOOLS_MESH_SCENES), "--n_objects", "2", "--n_views", str(TOOLS_MESH_VIEWS), "--size",
+            str(TOOLS_IMAGE), "--val_frac", "0", "--test_frac", "0", "--render_depth", "--render_alpha"])
+        seconds["render_shapenet_objs"] = time.time() - t0
+        mesh_item = MultiObjectDataset(out, stage="train")[0]
+        res["render_shapenet_objs"] = {"ms_per_view": seconds["render_shapenet_objs"] * 1e3
+                                       / (TOOLS_MESH_SCENES * TOOLS_MESH_VIEWS),
+                                       "item_images": list(mesh_item["images"].shape),
+                                       "object_share": float((mesh_item["images"] < 0.99).any(-1).mean())}
+        if mesh_item["images"].shape != (TOOLS_MESH_VIEWS, TOOLS_IMAGE, TOOLS_IMAGE, 3) \
+                or not 0 < res["render_shapenet_objs"]["object_share"] < 1:
+            raise AssertionError(f"tools: shapenet {res['render_shapenet_objs']}")
+
+        # 6. the SRN, DTU and NMR layouts, read by their readers
+        layouts = os.path.join(tmp, "layouts")
+        t0 = time.time()
+        for fmt in ("srn", "dtu", "nmr"):
+            quiet(make_real_layout_fixtures_torch.main, ["--out", layouts, "--format", fmt, "--objs", "2",
+                                                        "--views", "3", "--size", "32"])
+        seconds["make_real_layout_fixtures"] = time.time() - t0
+        items = {"srn": SRNDataset(os.path.join(layouts, "cars"), stage="train", image_size=(32, 32))[0],
+                 "dtu": DVRDataset(os.path.join(layouts, "rs_dtu_4"), stage="train", list_prefix="new_",
+                                   sub_format="dtu", scale_focal=False, z_near=0.1, z_far=5.0)[0],
+                 "nmr": DVRDataset(layouts, stage="train", list_prefix="softras_")[0]}
+        res["make_real_layout_fixtures"] = {k: list(v["images"].shape) for k, v in items.items()}
+        if res["make_real_layout_fixtures"] != {"srn": [3, 32, 32, 3], "dtu": [3, 32, 42, 3], "nmr": [3, 32, 32, 3]}:
+            raise AssertionError(f"tools: layouts {res['make_real_layout_fixtures']}")
+
+        # 7. the photo-like inputs against the committed ones
+        res["make_real_input"] = {}
+        for i in (1, 2):
+            t0 = time.time()
+            photo = make_real_input_torch.make_photo(seed=i)
+            seconds[f"make_real_input_{i}"] = time.time() - t0
+            diff = np.abs(photo.astype(int) - png.imread(os.path.join(REPO, "raw", f"photo{i}.png")))
+            res["make_real_input"][f"photo{i}"] = {"differing_values": int((diff > 0).sum()),
+                                                   "max_level_diff": int(diff.max())}
+    res["seconds"] = seconds
+    res["launches"] = {k: sum(res[s]["launches"][k] for s in ("train", "quality_curve", "export_demo_checkpoint"))
+                       for k in ("gather_bilerp", "gather_rows_lerp", "gather_rows_lerp_bwd")}
+    res["card"] = nvidia_smi_line()
+    emit(res)
+    if wrong:
+        raise AssertionError("tools: " + "; ".join(wrong))
+    # the photos: equal on the CPU tests; another host's numpy may round a
+    # float32 exp or a matrix product differently
+    for name, d in res["make_real_input"].items():
+        if d["max_level_diff"] > 1 or d["differing_values"] > PHOTO_DIFF_ALLOWANCE:
+            raise AssertionError(f"tools: make_real_input {name} differs from raw/{name}.png: {d}")
+    return res
 
 
 def run_recon(dev, tmp):
@@ -2802,21 +3056,30 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    phase_seconds = {}
+
+    def timed(name, fn, *args):
+        t0 = time.time()
+        out = fn(*args)
+        phase_seconds[name] = time.time() - t0
+        return out
+
     t0 = time.time()
     logs = _build.build(["gather", "fused_mlp", "gather_rows", "fused_field", "gather_study"])
-    emit({"phase": "build", "seconds": time.time() - t0,
+    phase_seconds["build"] = time.time() - t0
+    emit({"phase": "build", "seconds": phase_seconds["build"],
           "ptxas": {k: [l.strip() for l in v.splitlines() if "Used" in l or "spill" in l]
                     for k, v in logs.items()}})
 
     with tempfile.TemporaryDirectory() as jpeg_tmp:
-        run_jpeg(jpeg_tmp)
+        timed("jpeg", run_jpeg, jpeg_tmp)
 
     g = torch.Generator().manual_seed(0)
     net, cfg = make_srn_model(dev, g)
 
     with torch.inference_mode():
-        res_a = check_kernel_a(dev, g)
-        res_b = check_kernel_b(dev, g, net.mlp_fine)
+        res_a = timed("kernel_a", check_kernel_a, dev, g)
+        res_b = timed("kernel_b", check_kernel_b, dev, g, net.mlp_fine)
 
     # the main path: encode one source view, answer three render requests
     images, src_pose = source_view(g, dev)
@@ -2828,8 +3091,8 @@ def main():
         enc = net.encode(images, src_pose, FOCAL)
     torch.cuda.synchronize()
     encode_ms = (time.time() - t0) * 1e3
-    main_res = run_path("main_path", make_request("staged", net, cfg, enc), targets, dev, rgen,
-                        {"gather_bilerp": 2, "fused_resnetfc_infer": 3}, {"encode_ms": encode_ms, "card": smi})
+    main_res = timed("main_path", run_path, "main_path", make_request("staged", net, cfg, enc), targets, dev, rgen,
+                     {"gather_bilerp": 2, "fused_resnetfc_infer": 3}, {"encode_ms": encode_ms, "card": smi})
     launches = dict(main_res["launches"])
 
     # kernels vs their plain versions, end to end, on the same noise
@@ -2849,46 +3112,47 @@ def main():
 
     # the training path's kernels at its own shapes
     inputs_c = kernel_c_inputs(dev, g)
-    res_c = check_kernel_c(dev, inputs_c)
-    res_c_bwd = check_kernel_c_bwd(dev, g, inputs_c)
+    res_c = timed("kernel_c", check_kernel_c, dev, inputs_c)
+    res_c_bwd = timed("kernel_c_bwd", check_kernel_c_bwd, dev, g, inputs_c)
     del inputs_c
     train_launches = {"gather_rows_lerp": 0, "gather_rows_lerp_bwd": 0}
-    train_runs = {key: run_train(dev, key) for key in TRAIN_CONFIGS}
-    for res in list(train_runs.values()) + [run_train_app(dev)]:
+    train_runs = {key: timed(f"train_{key}", run_train, dev, key) for key in TRAIN_CONFIGS}
+    for res in list(train_runs.values()) + [timed("train_app", run_train_app, dev)]:
         for k in train_launches:
             train_launches[k] += res["launches"][k]
-    train_kernel_vs_plain(dev)
+    timed("train_kernel_vs_plain", train_kernel_vs_plain, dev)
 
     # the SRN evaluation workflow: train, eval, resume, eval_approx; the
     # apps that consume its model; then the DTU workflow at NS = 3 and 400x300
     with tempfile.TemporaryDirectory() as srn_tmp:
-        srn = run_srn_workflow(dev, srn_tmp)
-        apps = run_apps_workflow(dev, srn_tmp, train_runs["b"])
-        preproc = run_preproc(dev, srn_tmp)
-        recon = run_recon(dev, srn_tmp)
-    dtu = run_dtu_workflow(dev)
+        srn = timed("srn_workflow", run_srn_workflow, dev, srn_tmp)
+        apps = timed("apps_workflow", run_apps_workflow, dev, srn_tmp, train_runs["b"])
+        preproc = timed("preproc", run_preproc, dev, srn_tmp)
+        recon = timed("recon", run_recon, dev, srn_tmp)
+    dtu = timed("dtu_workflow", run_dtu_workflow, dev)
+    tools = timed("tools", run_tools, dev)
     for k in train_launches:
-        train_launches[k] += srn["launches"][k] + dtu["launches"][k] + apps["launches"][k]
+        train_launches[k] += srn["launches"][k] + dtu["launches"][k] + apps["launches"][k] + tools["launches"][k]
 
     # the fused and baked field paths: their kernels at the paths' shapes
     with torch.inference_mode():
-        res_b_tz = check_kernel_b_tz(dev, g, net.mlp_fine)
-        res_d = check_kernel_d(dev, g, net.mlp_fine)
-        study = check_gather_study(dev)
+        res_b_tz = timed("kernel_b_tz", check_kernel_b_tz, dev, g, net.mlp_fine)
+        res_d = timed("kernel_d", check_kernel_d, dev, g, net.mlp_fine)
+        study = timed("gather_study", check_gather_study, dev)
 
     with torch.inference_mode():
         penc = pack_encoding(net, enc)
-    fused_res = run_path("fused_path", make_request("fused", net, cfg, penc), targets, dev, rgen,
-                         {"fused_gather_resnetfc_infer": 2}, {"card": smi})
+    fused_res = timed("fused_path", run_path, "fused_path", make_request("fused", net, cfg, penc), targets, dev,
+                      rgen, {"fused_gather_resnetfc_infer": 2}, {"card": smi})
     torch.cuda.synchronize()
     t0 = time.time()
     with torch.inference_mode():
         baked = bake_encoding(net, enc)
     torch.cuda.synchronize()
     bake_ms = (time.time() - t0) * 1e3
-    baked_res = run_path("baked_path", make_request("baked", net, cfg, baked), targets, dev, rgen,
-                         {"gather_bilerp": 2, "fused_resnetfc_infer": 2},
-                         {"bake_encoding_ms": bake_ms, "tz_map_shape": list(baked.tz_coarse.shape), "card": smi})
+    baked_res = timed("baked_path", run_path, "baked_path", make_request("baked", net, cfg, baked), targets, dev,
+                      rgen, {"gather_bilerp": 2, "fused_resnetfc_infer": 2},
+                      {"bake_encoding_ms": bake_ms, "tz_map_shape": list(baked.tz_coarse.shape), "card": smi})
 
     # the crop again: fused against staged and plain, baked against unbaked
     with torch.inference_mode():
@@ -2913,11 +3177,11 @@ def main():
             raise AssertionError(f"{name}: renders disagree: {err} > {tols[name]}")
 
     # the multi-GPU layer at world size 1: the sharded render and train step
-    parallel = run_parallel(dev, net, cfg, enc, targets[0])
+    parallel = timed("parallel", run_parallel, dev, net, cfg, enc, targets[0])
     for k in train_launches:
         train_launches[k] += parallel["launches"][k]
 
-    variants = run_variants(dev, g, targets, rgen, smi, main_res["request_ms"], crop, noise)
+    variants = timed("variants", run_variants, dev, g, targets, rgen, smi, main_res["request_ms"], crop, noise)
     for rec in variants["train"].values():
         for k in train_launches:
             train_launches[k] += rec["launches"][k]
@@ -2925,15 +3189,16 @@ def main():
     keys = ("name", "route", "source", "replaces", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")
     # launches: A over the staged inference path, the SRN and DTU
-    # workflows, the video and real-image apps, eval_real on preproc's
-    # outputs, recon and the sharded
-    # render, B over the staged path and the sharded render, B's z_is_tz
+    # workflows (with eval --scale 2), the video and real-image apps,
+    # eval_real on preproc's outputs, recon, the sharded render and the
+    # tools (the multi-object train app, the quality curve, eval_approx on
+    # the export), B over the staged path and the sharded render, B's z_is_tz
     # variant over the baked path, D over the fused path, C and C-bwd over
     # both training configs, the train app, the two workflows, the "dots"
-    # run, the profiled train app and the sharded train step, the study's
-    # formulations over its bench script
+    # run, the profiled train app, the sharded train step and the tools'
+    # multi-object train app, the study's formulations over its bench script
     launches["gather_bilerp"] += sum(r["launches"]["gather_bilerp"] for r in (srn, dtu, apps, preproc, recon,
-                                                                             parallel))
+                                                                             parallel, tools))
     launches["fused_resnetfc_infer"] += parallel["launches"]["fused_resnetfc_infer"]
     launches.update(train_launches)
     launches["fused_resnetfc_infer[z_is_tz]"] = baked_res["launches"]["fused_resnetfc_infer"]
@@ -2955,6 +3220,7 @@ def main():
     ]
     if any(k["launches"] < 1 for k in ported):
         raise AssertionError(f"a kernel was not launched on its path: {ported}")
+    emit({"phase": "phase_seconds", "seconds": phase_seconds, "total": time.time() - t_start})
     emit({"kernels": ported, "card": smi, "seconds": time.time() - t_start})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -186,5 +186,7 @@ def depth_cmap(depth: np.ndarray, z_near: float = None, z_far: float = None):
 def resize_area_like_cv2(img: np.ndarray, out_h: int, out_w: int) -> np.ndarray:
     """``cv2.resize(img, (out_w, out_h), interpolation=cv2.INTER_AREA)`` of
     an (H, W, C) float32 image, bit for bit: ``utils.imgproc.resize_area``
-    (any downscale; an upscale raises ``NotImplementedError``)."""
+    (a downscale by its area path; an upscale, ``--scale`` above 1, or a
+    resize that shrinks one axis and grows the other by OpenCV's linear
+    pass with area-mode offsets)."""
     return resize_area(np.asarray(img, np.float32), out_h, out_w)

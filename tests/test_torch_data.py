@@ -381,18 +381,20 @@ def test_write_exr_bytes_match_jax(tmp_path):
 def test_resize_area_like_cv2_matches_cv2_and_refuses_the_rest():
     """Exact against ``cv2.resize(INTER_AREA)`` at every downscale: factors
     1, 2 and 4 per axis (what ``--scale 0.5`` and ``0.25`` give), integer
-    factors of 3 and 8, ratios that are no integer (``--scale 0.75``);
-    upscales of float32 images raise."""
+    factors of 3 and 8, ratios that are no integer (``--scale 0.75``); and
+    at the upscales and mixed resizes that once raised (``--scale 2``, a
+    row grown and a column shrunk). An empty size is refused."""
     rng = np.random.default_rng(4)
     for (h, w), (oh, ow) in (((64, 64), (32, 32)), ((128, 128), (32, 32)), ((64, 128), (32, 32)),
                              ((128, 128), (128, 64)), ((40, 40), (40, 40)), ((64, 64), (48, 48)),
-                             ((64, 64), (43, 43)), ((64, 64), (8, 8)), ((64, 64), (21, 32)), ((96, 96), (32, 32))):
+                             ((64, 64), (43, 43)), ((64, 64), (8, 8)), ((64, 64), (21, 32)), ((96, 96), (32, 32)),
+                             ((64, 64), (128, 128)), ((64, 64), (32, 128)), ((64, 64), (65, 64))):
         for ch in (3, 1):
             x = rng.uniform(0, 1, (h, w, ch)).astype(np.float32)
             ref = cv2.resize(x, (ow, oh), interpolation=cv2.INTER_AREA).reshape(oh, ow, ch)
             np.testing.assert_array_equal(resize_area_like_cv2(x, oh, ow), ref)
-    for size in ((128, 128), (32, 128), (65, 64)):
-        with pytest.raises(NotImplementedError):
+    for size in ((0, 64), (64, 0)):
+        with pytest.raises(ValueError):
             resize_area_like_cv2(np.zeros((64, 64, 3), np.float32), *size)
 
 

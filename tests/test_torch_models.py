@@ -213,6 +213,9 @@ def test_weight_bridge_matches_export_state_dict_srn():
 
 
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "pixelnerf_tpu"}
+# the JAX side's user tools that have a counterpart scripts/<name>_torch.py
+TOOLS = ("make_multi_obj_dataset", "render_shapenet_objs", "make_real_layout_fixtures", "make_real_input",
+         "snapshot_watcher", "quality_curve", "export_demo_checkpoint")
 
 
 def _imported_roots(path):
@@ -233,7 +236,9 @@ def test_port_imports_nothing_of_jax():
     """Every module of the port, chip_smoke.py and the port's profiling
     and gather-study scripts: no import of jax, flax,
     optax or the top-level package pixelnerf_tpu (matched by exact name:
-    pixelnerf_tpu_torch shares its prefix)."""
+    pixelnerf_tpu_torch shares its prefix). The port's user tools, which
+    run where the card is, import no imaging library either (imageio, cv2,
+    PIL) and none of the JAX side's scripts."""
     files = [os.path.join(REPO, "chip_smoke.py")] + [
         os.path.join(REPO, "scripts", f"{name}.py")
         for name in ("profile_torch_render", "profile_torch_train", "bench_gather_torch",
@@ -244,6 +249,13 @@ def test_port_imports_nothing_of_jax():
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     assert len(files) > 15
     bad = {(os.path.relpath(f, REPO), m) for f in files for m in _imported_roots(f) if m in FORBIDDEN}
+    assert not bad, bad
+    tools = [os.path.join(REPO, "scripts", f"{name}_torch.py") for name in TOOLS]
+    jax_scripts = {n[:-3] for n in os.listdir(os.path.join(REPO, "scripts"))
+                   if n.endswith(".py") and not n.endswith("_torch.py")}
+    assert all(name in jax_scripts for name in TOOLS)
+    forbidden = FORBIDDEN | {"imageio", "cv2", "PIL", "scripts"} | jax_scripts
+    bad = {(os.path.relpath(f, REPO), m) for f in tools for m in _imported_roots(f) if m in forbidden}
     assert not bad, bad
     # the lazy-export table names modules as strings
     import pixelnerf_tpu_torch

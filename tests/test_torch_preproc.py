@@ -160,18 +160,17 @@ def test_resize_area_float32_is_opencvs(shape_in, shape_out):
 def test_resize_area_uint8_upscale_is_opencvs(size_in):
     """OpenCV's INTER_AREA upscale (linear with area offsets, 11-bit
     weights, its vector loop's rounding): equal on these inputs (the
-    contract allows one level); float32 upscales and mixed resizes
-    raise."""
+    contract allows one level); so are the float32 upscale and the mixed
+    resize, which once raised."""
     rng = np.random.default_rng(size_in)
     img = rng.integers(0, 256, (size_in, size_in, 3)).astype(np.uint8)
     ref = cv2.resize(img, (128, 128), interpolation=cv2.INTER_AREA)
     ours = imgproc.resize_area(img, 128, 128)
     assert np.abs(ours.astype(int) - ref).max() <= 1
     np.testing.assert_array_equal(ours, ref)
-    with pytest.raises(NotImplementedError):
-        imgproc.resize_area(img.astype(np.float32), 128, 128)
-    with pytest.raises(NotImplementedError):
-        imgproc.resize_area(img, 128, size_in // 2)
+    for x, (oh, ow) in ((img.astype(np.float32), (128, 128)), (img, (128, size_in // 2))):
+        np.testing.assert_array_equal(imgproc.resize_area(x, oh, ow),
+                                      cv2.resize(x, (ow, oh), interpolation=cv2.INTER_AREA))
 
 
 # ---------------------------------------------------------------------------
