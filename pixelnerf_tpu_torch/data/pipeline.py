@@ -22,6 +22,7 @@ from typing import Optional, Sequence
 
 import numpy as np
 
+from ..utils.profiling import span
 from ..utils.sampling import bbox_sample, uniform_pixel_sample
 
 
@@ -225,7 +226,8 @@ class RayBatchPipeline:
         t.start()
         try:
             while True:
-                b = q.get()
+                with span("data.next"):
+                    b = q.get()
                 if b is stop:
                     return
                 yield b

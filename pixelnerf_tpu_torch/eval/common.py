@@ -17,6 +17,7 @@ import torch
 from ..render.renderer import RenderConfig, render_rays_chunked
 from ..utils.imgproc import resize_area
 from ..utils.nans import raise_if_not_finite
+from ..utils.profiling import span
 
 
 def field(net, enc, fast: bool = False, use_kernels: bool = True, staged: bool = True):
@@ -144,10 +145,11 @@ class FullRenderer:
                      fine: Optional[bool] = None):
         """:param rays_hw: (H, W, 8) -> (rgb (H, W, 3), depth (H, W))"""
         H, W, _ = rays_hw.shape
-        out = self(enc, rays_hw.reshape(-1, 8), generator, noise)
-        use_fine = fine if fine is not None else self.cfg.using_fine
-        branch = out["fine"] if use_fine else out["coarse"]
-        return branch["rgb"].reshape(H, W, 3), branch["depth"].reshape(H, W)
+        with span("request", rays=H * W, chunks=-(-H * W // self.ray_chunk)):
+            out = self(enc, rays_hw.reshape(-1, 8), generator, noise)
+            use_fine = fine if fine is not None else self.cfg.using_fine
+            branch = out["fine"] if use_fine else out["coarse"]
+            return branch["rgb"].reshape(H, W, 3), branch["depth"].reshape(H, W)
 
 
 @functools.lru_cache(maxsize=1)

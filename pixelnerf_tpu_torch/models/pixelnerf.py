@@ -36,6 +36,7 @@ import torch.nn as nn
 
 from ..ops.grid_sample import _compute_source_index, bilinear_pair_bases, build_quad_features, grid_sample_quad
 from ..utils.geometry import invert_pose, repeat_interleave
+from ..utils.profiling import span
 from .code import PositionalEncoding
 from .encoder import ImageEncoder, SpatialEncoder, index_latent, latent_scaling
 
@@ -155,29 +156,30 @@ class PixelNeRFNet(nn.Module):
         :param c: principal point, same formats; default = image center
         :param train: the encoders' batch norms in training mode
         """
-        SB, NS, H, W, _ = images.shape
-        dev = images.device
-        images_flat = images.reshape(SB * NS, H, W, 3)
-        latent = latent_quad = global_latent = None
-        if self.use_encoder:
-            # bf16 storage halves the gather's traffic; the lerp is float32.
-            # The cast stays in the autograd graph when training.
-            latent = self.encoder(images_flat, train).to(self.latent_dtype).contiguous()
-            if (self.quad_gather and self.encoder.index_interp == "bilinear"
-                    and self.encoder.index_padding == "border"):
-                latent_quad = build_quad_features(latent)
-        if self.use_global_encoder:
-            global_latent = self.global_encoder(images_flat, train)
-        w2c = invert_pose(poses.reshape(SB * NS, 4, 4).float())
-        image_shape = torch.tensor([W, H], dtype=torch.float32, device=dev)
-        focal = _normalize_intrinsic(focal, SB, "focal", NS, dev)
-        focal = focal * torch.tensor([1.0, -1.0], device=dev)   # image y is down
-        if c is None:
-            c = (image_shape * 0.5).expand(SB, 2)
-        else:
-            c = _normalize_intrinsic(c, SB, "c", NS, dev)
-        return SceneEncoding(latent, w2c, focal, c, image_shape, NS, global_latent=global_latent,
-                             latent_quad=latent_quad)
+        with span("encode", images=images.shape[0] * images.shape[1]):
+            SB, NS, H, W, _ = images.shape
+            dev = images.device
+            images_flat = images.reshape(SB * NS, H, W, 3)
+            latent = latent_quad = global_latent = None
+            if self.use_encoder:
+                # bf16 storage halves the gather's traffic; the lerp is float32.
+                # The cast stays in the autograd graph when training.
+                latent = self.encoder(images_flat, train).to(self.latent_dtype).contiguous()
+                if (self.quad_gather and self.encoder.index_interp == "bilinear"
+                        and self.encoder.index_padding == "border"):
+                    latent_quad = build_quad_features(latent)
+            if self.use_global_encoder:
+                global_latent = self.global_encoder(images_flat, train)
+            w2c = invert_pose(poses.reshape(SB * NS, 4, 4).float())
+            image_shape = torch.tensor([W, H], dtype=torch.float32, device=dev)
+            focal = _normalize_intrinsic(focal, SB, "focal", NS, dev)
+            focal = focal * torch.tensor([1.0, -1.0], device=dev)   # image y is down
+            if c is None:
+                c = (image_shape * 0.5).expand(SB, 2)
+            else:
+                c = _normalize_intrinsic(c, SB, "c", NS, dev)
+            return SceneEncoding(latent, w2c, focal, c, image_shape, NS, global_latent=global_latent,
+                                 latent_quad=latent_quad)
 
     def query(
         self, enc: SceneEncoding, xyz, viewdirs=None, coarse: bool = True, fast: bool = False,
@@ -245,35 +247,36 @@ class PixelNeRFNet(nn.Module):
             gathered injections, (SB*NS, B, n_lin_z*d_hidden); with the
             global encoder its vector comes first, then the gathered latent
         """
-        z_feature, uv = self._point_inputs(enc, xyz, viewdirs)
-        dt = self.mlp_coarse.dtype
-        latent = None
-        if self.use_encoder:
-            if enc.tz_coarse is not None:
-                # baked: the gather returns the latent injections directly
-                source = enc.tz_coarse if (coarse or self.mlp_fine is None) else enc.tz_fine
-                latent = index_latent(
-                    source, uv, enc.image_shape, self.encoder.index_interp,
-                    self.encoder.index_padding, out_dtype=dt, use_kernels=use_kernels,
-                    differentiable=differentiable,
-                )
-            elif enc.latent_quad is not None:
-                Hl, Wl = enc.latent.shape[1:3]
-                scale = latent_scaling(Hl, Wl, uv.device) / enc.image_shape
-                # lerped in float32, rounded once to the MLP's dtype
-                latent = grid_sample_quad(enc.latent_quad, uv * scale - 1.0).to(dt)
-            else:
-                latent = index_latent(
-                    enc.latent, uv, enc.image_shape, self.encoder.index_interp,
-                    self.encoder.index_padding, out_dtype=dt, use_kernels=use_kernels,
-                    differentiable=differentiable,
-                )
-            if self.stop_encoder_grad:
-                latent = latent.detach()
-            if self.use_global_encoder:
-                glob = ImageEncoder.index(enc.global_latent, latent.shape[1]).to(dt)
-                latent = torch.cat([glob, latent], dim=-1)
-        return latent, z_feature.to(dt)
+        with span("field.features", points=xyz.shape[0] * xyz.shape[1], views=enc.num_views):
+            z_feature, uv = self._point_inputs(enc, xyz, viewdirs)
+            dt = self.mlp_coarse.dtype
+            latent = None
+            if self.use_encoder:
+                if enc.tz_coarse is not None:
+                    # baked: the gather returns the latent injections directly
+                    source = enc.tz_coarse if (coarse or self.mlp_fine is None) else enc.tz_fine
+                    latent = index_latent(
+                        source, uv, enc.image_shape, self.encoder.index_interp,
+                        self.encoder.index_padding, out_dtype=dt, use_kernels=use_kernels,
+                        differentiable=differentiable,
+                    )
+                elif enc.latent_quad is not None:
+                    Hl, Wl = enc.latent.shape[1:3]
+                    scale = latent_scaling(Hl, Wl, uv.device) / enc.image_shape
+                    # lerped in float32, rounded once to the MLP's dtype
+                    latent = grid_sample_quad(enc.latent_quad, uv * scale - 1.0).to(dt)
+                else:
+                    latent = index_latent(
+                        enc.latent, uv, enc.image_shape, self.encoder.index_interp,
+                        self.encoder.index_padding, out_dtype=dt, use_kernels=use_kernels,
+                        differentiable=differentiable,
+                    )
+                if self.stop_encoder_grad:
+                    latent = latent.detach()
+                if self.use_global_encoder:
+                    glob = ImageEncoder.index(enc.global_latent, latent.shape[1]).to(dt)
+                    latent = torch.cat([glob, latent], dim=-1)
+            return latent, z_feature.to(dt)
 
     def query_mlp(
         self, enc: SceneEncoding, feats, coarse: bool = True, fast: bool = False,
@@ -288,11 +291,12 @@ class PixelNeRFNet(nn.Module):
         mlp = self.mlp_coarse if (coarse or self.mlp_fine is None) else self.mlp_fine
         # baked maps make the gathered latent pre-transformed (z @ Wz + b)
         z_pre = latent is not None and enc.tz_coarse is not None
-        out = mlp(
-            (latent, z_feature), combine_inner_dims=(NS, B), fast=fast, use_kernels=use_kernels,
-            z_pretransformed=z_pre,
-        )
-        return _heads(out.reshape(SB, B, 4))
+        with span("field.mlp", rows=SB * B):
+            out = mlp(
+                (latent, z_feature), combine_inner_dims=(NS, B), fast=fast, use_kernels=use_kernels,
+                z_pretransformed=z_pre,
+            )
+            return _heads(out.reshape(SB, B, 4))
 
     def query_fused(
         self, enc: SceneEncoding, xyz, viewdirs=None, coarse: bool = True, use_kernels: bool = True,

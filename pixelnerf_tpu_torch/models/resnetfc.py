@@ -37,6 +37,7 @@ import torch.nn.functional as F
 from ..ops.fused_field import fused_gather_resnetfc_infer, fused_gather_resnetfc_infer_plain
 from ..ops.fused_mlp import fused_resnetfc_infer, fused_resnetfc_infer_plain, pack_weights
 from ..utils.geometry import combine_interleaved
+from ..utils.profiling import count
 
 
 def activation(x: torch.Tensor, beta: float) -> torch.Tensor:
@@ -206,6 +207,7 @@ class ResnetFC(nn.Module):
 
         if fast and z is not None and self._can_use_kernel(single_view):
             self._refuse_autograd(z, x)
+            count("kernel_b")
             run = fused_resnetfc_infer if use_kernels else fused_resnetfc_infer_plain
             out = run(
                 z.reshape(-1, expect_z).contiguous(),
@@ -217,6 +219,7 @@ class ResnetFC(nn.Module):
             )
             return self._shape_out(out, lead, combine_inner_dims)
 
+        count("dense")
         tz_list = sz_list = None
         if z is not None and self.d_latent > 0:
             if z_pretransformed:

@@ -24,6 +24,8 @@ import threading
 from pathlib import Path
 from typing import Dict, Iterable, List
 
+from ..utils.profiling import span
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = (
@@ -95,28 +97,30 @@ def build(names: Iterable[str]) -> Dict[str, str]:
     registers, shared memory, spills); empty for a library already built.
     Raises if any build fails."""
     names = list(names)
-    nvcc = _nvcc()
-    started = {n: _start(n, nvcc) for n in names}
-    logs: Dict[str, str] = {}
-    failed = []
-    for n, (target, job) in started.items():
-        if job is None:
-            logs[n] = ""
-            continue
-        proc, tmp = job
-        out, _ = proc.communicate()
-        logs[n] = out
-        if proc.returncode != 0:
-            failed.append(f"{n}: nvcc exited {proc.returncode}\n{out}")
-            os.unlink(tmp)
-            continue
-        # atomic publish: a concurrent builder of the same source wins or
-        # loses the rename, never leaves a half-written library
-        os.replace(tmp, target)
-        (BUILD_DIR / f"{target.stem}.log").write_text(out)
-    if failed:
-        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
-    return logs
+    with span("kernels.build", sources=len(names)) as s:
+        nvcc = _nvcc()
+        started = {n: _start(n, nvcc) for n in names}
+        s.count("compiled", sum(job is not None for _, job in started.values()))
+        logs: Dict[str, str] = {}
+        failed = []
+        for n, (target, job) in started.items():
+            if job is None:
+                logs[n] = ""
+                continue
+            proc, tmp = job
+            out, _ = proc.communicate()
+            logs[n] = out
+            if proc.returncode != 0:
+                failed.append(f"{n}: nvcc exited {proc.returncode}\n{out}")
+                os.unlink(tmp)
+                continue
+            # atomic publish: a concurrent build of the same source wins or
+            # loses the rename, never leaves a half-written library
+            os.replace(tmp, target)
+            (BUILD_DIR / f"{target.stem}.log").write_text(out)
+        if failed:
+            raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
+        return logs
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -124,10 +128,11 @@ def load(name: str) -> ctypes.CDLL:
     with _LOCK:
         lib = _LOADED.get(name)
         if lib is None:
-            target = _target(name)
-            if not target.exists():
-                build([name])
-            lib = ctypes.CDLL(str(target))
+            with span("kernels.load"):
+                target = _target(name)
+                if not target.exists():
+                    build([name])
+                lib = ctypes.CDLL(str(target))
             _LOADED[name] = lib
         return lib
 

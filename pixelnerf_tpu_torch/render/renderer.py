@@ -45,6 +45,8 @@ from typing import Callable, Dict, Optional, Sequence, Union
 import torch
 from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
+from ..utils.profiling import span
+
 
 @dataclasses.dataclass(frozen=True)
 class RenderConfig:
@@ -263,55 +265,56 @@ def render_rays(
     """
     if rays.dim() != 3 or rays.shape[-1] != 8:
         raise ValueError(f"rays must be (SB, B, 8), got {tuple(rays.shape)}")
-    if noise is None:
-        if generator is None:
-            raise ValueError("pass a torch.Generator or pre-drawn noise")
-        noise = draw_noise(rays, cfg, generator, train)
-    SB, B, _ = rays.shape
-    sigma_noise = train and cfg.noise_std > 0.0
+    with span("render_rays", rays=rays.shape[0] * rays.shape[1]):
+        if noise is None:
+            if generator is None:
+                raise ValueError("pass a torch.Generator or pre-drawn noise")
+            noise = draw_noise(rays, cfg, generator, train)
+        SB, B, _ = rays.shape
+        sigma_noise = train and cfg.noise_std > 0.0
 
-    staged = isinstance(query_fn, (tuple, list))
-    noise_c = noise["noise_c"] if sigma_noise else None
-    noise_f = noise["noise_f"] if sigma_noise and cfg.using_fine else None
+        staged = isinstance(query_fn, (tuple, list))
+        noise_c = noise["noise_c"] if sigma_noise else None
+        noise_f = noise["noise_f"] if sigma_noise and cfg.using_fine else None
 
-    z_coarse = sample_coarse(rays, cfg, noise["coarse"])               # (SB, B, Kc)
-    if staged:
-        features_fn, mlp_fn = query_fn
-        feats_c = _stage_features(features_fn, rays, z_coarse, use_viewdirs)
-        out_c = mlp_fn(feats_c, True).reshape(SB, B, cfg.n_coarse, 4)
-        coarse_out = composite_outputs(out_c, rays, z_coarse, cfg, noise_c)
-    else:
-        coarse_out = composite(query_fn, rays, z_coarse, True, cfg, noise_c, use_viewdirs)
-    outputs = {"coarse": _format(coarse_out, want_weights)}
-
-    if cfg.using_fine:
-        new_samps = []
-        if cfg.n_fine - cfg.n_fine_depth > 0:
-            new_samps.append(
-                sample_fine(rays, coarse_out["weights"], cfg, noise["fine_u"], noise["fine_jitter"])
-            )
-        if cfg.n_fine_depth > 0:
-            new_samps.append(sample_fine_depth(rays, coarse_out["depth"], cfg, noise["depth"]))
-        if not staged:
-            z_combine, _ = torch.sort(torch.cat([z_coarse] + new_samps, dim=-1), dim=-1)
-            fine_out = composite(query_fn, rays, z_combine, False, cfg, noise_f, use_viewdirs)
+        z_coarse = sample_coarse(rays, cfg, noise["coarse"])               # (SB, B, Kc)
+        if staged:
+            features_fn, mlp_fn = query_fn
+            feats_c = _stage_features(features_fn, rays, z_coarse, use_viewdirs)
+            out_c = mlp_fn(feats_c, True).reshape(SB, B, cfg.n_coarse, 4)
+            coarse_out = composite_outputs(out_c, rays, z_coarse, cfg, noise_c)
         else:
-            out_fc = mlp_fn(feats_c, False).reshape(SB, B, cfg.n_coarse, 4)
-            del feats_c   # both MLP calls have taken it; autograd keeps what it saved
-            if new_samps:
-                z_new = torch.cat(new_samps, dim=-1)                    # (SB, B, Kn)
-                feats_n = _stage_features(features_fn, rays, z_new, use_viewdirs)
-                out_fn = mlp_fn(feats_n, False).reshape(SB, B, z_new.shape[-1], 4)
-                out_f = torch.cat([out_fc, out_fn], dim=2)
-                z_all = torch.cat([z_coarse, z_new], dim=-1)
+            coarse_out = composite(query_fn, rays, z_coarse, True, cfg, noise_c, use_viewdirs)
+        outputs = {"coarse": _format(coarse_out, want_weights)}
+
+        if cfg.using_fine:
+            new_samps = []
+            if cfg.n_fine - cfg.n_fine_depth > 0:
+                new_samps.append(
+                    sample_fine(rays, coarse_out["weights"], cfg, noise["fine_u"], noise["fine_jitter"])
+                )
+            if cfg.n_fine_depth > 0:
+                new_samps.append(sample_fine_depth(rays, coarse_out["depth"], cfg, noise["depth"]))
+            if not staged:
+                z_combine, _ = torch.sort(torch.cat([z_coarse] + new_samps, dim=-1), dim=-1)
+                fine_out = composite(query_fn, rays, z_combine, False, cfg, noise_f, use_viewdirs)
             else:
-                out_f, z_all = out_fc, z_coarse
-            # one stable sort keyed on z; the 4 output channels ride as payload
-            z_sorted, order = torch.sort(z_all, dim=-1, stable=True)
-            out_sorted = torch.gather(out_f, 2, order[..., None].expand(-1, -1, -1, 4))
-            fine_out = composite_outputs(out_sorted, rays, z_sorted, cfg, noise_f)
-        outputs["fine"] = _format(fine_out, want_weights)
-    return outputs
+                out_fc = mlp_fn(feats_c, False).reshape(SB, B, cfg.n_coarse, 4)
+                del feats_c   # both MLP calls have taken it; autograd keeps what it saved
+                if new_samps:
+                    z_new = torch.cat(new_samps, dim=-1)                    # (SB, B, Kn)
+                    feats_n = _stage_features(features_fn, rays, z_new, use_viewdirs)
+                    out_fn = mlp_fn(feats_n, False).reshape(SB, B, z_new.shape[-1], 4)
+                    out_f = torch.cat([out_fc, out_fn], dim=2)
+                    z_all = torch.cat([z_coarse, z_new], dim=-1)
+                else:
+                    out_f, z_all = out_fc, z_coarse
+                # one stable sort keyed on z; the 4 output channels ride as payload
+                z_sorted, order = torch.sort(z_all, dim=-1, stable=True)
+                out_sorted = torch.gather(out_f, 2, order[..., None].expand(-1, -1, -1, 4))
+                fine_out = composite_outputs(out_sorted, rays, z_sorted, cfg, noise_f)
+            outputs["fine"] = _format(fine_out, want_weights)
+        return outputs
 
 
 # the products remat="dots" keeps: matrix products without batch dims
@@ -383,10 +386,11 @@ def render_rays_chunked(
             outs.append(checkpoint(render_rays, *args, use_reentrant=False, context_fn=_save_dots))
         else:
             outs.append(render_rays(*args))
-    return {
-        branch: {k: torch.cat([o[branch][k] for o in outs], dim=1) for k in outs[0][branch]}
-        for branch in outs[0]
-    }
+    with span("render_rays.merge"):
+        return {
+            branch: {k: torch.cat([o[branch][k] for o in outs], dim=1) for k in outs[0][branch]}
+            for branch in outs[0]
+        }
 
 
 class NeRFRenderer:

@@ -19,6 +19,7 @@ from ..parallel.mesh import DATA_AXIS, RAY_AXIS, average_over_ranks, local_noise
 from ..parallel.render import global_draws
 from ..render.renderer import RenderConfig, render_rays, render_rays_chunked
 from ..utils.nans import raise_if_not_finite
+from ..utils.profiling import span
 
 
 def _stages(net, enc, use_kernels: bool, differentiable: bool):
@@ -107,54 +108,58 @@ def make_train_step(
         generator: Optional[torch.Generator] = None,
         noise: Optional[List[Dict[str, torch.Tensor]]] = None,
     ) -> Dict[str, torch.Tensor]:
-        for p in params:
-            p.grad = None
-        rays = batch["rays"]
-        if mesh is not None:
-            noise = _local_train_noise(mesh, cfg, rays, ray_chunk, generator, noise)
-        with anomaly(), synced_batch_norms(net, mesh):
-            enc = net.encode(
-                batch["images"], batch["poses"], batch["focal"], batch.get("c"), train=train_encoder
-            )
-            stages = _stages(net, enc, use_kernels, differentiable=True)
-            if ray_chunk is not None and rays.shape[1] > ray_chunk:
-                outputs = render_rays_chunked(
-                    stages, rays, cfg, ray_chunk, generator, noise,
-                    use_viewdirs=net.use_viewdirs, train=True, remat=remat,
-                )
-            else:
-                outputs = render_rays(
-                    stages, rays, cfg, generator, None if noise is None else noise[0],
-                    use_viewdirs=net.use_viewdirs, train=True,
-                )
-            loss, metrics = loss_fn(outputs, batch["rgb_gt"])
-            if debug_nans:
-                raise_if_not_finite("the train loss", loss)
-            loss.backward()
-        grads = [p.grad for p in params]
-        if mesh is not None:
-            metrics = {k: v.detach().clone() for k, v in metrics.items()}
-            average_over_ranks(mesh, grads + list(metrics.values()))
-        sq = [g.float().square().sum() for g in grads if g is not None]
-        gnorm = torch.sqrt(torch.stack(sq).sum()) if sq else torch.zeros(())
-        update = True
-        if accu_grad > 1:
-            # MultiSteps: one update with the mean of accu_grad calls' gradients
-            state = accumulation_state(optimizer)
-            acc: List[Optional[torch.Tensor]] = state["acc_grads"] or [None] * len(params)
-            state["mini_step"] += 1
-            # >=: a counter restored from a run with a larger accu_grad still updates
-            update = state["mini_step"] >= accu_grad
-            for i, (p, g) in enumerate(zip(params, grads)):
-                if g is not None:
-                    acc[i] = g / accu_grad if acc[i] is None else acc[i] + g / accu_grad
-                p.grad = acc[i] if update else None
-            state["acc_grads"] = None if update else acc
-            if update:
-                state["mini_step"] = 0
-        if update:
-            optimizer.step()
-        return {**{k: v.detach() for k, v in metrics.items()}, "gnorm": gnorm.detach()}
+        with span("train.step", rays=batch["rays"].shape[0] * batch["rays"].shape[1]):
+            for p in params:
+                p.grad = None
+            rays = batch["rays"]
+            if mesh is not None:
+                noise = _local_train_noise(mesh, cfg, rays, ray_chunk, generator, noise)
+            with anomaly(), synced_batch_norms(net, mesh):
+                with span("forward"):
+                    enc = net.encode(
+                        batch["images"], batch["poses"], batch["focal"], batch.get("c"), train=train_encoder
+                    )
+                    stages = _stages(net, enc, use_kernels, differentiable=True)
+                    if ray_chunk is not None and rays.shape[1] > ray_chunk:
+                        outputs = render_rays_chunked(
+                            stages, rays, cfg, ray_chunk, generator, noise,
+                            use_viewdirs=net.use_viewdirs, train=True, remat=remat,
+                        )
+                    else:
+                        outputs = render_rays(
+                            stages, rays, cfg, generator, None if noise is None else noise[0],
+                            use_viewdirs=net.use_viewdirs, train=True,
+                        )
+                    loss, metrics = loss_fn(outputs, batch["rgb_gt"])
+                    if debug_nans:
+                        raise_if_not_finite("the train loss", loss)
+                with span("backward"):
+                    loss.backward()
+            with span("optimizer"):
+                grads = [p.grad for p in params]
+                if mesh is not None:
+                    metrics = {k: v.detach().clone() for k, v in metrics.items()}
+                    average_over_ranks(mesh, grads + list(metrics.values()))
+                sq = [g.float().square().sum() for g in grads if g is not None]
+                gnorm = torch.sqrt(torch.stack(sq).sum()) if sq else torch.zeros(())
+                update = True
+                if accu_grad > 1:
+                    # MultiSteps: one update with the mean of accu_grad calls' gradients
+                    state = accumulation_state(optimizer)
+                    acc: List[Optional[torch.Tensor]] = state["acc_grads"] or [None] * len(params)
+                    state["mini_step"] += 1
+                    # >=: a counter restored from a run with a larger accu_grad still updates
+                    update = state["mini_step"] >= accu_grad
+                    for i, (p, g) in enumerate(zip(params, grads)):
+                        if g is not None:
+                            acc[i] = g / accu_grad if acc[i] is None else acc[i] + g / accu_grad
+                        p.grad = acc[i] if update else None
+                    state["acc_grads"] = None if update else acc
+                    if update:
+                        state["mini_step"] = 0
+                if update:
+                    optimizer.step()
+            return {**{k: v.detach() for k, v in metrics.items()}, "gnorm": gnorm.detach()}
 
     return step
 

@@ -17,6 +17,8 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from .profiling import span
+
 
 def _as_fxfy(f, device) -> torch.Tensor:
     """Normalize focal to a (2,) [fx, fy] tensor (scalar / (2,) accepted)."""
@@ -49,14 +51,15 @@ def gen_rays(
     poses, width: int, height: int, focal, z_near, z_far, c=None, device="cuda"
 ) -> torch.Tensor:
     """Camera rays for each camera-to-world pose (B, 4, 4): (B, H, W, 8)."""
-    poses = torch.as_tensor(poses, dtype=torch.float32, device=device)
-    unproj = unproj_map(width, height, focal, c, device=device)           # (H, W, 3)
-    raydir = torch.einsum("bij,hwj->bhwi", poses[:, :3, :3], unproj)
-    B = poses.shape[0]
-    centers = poses[:, None, None, :3, 3].expand(B, height, width, 3)
-    nears = torch.full((B, height, width, 1), float(z_near), device=device)
-    fars = torch.full((B, height, width, 1), float(z_far), device=device)
-    return torch.cat([centers, raydir, nears, fars], dim=-1)
+    with span("rays", rays=len(poses) * height * width):
+        poses = torch.as_tensor(poses, dtype=torch.float32, device=device)
+        unproj = unproj_map(width, height, focal, c, device=device)           # (H, W, 3)
+        raydir = torch.einsum("bij,hwj->bhwi", poses[:, :3, :3], unproj)
+        B = poses.shape[0]
+        centers = poses[:, None, None, :3, 3].expand(B, height, width, 3)
+        nears = torch.full((B, height, width, 1), float(z_near), device=device)
+        fars = torch.full((B, height, width, 1), float(z_far), device=device)
+        return torch.cat([centers, raydir, nears, fars], dim=-1)
 
 
 def invert_pose(poses: torch.Tensor) -> torch.Tensor:

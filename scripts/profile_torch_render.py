@@ -5,9 +5,10 @@ Builds the seeded bf16 SRN model and scene of ``chip_smoke.py``, answers
 two warm-up requests (one 128x128 novel view each, one ray chunk per
 image), times three more with the host clock around ``synchronize()``,
 then runs one under ``torch.profiler`` and prints one JSON line: the
-request's wall time, the device time summed over its kernels, the device's
-idle share, and the device time of the kernels grouped (the CUDA kernels
-of the port, then the rest by name).
+request's wall time, the device time summed over its kernels, and the
+device time of the kernels grouped (the CUDA kernels of the port, then the
+rest by name). The device's idle share is the benchmark's (``portbench/``,
+``idle_share.*``).
 
 ``--path`` picks the render path: ``staged`` (kernel A's gather, kernel
 B's MLP; the default), ``fused`` (the unstaged renderer on ``query_fused``:
@@ -115,8 +116,6 @@ def main():
         "wall_ms_unprofiled": wall,
         "wall_ms_profiled": prof_wall_ms,
         "device_ms": device_ms,
-        "idle_share_profiled": 1.0 - device_ms / prof_wall_ms,
-        "idle_share_unprofiled_est": 1.0 - device_ms / min(wall),
         "kernels": [{"name": k, "ms": v["ms"], "calls": v["calls"], "share": v["ms"] / device_ms}
                     for k, v in top[:25]],
     }), flush=True)

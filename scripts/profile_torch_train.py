@@ -8,9 +8,9 @@ builds the seeded SRN model and the config's synthetic batch, takes two
 warm-up steps, times three more with the host clock around
 ``synchronize()``, then profiles one under ``torch.profiler`` and prints
 one JSON line: the step's wall time, the device time summed over its
-kernels, the device's idle share, and the device time grouped (kernel C,
-its backward, the cuBLAS GEMMs, the cuDNN convolutions, then the rest by
-name).
+kernels, and the device time grouped (kernel C, its backward, the cuBLAS
+GEMMs, the cuDNN convolutions, then the rest by name). The device's idle
+share is the benchmark's (``portbench/``, ``idle_share.*``).
 
 ``--remat`` replaces the configs' remat policy (``dots``: the matrix
 products' outputs kept, the rest recomputed), on the same weights,
@@ -95,8 +95,6 @@ def profile_config(key, dev, cs, trace_dir=None, remat=None):
         "wall_ms_unprofiled": wall,
         "wall_ms_profiled": prof_wall_ms,
         "device_ms": device_ms,
-        "idle_share_profiled": 1.0 - device_ms / prof_wall_ms,
-        "idle_share_unprofiled_est": 1.0 - device_ms / min(wall),
         "kernels": [{"name": k, "ms": v["ms"], "calls": v["calls"], "share": v["ms"] / device_ms}
                     for k, v in top[:25]],
     }
