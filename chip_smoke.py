@@ -8,6 +8,10 @@ blocks, 64 coarse + 32 fine samples), weights random from a seed:
 - inference, in bf16: ``make_model`` -> ``encode`` of one 128^2 source
   view -> ``FullRenderer(fast=True).render_image`` of three 128x128 novel
   views (three requests), staged: kernel A's gather, kernel B's MLP;
+- inference at three source views, in bf16: the DTU model
+  (``conf/exp/dtu.conf``) -> ``encode`` of three 400x300 views ->
+  ``FullRenderer(fast=True).render_image`` of one view in 40,000-ray
+  chunks, as ``dtu.render`` runs it: kernel A, kernel B's multi-view mode;
 - the fused field path: ``pack_encoding`` -> the unstaged renderer on
   ``PixelNeRFNet.query_fused`` (kernel D: gather and MLP in one launch),
   three requests;
@@ -51,10 +55,21 @@ Phases, one JSON line each:
    PyTorch versions at the inference path's shapes, with times, the bound
    and a library call's time; A also on the baked path's 1536-wide rows,
    at 64 and 256 channels and on one request's ray-major coarse points
+4b. kernel_b_views: kernel B's multi-view mode at one fine chunk of a DTU
+   view (40,000 rays x 96 samples x 3 source views) through
+   ``ResnetFC(fast=True)``, against its plain version and timed beside it
+   and the dense bf16 chain (both by slices of the points: at this shape
+   they do not fit the card); its bound at the function's own widths
+   (``mlp_views_flops``) and at the padded ones (``mlp_flops``)
 5. main_path: the inference path, with A's and B's launch counts read
    around it
 6. kernel_vs_plain_e2e: a 2048-ray crop rendered through the kernels and
    through their plain versions, on the same noise
+6b. dtu_main_path: the DTU request at three source views in bf16
+   (``conf/exp/dtu.conf``, 400x300, 40,000-ray chunks) through
+   ``FullRenderer(fast=True)``: kernel B's multi-view mode, with the launch
+   counts and ``field.mlp``'s spans read around one view, its ms and peak
+   memory, and a crop against the plain versions on the same noise
 7. kernel_c and 8. kernel_c_bwd: kernel C (weighted 4-row gather) and its
    backward against their plain versions at the training path's shapes
    (the backward also at the fine gather's and at a skewed input, and
@@ -436,6 +451,78 @@ def check_kernel_b(dev, g, mlp, phase="kernel_b", more_shapes=True):
     return res
 
 
+DTU_CHUNK_RAYS, DTU_CHUNK_SAMPLES, DTU_SOURCE_VIEWS = 40_000, 96, 3   # one fine chunk of a DTU view (dtu.render)
+
+
+def check_kernel_b_views(dev, g, mlp, slices=8):
+    """Kernel B's multi-view mode at one fine chunk of a DTU view: 40,000
+    rays x 96 samples, 3 source views averaged at combine_layer, through
+    the SRN fine MLP's weights (the DTU model's widths: latent 512, 512
+    wide, 5 blocks, 3 injections), one launch through
+    ``ResnetFC(fast=True)``. Its plain version and the dense bf16 chain
+    (the library yardstick, what ran before at NS > 1) hold float32 or
+    (rows, 1536) copies that do not fit the card at this shape: they run on
+    ``slices`` slices of the points, held and timed slice by slice."""
+    from pixelnerf_tpu_torch.ops.fused_mlp import (
+        disagreement_with_plain, agrees_with_plain, fused_resnetfc_infer, fused_resnetfc_infer_plain,
+        pack_weights,
+    )
+
+    b, views = DTU_CHUNK_RAYS * DTU_CHUNK_SAMPLES, DTU_SOURCE_VIEWS
+    z = torch.randn((views * b, mlp.d_latent), generator=g).to(torch.bfloat16).to(dev)
+    x = torch.randn((views * b, mlp.d_in), generator=g).to(torch.bfloat16).to(dev)
+    weights = pack_weights(mlp)
+    before = fused_resnetfc_infer.launches
+    out = mlp((z, x), combine_inner_dims=(views, b), fast=True).reshape(-1, 4)
+    torch.cuda.synchronize()
+    launches = fused_resnetfc_infer.launches - before
+    assert launches == 1, launches
+
+    def part(t, lo, hi):     # the points lo..hi of every view
+        return t.reshape(views, b, -1)[:, lo:hi].reshape(views * (hi - lo), -1)
+
+    edges = [b * i // slices for i in range(slices + 1)]
+    refs, peaks, plain_ms, library_ms = [], [], 0.0, 0.0
+    for lo, hi in zip(edges[:-1], edges[1:]):
+        zs, xs = part(z, lo, hi), part(x, lo, hi)
+        ref, peak = fused_resnetfc_infer_plain(zs, xs, weights, mlp.n_blocks, mlp.combine_layer, hidden_max=True,
+                                               views=views, points=hi - lo)
+        refs.append(ref)
+        peaks.append(peak)
+        plain_ms += time_ms(lambda: fused_resnetfc_infer_plain(zs, xs, weights, mlp.n_blocks, mlp.combine_layer,
+                                                               views=views, points=hi - lo), reps=1, warmup=0)
+        library_ms += time_ms(lambda: mlp((zs, xs), combine_inner_dims=(views, hi - lo), fast=False),
+                              reps=1, warmup=1 if lo == 0 else 0)
+        del zs, xs
+    agree = disagreement_with_plain(out, torch.cat(refs), torch.cat(peaks))
+    if not agrees_with_plain(agree):
+        raise AssertionError(f"kernel B's multi-view mode disagrees with its plain version: {agree}")
+    del out, refs, peaks
+    ms = time_ms(lambda: fused_resnetfc_infer(z, x, weights, mlp.n_blocks, mlp.combine_layer, views=views,
+                                              points=b), reps=5)
+    dh, n_lin_z = mlp.d_hidden, mlp.n_lin_z
+    flops = mlp_views_flops(b, mlp, views)
+    bytes_moved = views * b * (mlp.d_in + mlp.d_latent) * 2 + b * 4 * 4 + sum(w.numel() * 2 for w in weights)
+    bound_ms, bound_by = bound(bytes_moved, flops, PEAK_BF16_FLOPS)
+    padded_ms, _ = bound(bytes_moved, mlp_flops(b, weights, mlp, views=views), PEAK_BF16_FLOPS)
+    res = {
+        "name": "fused_resnetfc_infer[views=3]", "route": "cuda",
+        "source": "pixelnerf_tpu_torch/csrc/fused_mlp.cu",
+        "replaces": "none: the JAX package leaves NS > 1 to XLA",
+        "shape": {"points": b, "views": views, "rows": views * b, "d_hidden": dh, "d_latent": mlp.d_latent,
+                  "d_in": mlp.d_in, "n_blocks": mlp.n_blocks, "n_lin_z": n_lin_z},
+        "max_abs_err": agree["max_abs_err"], "agreement": agree,
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "bound_share": bound_ms / ms,
+        "mflop_per_point": flops / b / 1e6, "bound_ms_padded": padded_ms, "bound_share_padded": padded_ms / ms,
+        "library_ms": library_ms,
+        "library_call": f"dense bf16 chain (ResnetFC fast=False), {slices} slices of the points",
+        "plain_call": f"{slices} slices of the points",
+        "tflops": flops / ms / 1e9, "check_launches": launches,
+    }
+    emit({"phase": "kernel_b_views", **res})
+    return res
+
+
 FINE_ROWS = RAY_CHUNK * 96     # the fine pass's launch: 64 coarse + 32 fine samples per ray
 RAGGED_ROWS = 700              # a last tile of 60 rows
 
@@ -473,14 +560,30 @@ def mlp_traffic(n, ms, weights, l2_row_bytes, hbm_bytes):
             "hbm_gb_per_launch": hbm_bytes / 1e9, "hbm_tb_per_s": hbm_bytes / ms / 1e9}
 
 
-def mlp_flops(n, weights, mlp, with_wz=True):
+def mlp_flops(n, weights, mlp, with_wz=True, views=1):
     """Operations of the fused MLP on n rows, padded as
     pixelnerf_tpu/ops/fused_mlp.py:130-134 counts them (the injection
-    product at the latent's own width d_z)."""
+    product at the latent's own width d_z); with ``views`` above 1, on n
+    points of that many views averaged at the combine layer (lin_in, the
+    injections and the blocks before it once a view)."""
     dh, d_in_pad = weights[0].shape
     n_lin_z = min(mlp.combine_layer, mlp.n_blocks) if with_wz else 0
     d_z = weights[2].shape[1] if with_wz else 0
+    if views > 1:
+        pre = d_in_pad + n_lin_z * d_z + 2 * n_lin_z * dh
+        return 2 * n * dh * (views * pre + 2 * (mlp.n_blocks - n_lin_z) * dh + 128)
     return 2 * n * dh * (d_in_pad + n_lin_z * d_z + 2 * mlp.n_blocks * dh + 128)
+
+
+def mlp_views_flops(n, mlp, views):
+    """Operations of the field on n points of ``views`` views averaged at
+    the combine layer, at the function's own widths (not padded as
+    :func:`mlp_flops` pads them): lin_in at d_in columns, the injections and
+    the blocks before the combine layer once a view, the rest once a point,
+    lin_out at 4 columns."""
+    dh, n_lin_z = mlp.d_hidden, mlp.n_lin_z
+    pre = mlp.d_in + n_lin_z * mlp.d_latent + 2 * n_lin_z * dh
+    return 2 * n * dh * (views * pre + 2 * (mlp.n_blocks - n_lin_z) * dh + 4)
 
 
 def ring_stages(kx, zw, dh):
@@ -727,10 +830,15 @@ def make_srn_model(dev, g):
     conf = load_config(os.path.join(REPO, "conf", "exp", "srn.conf"))
     conf["model"]["dtype"] = "bfloat16"
     net = make_model(conf["model"], device=dev, generator=g)
+    seed_field(net, g, dev)
+    return net, RenderConfig.from_conf(conf["renderer"])
+
+
+def seed_field(net, g, dev):
+    """Seeded weights off the init: fc_1 starts at zero (identity blocks),
+    and a density bias makes the random field opaque, so the render has
+    depth in [near, far] and rgb that varies across the image."""
     with torch.no_grad():
-        # seeded weights off the init: fc_1 starts at zero (identity blocks),
-        # and a density bias makes the random field opaque, so the render
-        # has depth in [near, far] and rgb that varies across the image
         for mlp in (net.mlp_coarse, net.mlp_fine):
             for blk in mlp.blocks:
                 blk.fc_1.weight.copy_(torch.randn(blk.fc_1.weight.shape, generator=g).to(dev) * 0.02)
@@ -738,7 +846,6 @@ def make_srn_model(dev, g):
             mlp.lin_out.bias[3] = 10.0
             mlp.lin_out.weight[:3] *= 0.1
             mlp.lin_out.weight[3] *= 0.01
-    return net, RenderConfig.from_conf(conf["renderer"])
 
 
 def source_view(g, dev):
@@ -2687,6 +2794,116 @@ def run_dtu_workflow(dev):
     return res
 
 
+DTU_NEAR, DTU_FAR = 0.1, 5.0
+DTU_FOCAL, DTU_C = (720.0, 718.0), (212.0, 141.0)   # fx, fy and the principal point at 400x300
+DTU_RENDER_CHUNK = 40_000      # dtu.render's ray chunk
+DTU_RENDER_SOURCE, DTU_RENDER_TARGET = (22, 25, 28), 10
+
+
+def make_dtu_model(dev, g):
+    """The DTU model (conf/exp/dtu.conf: ResNet34 to a 512-channel latent,
+    ResnetFC 512 x 5 averaging its source views at block 3) in bf16 on
+    ``dev``, weights from the generator ``g``. Returns (net, RenderConfig)."""
+    from pixelnerf_tpu_torch.config import load_config
+    from pixelnerf_tpu_torch.models import make_model
+    from pixelnerf_tpu_torch.render import RenderConfig
+
+    conf = load_config(os.path.join(REPO, "conf", "exp", "dtu.conf"))
+    conf["model"]["dtype"] = "bfloat16"
+    net = make_model(conf["model"], device=dev, generator=g)
+    seed_field(net, g, dev)
+    return net, RenderConfig.from_conf(conf["renderer"])
+
+
+def run_dtu_main_path(dev, g, height=DTU_H, width=DTU_W, chunk=DTU_RENDER_CHUNK, crop_rows=(150, 156)):
+    """The DTU novel-view request of ``dtu.render`` in bf16: ``encode`` of
+    three 400x300 source views (22, 25, 28 of an arc), then
+    ``FullRenderer(fast=True).render_image`` of one target view of 120,000
+    rays in 40,000-ray chunks, staged: ``query_mlp`` -> ``ResnetFC``'s gate
+    -> kernel B's multi-view mode. Every inference kernel's count is set to
+    0 just before the view and read just after (kernel B: 3 launches a
+    chunk, the coarse MLP and the fine MLP on the coarse and on the new
+    samples' features), the spans of ``field.mlp`` held to the mode's counts
+    (``kernel_b``, ``kernel_b_views`` 3 a launch, no ``dense``); the view's
+    ms with the spans off, its peak memory, and a crop of ``crop_rows``
+    rendered through the kernels and through their plain versions on the
+    same noise."""
+    import numpy as np
+
+    from pixelnerf_tpu_torch.eval import FullRenderer
+    from pixelnerf_tpu_torch.render import draw_noise
+    from pixelnerf_tpu_torch.utils import geometry, profiling
+
+    net, cfg = make_dtu_model(dev, g)
+    rng = np.random.default_rng(5)
+    images = np.stack([_smooth_image(rng, height, width, 3, v) for v in DTU_RENDER_SOURCE])
+    images = torch.from_numpy(images).float().div(127.5).sub(1.0)[None].to(dev)
+    poses = torch.stack([torch.from_numpy(_orbit_pose(v, DTU_VIEWS, 2.4, 0.8)).float()
+                         for v in DTU_RENDER_SOURCE])[None].to(dev)
+    focal = torch.tensor([DTU_FOCAL], device=dev)
+    c = torch.tensor([DTU_C], device=dev)
+    target = _orbit_pose(DTU_RENDER_TARGET, DTU_VIEWS, 2.4, 0.8)
+    kernels = inference_kernels()
+    fr = FullRenderer(net, cfg, ray_chunk=chunk, fast=True)
+    with torch.inference_mode():
+        enc = net.encode(images, poses, focal, c)
+        rays = geometry.gen_rays(target[None], width, height, DTU_FOCAL, DTU_NEAR, DTU_FAR, c=DTU_C, device=dev)[0]
+        fr.render_image(enc, rays, torch.Generator(device=dev).manual_seed(3))     # warm-up
+        torch.cuda.synchronize()
+        for fn in kernels.values():
+            fn.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        profiling.enable()
+        try:
+            rgb, depth = fr.render_image(enc, rays, torch.Generator(device=dev).manual_seed(4))
+            torch.cuda.synchronize()
+        finally:
+            profiling.disable()
+        launches = {name: fn.launches for name, fn in kernels.items()}
+        spans = {}
+        for rec in profiling.take():
+            if rec.name == "field.mlp":
+                for k, v in rec.counts.items():
+                    if k != "rows":
+                        spans[k] = spans.get(k, 0) + v
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        view_ms = time_ms(lambda: fr.render_image(enc, rays, torch.Generator(device=dev).manual_seed(4)),
+                          reps=3, warmup=0)
+        crop = rays[crop_rows[0]:crop_rows[1]]
+        noise = [draw_noise(crop.reshape(1, -1, 8), cfg, torch.Generator(device=dev).manual_seed(6))]
+        rgb_k, depth_k = fr.render_image(enc, crop, noise=noise)
+        rgb_p, depth_p = FullRenderer(net, cfg, ray_chunk=chunk, fast=True, use_kernels=False).render_image(
+            enc, crop, noise=noise)
+    chunks = -(-height * width // chunk)
+    expect = {"gather_bilerp": 2 * chunks, "fused_resnetfc_infer": 3 * chunks, "fused_gather_resnetfc_infer": 0}
+    expect_spans = {"kernel_b": 3 * chunks, "kernel_b_views": 3 * 3 * chunks}
+    e2e = {"rgb": (rgb_k - rgb_p).abs().max().item(), "depth": (depth_k - depth_p).abs().max().item()}
+    # kernel_vs_plain_e2e's tolerance for rgb; for depth, scaled from the
+    # SRN scene's depth range (1.0) to this one's (4.9)
+    tol = {"rgb": 2e-2, "depth": 2e-2 * (DTU_FAR - DTU_NEAR)}
+    res = {
+        "phase": "dtu_main_path", "config": "conf/exp/dtu.conf, bf16, 3 source views of 400x300, 64+32 samples",
+        "image": [width, height], "ray_chunk": chunk, "chunks": chunks, "view_ms": view_ms,
+        "rays_per_s": height * width / (view_ms / 1e3), "peak_memory_gb": peak_gb,
+        "launches": launches, "expected_launches": expect, "field_mlp_spans": spans, "expected_spans": expect_spans,
+        "kernel_vs_plain_crop": {"rays": crop.shape[0] * crop.shape[1], "max_abs_err": e2e, "tolerance": tol},
+        "rgb_range": [rgb.min().item(), rgb.max().item()], "depth_range": [depth.min().item(), depth.max().item()],
+        "rgb_std": rgb.float().std().item(),
+    }
+    emit(res)
+    if spans != expect_spans:
+        raise AssertionError(f"dtu_main_path: field.mlp's spans {spans} != expected {expect_spans}")
+    if launches != expect:
+        raise AssertionError(f"dtu_main_path: launch counts {launches} != expected {expect}")
+    if not (torch.isfinite(rgb).all() and torch.isfinite(depth).all() and rgb.shape == (height, width, 3)
+            and rgb.min() >= 0 and rgb.max() <= 1 + 1e-5 and rgb.float().std() > 1e-3
+            and depth.min() >= DTU_NEAR * (1 - 1e-3) and depth.max() <= DTU_FAR):
+        raise AssertionError(f"dtu_main_path: render out of range: {res}")
+    if any(e2e[k] > tol[k] for k in tol):
+        raise AssertionError(f"dtu_main_path: kernel and plain renders disagree: {e2e}")
+    return res
+
+
 def make_request(path, net, cfg, enc):
     """The render of one image through ``path`` as ``render(rays (H, W, 8),
     generator=None, noise=None) -> (rgb (H, W, 3), depth (H, W))``:
@@ -3080,6 +3297,7 @@ def main():
     with torch.inference_mode():
         res_a = timed("kernel_a", check_kernel_a, dev, g)
         res_b = timed("kernel_b", check_kernel_b, dev, g, net.mlp_fine)
+        res_b_views = timed("kernel_b_views", check_kernel_b_views, dev, g, net.mlp_fine)
 
     # the main path: encode one source view, answer three render requests
     images, src_pose = source_view(g, dev)
@@ -3109,6 +3327,9 @@ def main():
           "tolerance": e2e_tol})
     if max(e2e.values()) > e2e_tol:
         raise AssertionError(f"kernel and plain renders disagree: {e2e}")
+
+    # the DTU request at three source views: kernel B's multi-view mode
+    dtu_main = timed("dtu_main_path", run_dtu_main_path, dev, torch.Generator().manual_seed(10))
 
     # the training path's kernels at its own shapes
     inputs_c = kernel_c_inputs(dev, g)
@@ -3192,19 +3413,22 @@ def main():
     # workflows (with eval --scale 2), the video and real-image apps,
     # eval_real on preproc's outputs, recon, the sharded render and the
     # tools (the multi-object train app, the quality curve, eval_approx on
-    # the export), B over the staged path and the sharded render, B's z_is_tz
+    # the export) and the DTU request, B over the staged path and the
+    # sharded render, B's multi-view mode over the DTU request, B's z_is_tz
     # variant over the baked path, D over the fused path, C and C-bwd over
     # both training configs, the train app, the two workflows, the "dots"
     # run, the profiled train app, the sharded train step and the tools'
     # multi-object train app, the study's formulations over its bench script
     launches["gather_bilerp"] += sum(r["launches"]["gather_bilerp"] for r in (srn, dtu, apps, preproc, recon,
-                                                                             parallel, tools))
+                                                                             parallel, tools, dtu_main))
     launches["fused_resnetfc_infer"] += parallel["launches"]["fused_resnetfc_infer"]
     launches.update(train_launches)
     launches["fused_resnetfc_infer[z_is_tz]"] = baked_res["launches"]["fused_resnetfc_infer"]
     launches["fused_gather_resnetfc_infer"] = fused_res["launches"]["fused_gather_resnetfc_infer"]
     ported = [{**{k: r[k] for k in keys}, "launches": launches[r["name"]]}
               for r in (res_a, res_b, res_b_tz, res_c, res_c_bwd, res_d)]
+    ported.append({**{k: res_b_views[k] for k in keys},
+                   "launches": dtu_main["launches"]["fused_resnetfc_infer"]})
     ported += [dict(r) for r in study]   # with their float32 table's time and shares
     # the same kernels at the variants' widths, launched by their paths
     vp = variants["paths"]

@@ -52,6 +52,28 @@
 //   Wout's 8 rows stay resident. At the SRN widths: activations 64 KB, z
 //   64 KB, x 8 KB, Wout 8 KB, ring 5 x 16 KB.
 //
+// The multi-view mode (MULTI_VIEW, MODE_Z only) takes NS >= 2 source views
+// averaged at the combine layer, the field of pixelNeRF's DTU model. Rows of
+// x and z are (scene, view, point): row (s*NS + v)*B + p, the layout that
+// query_features hands over. A tile is 64 points of one scene (the ragged end
+// of B masked, no tile across two scenes); for each view in turn the block
+// runs lin_in, the injections and blocks 0 .. n_lin_z-1 on that view's 64
+// rows, the x and z tiles filled a view ahead; then the views' mean, then the
+// blocks from the combine layer on and lin_out on the tile's 64 points, one
+// output row a point. The producer walks the slabs before the combine layer
+// NS times a tile, the rest once. The mean cannot keep a float32 sum in the
+// registers (h and the accumulator hold 192 of a consumer's 224 at dh 512) nor
+// in shared memory (full): before the last view each thread stores its own
+// fragment of h, 16-byte units, in the block's slice of a scratch in global
+// memory (NS-1 x 64 rows x dh bf16 a block, ~17 MB at NS 3 on 132 SMs: it
+// stays in L2), and the last view reads its own fragments back and adds them.
+//
+// The mean's rounding is torch.mean's of a bf16 tensor on the card (ATen's
+// MeanOps for reduced types): the views' bf16 values summed in float32 from
+// 0 in view order, times the float32 factor 1/NS (ATen's float(M)/float(NS*M),
+// which is 1/NS wherever its element counts are exact in float32), rounded
+// once to bf16.
+//
 // What it is left waiting for: the weight stream. With the tensor cores'
 // work taken out the kernel takes the same time, half the grid takes twice
 // the time, and a thread block cluster whose blocks each fetch a part of
@@ -92,11 +114,21 @@ struct Params {
   const bf16* b1;     // (n_blocks, dh)
   const bf16* wout;   // (>= 8, dh)
   const bf16* bout;   // (>= 8)
-  float* out;         // (n, 4)
+  float* out;         // (n, 4); in the multi-view mode (n / ns, 4)
   int64_t n;
   int d_in, kx;       // x columns, and their count rounded up to 64
   int zw;             // width of the z tile: d_z, or dh in the TZ mode
   int dh, n_blocks, n_lin_z, stages;
+};
+
+// The multi-view mode's own parameters, carried by its fill (fill.views):
+// Params stays as the single-view instances know it (a field more there
+// changes their code).
+struct Views {
+  int ns;             // views, averaged at the combine layer (n_lin_z)
+  int64_t pts;        // points a view of a scene: rows (scene, view, point)
+  uint4* scratch;     // the saved views' h: ns-1 tiles of 64 rows x dh a block
+  float mean_scale;   // 1/ns in float32
 };
 
 // Byte offsets of the block's buffers from the 1024-aligned base.
@@ -329,6 +361,16 @@ __device__ __forceinline__ void fill_x_tile(const Params& p, uint8_t* xs, int64_
   }
 }
 
+// the same, zero from row `end` on (a view's last row in the multi-view mode)
+__device__ __forceinline__ void fill_x_tile(const Params& p, uint8_t* xs, int64_t row0, int64_t end, int ft) {
+  for (int i = ft; i < T * p.kx; i += FILLERS) {
+    const int r = i / p.kx, c = i % p.kx;
+    bf16 v = __float2bfloat16_rn(0.0f);
+    if (row0 + r < end && c < p.d_in) v = p.x[(row0 + r) * p.d_in + c];
+    *reinterpret_cast<bf16*>(xs + swz_unit(r, c >> 3) + (c & 7) * 2) = v;
+  }
+}
+
 // A tile of `width` columns of the rows row0.. of src (row stride ld), by
 // 16-byte vectors, zero past the last row; with PAD only the first
 // src_width columns (a multiple of 8) come from src, and the rest of the
@@ -488,6 +530,199 @@ __device__ __forceinline__ void add_tile(uint32_t (&h)[NH][NI / 8][2], const Pla
             as_bf162(*reinterpret_cast<const uint32_t*>(tile + pl.unit_off(nh, j) + 1024 * half))));
 }
 
+// ---- the views' mean (the multi-view mode) ----------------------------
+
+// The 16-byte units of a consumer thread's h: unit u holds the pairs
+// h[nh][j][0..1], h[nh][j+1][0..1] with u = (nh*NI/8 + j)/2. Unit u of a
+// saved view lies CONSUMERS units after unit u-1, so a warp's stores are
+// 512 contiguous bytes.
+
+// store this thread's h, the view's values at the combine layer
+template <int NI, int NH>
+__device__ __forceinline__ void save_view(const uint32_t (&h)[NH][NI / 8][2], uint4* dst) {
+#pragma unroll
+  for (int nh = 0; nh < NH; ++nh)
+#pragma unroll
+    for (int j = 0; j < NI / 8; j += 2)
+      __stcg(dst + ((nh * (NI / 8) + j) / 2) * CONSUMERS,
+             make_uint4(h[nh][j][0], h[nh][j][1], h[nh][j + 1][0], h[nh][j + 1][1]));
+}
+
+// a += the bf16 pair u, element by element in float32
+__device__ __forceinline__ void add_pair(float& a0, float& a1, uint32_t u) {
+  const float2 f = __bfloat1622float2(as_bf162(u));
+  a0 += f.x;
+  a1 += f.y;
+}
+
+// h = bf16((0 + v_0 + ... + v_{saved-1} + h) * scale) in float32, the saved
+// views v_i (units CONSUMERS * U apart, U = NH*NI/16) first, this view last.
+// The sum lies in acc, which holds no product's sums here and has an element
+// for each of h's: h[nh][j][half] is acc[nh][4j + 2half .. +1].
+template <int NI, int NH>
+__device__ __forceinline__ void mean_views(float (&acc)[NH][NI / 2], uint32_t (&h)[NH][NI / 8][2],
+                                           const uint4* src, int saved, float scale) {
+  constexpr int U = NH * NI / 16;
+#pragma unroll
+  for (int nh = 0; nh < NH; ++nh)
+#pragma unroll
+    for (int i = 0; i < NI / 2; ++i) acc[nh][i] = 0.f;
+  for (int v = 0; v < saved; ++v) {
+#pragma unroll
+    for (int nh = 0; nh < NH; ++nh) {
+#pragma unroll
+      for (int j = 0; j < NI / 8; j += 2) {
+        const uint4 w = __ldcg(src + (v * U + (nh * (NI / 8) + j) / 2) * CONSUMERS);
+        float* a = acc[nh] + 4 * j;
+        add_pair(a[0], a[1], w.x);
+        add_pair(a[2], a[3], w.y);
+        add_pair(a[4], a[5], w.z);
+        add_pair(a[6], a[7], w.w);
+      }
+    }
+  }
+#pragma unroll
+  for (int nh = 0; nh < NH; ++nh) {
+#pragma unroll
+    for (int j = 0; j < NI / 8; ++j) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        float& a0 = acc[nh][4 * j + 2 * half];
+        float& a1 = acc[nh][4 * j + 2 * half + 1];
+        add_pair(a0, a1, h[nh][j][half]);
+        h[nh][j][half] = as_u32(__floats2bfloat162_rn(a0 * scale, a1 * scale));
+      }
+    }
+  }
+}
+
+// Where a multi-view tile's rows lie: 64 points from p0 of one scene, rows
+// (scene, view, point) of x and z and (scene, point) of out; the rows of a
+// view end at the view's last point.
+struct ViewTile {
+  int64_t scene, p0;
+  __device__ __forceinline__ ViewTile(const Views& w, int64_t t) {
+    const int64_t tiles = (w.pts + T - 1) / T;
+    scene = t / tiles;
+    p0 = (t - scene * tiles) * T;
+  }
+  __device__ __forceinline__ int64_t row0(const Views& w, int v) const { return (scene * w.ns + v) * w.pts + p0; }
+  __device__ __forceinline__ int64_t end(const Views& w, int v) const { return (scene * w.ns + v + 1) * w.pts; }
+};
+
+// Tiles of the multi-view mode: ceil(pts/64) a scene.
+__host__ __device__ inline int64_t view_tiles(const Params& p, const Views& w) {
+  return p.n / ((int64_t)w.ns * w.pts) * ((w.pts + T - 1) / T);
+}
+
+// ---- the multi-view mode's steps --------------------------------------
+//
+// The single-view loops' steps, as the multi-view mode calls them. The
+// single-view loops keep theirs inline: called through these helpers, their
+// compiled code changed (PERF.md, the multi-view mode's findings). Each
+// inline step names its copy here ("copied by"): a fix to the ring, the
+// barriers or their phases in one of the two is made in the other as well.
+
+// `count` slabs of the image from src into the ring, one bulk copy each
+__device__ __forceinline__ void stream_slabs(const uint8_t* src, int count, uint32_t slab, uint32_t ring,
+                                             uint32_t wfull, uint32_t wempty, int stages, int& stage,
+                                             uint32_t& phase) {
+  for (int s = 0; s < count; ++s, src += slab) {
+    mbar_wait(wempty + 8 * stage, phase);
+    mbar_expect_tx(wfull + 8 * stage, slab);
+    bulk_copy(ring + stage * slab, src, slab, wfull + 8 * stage);
+    if (++stage == stages) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+}
+
+// h = x.Win + bin, from the x tile, which goes back to the fillers
+template <int NI, int NH>
+__device__ __forceinline__ void lin_in(float (&acc)[NH][NI / 2], uint32_t (&h)[NH][NI / 8][2], const Params& p,
+                                       const Place<NI, NH>& pl, uint32_t x_addr, uint32_t xfull,
+                                       uint32_t xempty, uint32_t& ph_x, Ring& rg, bool first) {
+  mbar_wait(xfull, ph_x);
+  ph_x ^= 1;
+  product<NI, NH>(acc, x_addr, p.kx / 64, rg, first);
+  if (first) mbar_arrive(xempty);
+  epilogue<NI, NH, EPI_SET>(acc, h, p.bin, pl, nullptr);
+}
+
+// h += z.Wz[:, blk*dh:(blk+1)*dh] + bz, from the tile's one z tile, which
+// goes back to the fillers after the last injection
+template <int NI, int NH>
+__device__ __forceinline__ void inject_z(float (&acc)[NH][NI / 2], uint32_t (&h)[NH][NI / 8][2], const Params& p,
+                                         int blk, const Place<NI, NH>& pl, uint32_t z_addr, uint32_t zfull,
+                                         uint32_t zempty, uint32_t& ph_z, Ring& rg, bool first) {
+  if (blk == 0) {
+    mbar_wait(zfull, ph_z);
+    ph_z ^= 1;
+  }
+  product<NI, NH>(acc, z_addr, p.zw / 64, rg, first);
+  if (blk == p.n_lin_z - 1 && first) mbar_arrive(zempty);
+  epilogue<NI, NH, EPI_ADD>(acc, h, p.bz + blk * p.dh, pl, nullptr);
+}
+
+// net = relu(h).W0 + b0;  h += relu(net).W1 + b1. Each sync: the product
+// before has read the activation buffer in both warpgroups, or the epilogue
+// has written it.
+template <int NI, int NH>
+__device__ __forceinline__ void residual_block(float (&acc)[NH][NI / 2], uint32_t (&h)[NH][NI / 8][2],
+                                               const Params& p, int blk, const Place<NI, NH>& pl, uint8_t* act,
+                                               uint32_t act_addr, Ring& rg, bool first) {
+  const int hc = p.dh / 64;
+  consumer_sync();
+  store_relu<NI, NH>(h, pl, act);
+  fence_proxy_async();
+  consumer_sync();
+  product<NI, NH>(acc, act_addr, hc, rg, first);
+  consumer_sync();
+  epilogue<NI, NH, EPI_NET>(acc, h, p.b0 + blk * p.dh, pl, act);
+  fence_proxy_async();
+  consumer_sync();
+  product<NI, NH>(acc, act_addr, hc, rg, first);
+  epilogue<NI, NH, EPI_ADD>(acc, h, p.b1 + blk * p.dh, pl, nullptr);
+}
+
+// out = relu(h).Wout + bout, columns 0..3 of one 8-wide wgmma, for the
+// tile's rows from row0 below end
+template <int NI, int NH>
+__device__ __forceinline__ void head(const uint32_t (&h)[NH][NI / 8][2], const Params& p, const Place<NI, NH>& pl,
+                                     uint8_t* act, uint32_t act_addr, uint32_t wout_addr, int wg, int lane,
+                                     int row_a, int64_t row0, int64_t end) {
+  const int hc = p.dh / 64;
+  consumer_sync();
+  store_relu<NI, NH>(h, pl, act);
+  fence_proxy_async();
+  consumer_sync();
+  if (wg == 0) {
+    float o[4];
+    wgmma_fence();
+    for (int kc = 0; kc < hc; ++kc) {
+      const uint64_t da = make_desc(act_addr + kc * CHUNK);
+      const uint64_t db = make_desc(wout_addr + kc * 1024);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) Wgmma<8>::mma(o, da + 2 * kk, db + 2 * kk, (kc | kk) != 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_registers(o);
+    const int c = 2 * (lane & 3);
+    if (c < 4) {
+      const bf162 b = ld_pair(p.bout + c);
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int64_t row = row0 + row_a + 8 * half;
+        if (row < end)
+          *reinterpret_cast<float2*>(p.out + row * 4 + c) =
+              __bfloat1622float2(dense_round(o[2 * half], o[2 * half + 1], b));
+      }
+    }
+  }
+}
+
 // ---- the block --------------------------------------------------------
 
 // The whole kernel body. NI, NH: a warpgroup's columns are NH slabs of NI
@@ -496,9 +731,13 @@ __device__ __forceinline__ void add_tile(uint32_t (&h)[NH][NI / 8][2], const Pla
 // of the rows from row0 (in the TZ mode: the slice of injection `inj`) into
 // dst, 64 rows in the swizzled layout of swz_unit, zero past the last row.
 // In MODE_PROBE only the z tile is filled and its first 4 columns are
-// written to out.
-template <int NI, int NH, int MODE, typename Fill>
+// written to out. MULTI_VIEW: the multi-view mode (MODE_Z; see the top), its
+// own instance, sharing the products, epilogues and ring with the
+// single-view loops; its fill(inj, row0, end, dst, ft) is zero from row `end`
+// on, and fill.views holds its Views.
+template <int NI, int NH, int MODE, typename Fill, bool MULTI_VIEW = false>
 __device__ __forceinline__ void mlp_block(const Params& p, const Fill& fill) {
+  static_assert(!MULTI_VIEW || MODE == MODE_Z, "the multi-view mode takes the latents");
   extern __shared__ uint8_t smem_raw[];
   uint8_t* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   const Layout L = layout_of(p.kx, p.zw, p.dh, NI, p.stages);
@@ -531,7 +770,8 @@ __device__ __forceinline__ void mlp_block(const Params& p, const Fill& fill) {
   __syncthreads();
 
   // the block walks the tiles blockIdx.x, blockIdx.x + gridDim.x, ...
-  const int64_t n_tiles = (p.n + T - 1) / T;
+  int64_t n_tiles = (p.n + T - 1) / T;
+  if constexpr (MULTI_VIEW) n_tiles = view_tiles(p, fill.views);
   const int iters = (int)((n_tiles - blockIdx.x + gridDim.x - 1) / gridDim.x);
 
   if (tid >= CONSUMERS) {
@@ -546,17 +786,51 @@ __device__ __forceinline__ void mlp_block(const Params& p, const Fill& fill) {
         const int slabs = 2 * NH * (p.kx / 64 + wz_chunks + 2 * p.n_blocks * (p.dh / 64));
         int stage = 0;
         uint32_t phase = 1;
-        for (int it = 0; it < iters; ++it) {
-          const uint8_t* src = reinterpret_cast<const uint8_t*>(p.image);
-          for (int s = 0; s < slabs; ++s, src += slab) {
-            mbar_wait(wempty + 8 * stage, phase);
-            mbar_expect_tx(wfull + 8 * stage, slab);
-            bulk_copy(sbase + L.ring + stage * slab, src, slab, wfull + 8 * stage);
-            if (++stage == p.stages) {
-              stage = 0;
-              phase ^= 1;
+        if constexpr (MULTI_VIEW) {
+          // lin_in and the injected blocks, before the combine layer, once a view
+          const int pre = 2 * NH * (p.kx / 64 + wz_chunks + 2 * p.n_lin_z * (p.dh / 64));
+          const uint8_t* image = reinterpret_cast<const uint8_t*>(p.image);
+          for (int it = 0; it < iters; ++it) {
+            for (int v = 0; v < fill.views.ns; ++v)
+              stream_slabs(image, pre, slab, sbase + L.ring, wfull, wempty, p.stages, stage, phase);
+            stream_slabs(image + (size_t)pre * slab, slabs - pre, slab, sbase + L.ring, wfull, wempty, p.stages,
+                         stage, phase);
+          }
+        } else {
+          for (int it = 0; it < iters; ++it) {
+            // copied by stream_slabs
+            const uint8_t* src = reinterpret_cast<const uint8_t*>(p.image);
+            for (int s = 0; s < slabs; ++s, src += slab) {
+              mbar_wait(wempty + 8 * stage, phase);
+              mbar_expect_tx(wfull + 8 * stage, slab);
+              bulk_copy(sbase + L.ring + stage * slab, src, slab, wfull + 8 * stage);
+              if (++stage == p.stages) {
+                stage = 0;
+                phase ^= 1;
+              }
             }
           }
+        }
+      }
+    } else if constexpr (MULTI_VIEW) {
+      // the x and z tiles of each view in turn, a view ahead
+      const int ft = pt - 32;
+      uint32_t ph_x = 1, ph_z = 1;
+      const Views& vw = fill.views;
+      for (int it = 0; it < iters; ++it) {
+        const ViewTile vt(vw, (int64_t)it * gridDim.x + blockIdx.x);
+        for (int v = 0; v < vw.ns; ++v) {
+          const int64_t row0 = vt.row0(vw, v), end = vt.end(vw, v);
+          mbar_wait(xempty, ph_x);
+          ph_x ^= 1;
+          fill_x_tile(p, base + L.x, row0, end, ft);
+          fence_proxy_async();
+          mbar_arrive(xfull);
+          mbar_wait(zempty, ph_z);
+          ph_z ^= 1;
+          fill(0, row0, end, base + L.z, ft);
+          fence_proxy_async();
+          mbar_arrive(zfull);
         }
       }
     } else {
@@ -612,74 +886,101 @@ __device__ __forceinline__ void mlp_block(const Params& p, const Fill& fill) {
       const uint32_t act_addr = sbase + L.act, z_addr = sbase + L.z;
       const int hc = p.dh / 64;
       uint32_t ph_x = 0;
-      for (int it = 0; it < iters; ++it) {
-        const int64_t row0 = ((int64_t)it * gridDim.x + blockIdx.x) * T;
-        // h = x.Win + bin
-        mbar_wait(xfull, ph_x);
-        ph_x ^= 1;
-        product<NI, NH>(acc, sbase + L.x, p.kx / 64, rg, first);
-        if (first) mbar_arrive(xempty);
-        epilogue<NI, NH, EPI_SET>(acc, h, p.bin, pl, nullptr);
-        for (int blk = 0; blk < p.n_blocks; ++blk) {
-          if (blk < p.n_lin_z) {
-            if constexpr (MODE == MODE_TZ) {
-              // h += tz[:, blk*dh:(blk+1)*dh], a slice per injection
-              mbar_wait(zfull, ph_z);
-              ph_z ^= 1;
-              add_tile<NI, NH>(h, pl, ztile);
-              mbar_arrive(zempty);
-            } else {
-              // h += z.Wz[:, blk*dh:(blk+1)*dh] + bz, from the tile's one z tile
-              if (blk == 0) {
+      if constexpr (MULTI_VIEW) {
+        // this thread's units of the block's saved views
+        const Views& vw = fill.views;
+        uint4* const saved = vw.scratch + (int64_t)blockIdx.x * (vw.ns - 1) * (NH * NI / 16) * CONSUMERS + tid;
+        for (int it = 0; it < iters; ++it) {
+          const ViewTile vt(vw, (int64_t)it * gridDim.x + blockIdx.x);
+          for (int v = 0; v < vw.ns; ++v) {
+            lin_in<NI, NH>(acc, h, p, pl, sbase + L.x, xfull, xempty, ph_x, rg, first);
+            for (int blk = 0; blk < p.n_lin_z; ++blk) {
+              inject_z<NI, NH>(acc, h, p, blk, pl, z_addr, zfull, zempty, ph_z, rg, first);
+              residual_block<NI, NH>(acc, h, p, blk, pl, act, act_addr, rg, first);
+            }
+            if (v < vw.ns - 1)
+              save_view<NI, NH>(h, saved + (int64_t)v * (NH * NI / 16) * CONSUMERS);
+            else
+              mean_views<NI, NH>(acc, h, saved, vw.ns - 1, vw.mean_scale);
+          }
+          for (int blk = p.n_lin_z; blk < p.n_blocks; ++blk)
+            residual_block<NI, NH>(acc, h, p, blk, pl, act, act_addr, rg, first);
+          head<NI, NH>(h, p, pl, act, act_addr, sbase + L.wout, wg, lane, row_a, vt.scene * vw.pts + vt.p0,
+                       (vt.scene + 1) * vw.pts);
+        }
+      } else {
+        for (int it = 0; it < iters; ++it) {
+          const int64_t row0 = ((int64_t)it * gridDim.x + blockIdx.x) * T;
+          // h = x.Win + bin (copied by lin_in)
+          mbar_wait(xfull, ph_x);
+          ph_x ^= 1;
+          product<NI, NH>(acc, sbase + L.x, p.kx / 64, rg, first);
+          if (first) mbar_arrive(xempty);
+          epilogue<NI, NH, EPI_SET>(acc, h, p.bin, pl, nullptr);
+          for (int blk = 0; blk < p.n_blocks; ++blk) {
+            if (blk < p.n_lin_z) {
+              if constexpr (MODE == MODE_TZ) {
+                // h += tz[:, blk*dh:(blk+1)*dh], a slice per injection
                 mbar_wait(zfull, ph_z);
                 ph_z ^= 1;
+                add_tile<NI, NH>(h, pl, ztile);
+                mbar_arrive(zempty);
+              } else {
+                // h += z.Wz[:, blk*dh:(blk+1)*dh] + bz, from the tile's one z
+                // tile (copied by inject_z)
+                if (blk == 0) {
+                  mbar_wait(zfull, ph_z);
+                  ph_z ^= 1;
+                }
+                product<NI, NH>(acc, z_addr, p.zw / 64, rg, first);
+                if (blk == p.n_lin_z - 1 && first) mbar_arrive(zempty);
+                epilogue<NI, NH, EPI_ADD>(acc, h, p.bz + blk * p.dh, pl, nullptr);
               }
-              product<NI, NH>(acc, z_addr, p.zw / 64, rg, first);
-              if (blk == p.n_lin_z - 1 && first) mbar_arrive(zempty);
-              epilogue<NI, NH, EPI_ADD>(acc, h, p.bz + blk * p.dh, pl, nullptr);
             }
+            // net = relu(h).W0 + b0; each sync: the product before has read
+            // the buffer in both warpgroups, or the epilogue has written it
+            // (this and h += relu(net).W1 + b1: copied by residual_block)
+            consumer_sync();
+            store_relu<NI, NH>(h, pl, act);
+            fence_proxy_async();
+            consumer_sync();
+            product<NI, NH>(acc, act_addr, hc, rg, first);
+            consumer_sync();
+            epilogue<NI, NH, EPI_NET>(acc, h, p.b0 + blk * p.dh, pl, act);
+            fence_proxy_async();
+            consumer_sync();
+            // h += relu(net).W1 + b1
+            product<NI, NH>(acc, act_addr, hc, rg, first);
+            epilogue<NI, NH, EPI_ADD>(acc, h, p.b1 + blk * p.dh, pl, nullptr);
           }
-          // net = relu(h).W0 + b0; each sync: the product before has read
-          // the buffer in both warpgroups, or the epilogue has written it
+          // out = relu(h).Wout + bout, columns 0..3 of one 8-wide wgmma
+          // (copied by head)
           consumer_sync();
           store_relu<NI, NH>(h, pl, act);
           fence_proxy_async();
           consumer_sync();
-          product<NI, NH>(acc, act_addr, hc, rg, first);
-          consumer_sync();
-          epilogue<NI, NH, EPI_NET>(acc, h, p.b0 + blk * p.dh, pl, act);
-          fence_proxy_async();
-          consumer_sync();
-          // h += relu(net).W1 + b1
-          product<NI, NH>(acc, act_addr, hc, rg, first);
-          epilogue<NI, NH, EPI_ADD>(acc, h, p.b1 + blk * p.dh, pl, nullptr);
-        }
-        // out = relu(h).Wout + bout, columns 0..3 of one 8-wide wgmma
-        consumer_sync();
-        store_relu<NI, NH>(h, pl, act);
-        fence_proxy_async();
-        consumer_sync();
-        if (wg == 0) {
-          float o[4];
-          wgmma_fence();
-          for (int kc = 0; kc < hc; ++kc) {
-            const uint64_t da = make_desc(act_addr + kc * CHUNK);
-            const uint64_t db = make_desc(sbase + L.wout + kc * 1024);
+          if (wg == 0) {
+            float o[4];
+            wgmma_fence();
+            for (int kc = 0; kc < hc; ++kc) {
+              const uint64_t da = make_desc(act_addr + kc * CHUNK);
+              const uint64_t db = make_desc(sbase + L.wout + kc * 1024);
 #pragma unroll
-            for (int kk = 0; kk < 4; ++kk) Wgmma<8>::mma(o, da + 2 * kk, db + 2 * kk, (kc | kk) != 0);
-          }
-          wgmma_commit();
-          wgmma_wait<0>();
-          fence_registers(o);
-          const int c = 2 * (lane & 3);
-          if (c < 4) {
-            const bf162 b = ld_pair(p.bout + c);
+              for (int kk = 0; kk < 4; ++kk) Wgmma<8>::mma(o, da + 2 * kk, db + 2 * kk, (kc | kk) != 0);
+            }
+            wgmma_commit();
+            wgmma_wait<0>();
+            fence_registers(o);
+            const int c = 2 * (lane & 3);
+            if (c < 4) {
+              const bf162 b = ld_pair(p.bout + c);
 #pragma unroll
-            for (int half = 0; half < 2; ++half) {
-              const int64_t row = row0 + row_a + 8 * half;
-              if (row < p.n)
-                *reinterpret_cast<float2*>(p.out + row * 4 + c) =
-                    __bfloat1622float2(dense_round(o[2 * half], o[2 * half + 1], b));
+              for (int half = 0; half < 2; ++half) {
+                const int64_t row = row0 + row_a + 8 * half;
+                if (row < p.n)
+                  *reinterpret_cast<float2*>(p.out + row * 4 + c) =
+                      __bfloat1622float2(dense_round(o[2 * half], o[2 * half + 1], b));
+              }
             }
           }
         }
@@ -690,11 +991,13 @@ __device__ __forceinline__ void mlp_block(const Params& p, const Fill& fill) {
 
 // ---- host side --------------------------------------------------------
 
-// Launch `kernel` (a __global__ instance of mlp_block) as a persistent grid,
-// one block per SM or per tile if there are fewer. Returns the CUDA error of
-// the launch (0 = success).
+// Launch `kernel` (a __global__ instance of mlp_block) as a persistent grid
+// over n_tiles tiles, one block per SM or per tile if there are fewer, and
+// no more than max_blocks if that is above 0. Returns the CUDA error of the
+// launch (0 = success).
 template <typename Kernel, typename... Args>
-int launch_mlp(Kernel kernel, const Params& p, cudaStream_t stream, Args... args) {
+int launch_mlp_grid(Kernel kernel, const Params& p, int64_t n_tiles, int64_t max_blocks, cudaStream_t stream,
+                    Args... args) {
   if (p.n == 0) return 0;
   const int smem = layout_of(p.kx, p.zw, p.dh, slab_columns(p.dh), p.stages).total;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -703,10 +1006,16 @@ int launch_mlp(Kernel kernel, const Params& p, cudaStream_t stream, Args... args
   if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
   if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
     return (int)err;
-  const int64_t n_tiles = (p.n + T - 1) / T;
-  const unsigned blocks = (unsigned)(n_tiles < sms ? n_tiles : sms);
-  kernel<<<blocks, THREADS, smem, stream>>>(args...);
+  int64_t blocks = n_tiles < sms ? n_tiles : sms;
+  if (max_blocks > 0 && blocks > max_blocks) blocks = max_blocks;
+  kernel<<<(unsigned)blocks, THREADS, smem, stream>>>(args...);
   return (int)cudaGetLastError();
+}
+
+// The same over the (n + 63) / 64 tiles of n rows.
+template <typename Kernel, typename... Args>
+int launch_mlp(Kernel kernel, const Params& p, cudaStream_t stream, Args... args) {
+  return launch_mlp_grid(kernel, p, (p.n + T - 1) / T, 0, stream, args...);
 }
 
 }  // namespace

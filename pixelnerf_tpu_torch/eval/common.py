@@ -45,7 +45,8 @@ class FullRenderer:
     """Render an arbitrary number of rays, chunk by chunk.
 
     :param net: a port ``PixelNeRFNet``
-    :param fast: let the field MLPs take the fused kernel (bf16, single view)
+    :param fast: let the field MLPs take the fused kernel (bf16; one view,
+        or views averaged at the combine layer: its multi-view mode)
     :param staged: render through the staged pair (the fine pass reuses the
         coarse samples' features) instead of ``net.query``. A baked encoding
         (``bake_encoding``) of a model with a separate fine MLP is rendered

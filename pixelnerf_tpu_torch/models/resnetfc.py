@@ -13,11 +13,13 @@ state_dict (``lin_in``, ``lin_z.{i}``, ``scale_z.{i}``,
 Parameters stay float32; every layer computes in ``dtype``: the product is
 rounded to ``dtype`` before the ``dtype`` bias add, as ``nn.Dense(dtype=...)``
 does. With ``fast=True`` and the kernel's gate met (ReLU, no SPADE, bf16,
-single view, a latent) the whole MLP is one launch of the
-fused kernel (``ops/fused_mlp.py``); otherwise the dense chain below runs,
-as the JAX package leaves that case to XLA: the gate is read from the
-config before any launch, as the JAX package reads it, so softplus and
-SPADE fields always take the chain. On the card the kernel is built
+a latent; a single view, or views averaged at ``combine_layer`` from
+latents that are not baked) the whole MLP is one launch of the
+fused kernel (``ops/fused_mlp.py``, its multi-view mode at NS > 1);
+otherwise the dense chain below runs, as the JAX package leaves every
+multi-view case to XLA: the gate is read from the config and the views
+before any launch, so softplus, SPADE and max-combined fields always take
+the chain. On the card the kernel is built
 for ``d_hidden`` 64, 128, 256 or 512 and a latent whose width is a multiple
 of 8 (its tile rounded up to 64 columns) and fits the block's shared memory:
 other widths with ``fast=True`` raise there, they do not fall back to the
@@ -28,6 +30,7 @@ encoding), and with ``gather=`` the latents are gathered inside the kernel
 """
 from __future__ import annotations
 
+import math
 from typing import Optional, Sequence
 
 import torch
@@ -100,14 +103,19 @@ class ResnetFC(nn.Module):
     def n_lin_z(self) -> int:
         return min(self.combine_layer, self.n_blocks) if self.d_latent > 0 else 0
 
-    def _can_use_kernel(self, single_view: bool) -> bool:
-        """The fused kernel's gate: ReLU, no SPADE, bf16, a latent and a
-        single view, as in the JAX package. Widths play no part in it: on
+    def _can_use_kernel(self, single_view: bool, z_pretransformed: bool = False) -> bool:
+        """The fused kernel's gate: ReLU, no SPADE, bf16, a latent, and a
+        single view (the JAX package's gate) or views that ``combine_type =
+        "average"`` averages after at least one block (combine_layer 1 or
+        more) from latents that are not baked (the kernel's multi-view
+        mode). Widths play no part in it: on
         the card a width the kernel is not built for raises in the kernel's
         wrapper."""
         return (
             self.beta <= 0.0 and not self.use_spade and self.d_latent > 0
-            and single_view and self.dtype == torch.bfloat16
+            and self.dtype == torch.bfloat16
+            and (single_view or (self.combine_type == "average" and not z_pretransformed
+                                 and self.combine_layer >= 1))
         )
 
 
@@ -149,7 +157,7 @@ class ResnetFC(nn.Module):
         :param combine_inner_dims: (NS, B); the leading axis is reduced over
             NS at combine_layer (multi-view fusion)
         :param fast: allow the fused inference kernel (ReLU, no SPADE,
-            single-view, bf16).
+            bf16; a single view, or views averaged from unbaked latents).
             Inference only: raises where autograd would record the call.
         :param use_kernels: with ``fast``, call the kernel's wrapper if True,
             else its plain version (a caller-side choice for comparing them)
@@ -187,7 +195,7 @@ class ResnetFC(nn.Module):
             # silently fall back
             if not fast or z is not None or z_pretransformed:
                 raise ValueError("gather= needs fast=True, z=None and an unbaked latent")
-            if not self._can_use_kernel(single_view):
+            if not (single_view and self._can_use_kernel(single_view)):
                 raise ValueError(
                     "the fused gather path requires ReLU, no SPADE, bf16, d_latent > 0 and a single view")
             table, base, wg, width = gather
@@ -205,9 +213,14 @@ class ResnetFC(nn.Module):
             )
             return self._shape_out(out, lead, combine_inner_dims)
 
-        if fast and z is not None and self._can_use_kernel(single_view):
+        if fast and z is not None and self._can_use_kernel(single_view, z_pretransformed):
             self._refuse_autograd(z, x)
             count("kernel_b")
+            views, points = 1, None
+            if not single_view:
+                # rows (SB, NS, B...): the views' mean inside the kernel
+                views, points = int(combine_inner_dims[0]), math.prod(int(d) for d in combine_inner_dims[1:])
+                count("kernel_b_views", views)
             run = fused_resnetfc_infer if use_kernels else fused_resnetfc_infer_plain
             out = run(
                 z.reshape(-1, expect_z).contiguous(),
@@ -216,6 +229,8 @@ class ResnetFC(nn.Module):
                 self.n_blocks,
                 self.combine_layer,
                 z_pretransformed,
+                views=views,
+                points=points,
             )
             return self._shape_out(out, lead, combine_inner_dims)
 

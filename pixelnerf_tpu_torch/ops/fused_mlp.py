@@ -1,5 +1,5 @@
-"""Fused single-view ResnetFC inference: the CUDA kernel
-``csrc/fused_mlp.cu`` and its plain PyTorch version.
+"""Fused ResnetFC inference: the CUDA kernel ``csrc/fused_mlp.cu`` and its
+plain PyTorch version.
 
 Counterpart of ``fused_resnetfc_infer`` and ``pack_weights``
 (``pixelnerf_tpu/ops/fused_mlp.py``). The packed weight tuple holds the same
@@ -17,7 +17,8 @@ transpose of the JAX tuple's ``(in, out)``, and each bias 1-D:
 
 Rounding contract (``_mlp_kernel``): every product accumulates in float32,
 is rounded to bf16, then the bf16 bias is added; residual adds and the
-latent injections are bf16 adds.
+latent injections are bf16 adds. The views' mean of the multi-view mode is
+:func:`mean_of_views`, ``torch.mean``'s rounding on the card.
 
 Beside the tuple rides the kernel's own layout of the same matrices, the
 *tiled image* (:func:`tile_weights`): every matrix cut into the slabs of
@@ -33,6 +34,14 @@ With ``z_is_tz`` (the kernel's variant for baked encodings,
 injections ``z_raw @ wz.T + bz``, ``n_lin_z * dh`` wide: block ``i`` adds
 ``z[:, i*dh:(i+1)*dh]`` in bf16 and ``wz``/``bz`` are neither used nor asked
 for (they may be None in the tuple).
+
+With ``views`` of 2 or more (the multi-view mode, pixelNeRF's field at NS
+source views with ``combine_type = "average"``) the rows of z and x are
+``(SB, views, points)``, the layout ``query_features`` hands over: the
+layers before ``combine_layer`` run on every row, the views' h is averaged
+there (:func:`mean_of_views`), and the rest runs on the ``(SB, points)``
+rows of the result. Not with ``z_is_tz``; ``combine_layer`` lies between 1
+and ``n_blocks - 1``.
 
 :func:`fused_resnetfc_infer` launches the kernel for CUDA tensors and runs
 :func:`fused_resnetfc_infer_plain` for CPU tensors; it never falls back
@@ -192,6 +201,22 @@ def pack_weights(mlp, with_wz: bool = True) -> Tuple[Optional[torch.Tensor], ...
     return packed
 
 
+def mean_of_views(h: torch.Tensor, views: int, points: int) -> torch.Tensor:
+    """The views' mean of bf16 rows ``(SB, views, points)`` x dh, as
+    ``torch.mean(dim=1)`` rounds it for a bf16 tensor on the card (ATen's
+    ``MeanOps`` for reduced types): the views summed in float32 from 0 in
+    view order, times the float32 factor ``1/views``, rounded once to bf16.
+    (ATen's factor is ``float(M) / float(views * M)`` for M outputs: 1/views
+    wherever those counts are exact in float32. On the CPU ``torch.mean``
+    divides the float32 sum by ``views`` instead.)"""
+    hv = h.reshape(-1, views, points, h.shape[-1])
+    acc = torch.zeros(hv[:, 0].shape, dtype=torch.float32, device=h.device)
+    for v in range(views):
+        acc = acc + hv[:, v].float()
+    scale = torch.tensor(1.0, dtype=torch.float32) / views
+    return (acc * scale.to(h.device)).to(torch.bfloat16).reshape(-1, h.shape[-1])
+
+
 def fused_resnetfc_infer_plain(
     z: torch.Tensor,
     x: torch.Tensor,
@@ -200,12 +225,16 @@ def fused_resnetfc_infer_plain(
     combine_layer: int,
     z_is_tz: bool = False,
     hidden_max: bool = False,
+    views: int = 1,
+    points: Optional[int] = None,
 ):
     """The kernel's function in plain PyTorch. z (N, d_latent), or with
     ``z_is_tz`` the injections (N, n_lin_z*dh), x (N, d_in) bf16 ->
-    (N, 4) float32. With ``hidden_max`` it returns ``(out, m)``, ``m`` (N,)
-    float32 the largest magnitude each row's hidden values (h and net)
-    reach: the scale of one bf16 rounding on that row
+    (N, 4) float32; with ``views`` above 1, N rows ``(SB, views, points)``
+    averaged at ``combine_layer`` (:func:`mean_of_views`) -> (N / views, 4).
+    With ``hidden_max`` it returns ``(out, m)``, ``m`` float32 the largest
+    magnitude each output row's hidden values (h and net; of every view
+    before the mean) reach: the scale of one bf16 rounding on that row
     (:func:`disagreement_with_plain`)."""
     win, bin_, wz, bz, w0, b0, w1, b1, wout, bout = weights
     bf16 = torch.bfloat16
@@ -229,6 +258,11 @@ def fused_resnetfc_infer_plain(
     if n_lin_z > 0:
         tz = z.to(bf16) if z_is_tz else dense(z.to(bf16), wz, bz)
     for i in range(n_blocks):
+        if views > 1 and i == combine_layer:
+            h = mean_of_views(h, views, points)
+            if hidden_max:
+                peak[0] = peak[0].reshape(-1, views, points).amax(dim=1).reshape(-1)
+            seen(h)
         if i < n_lin_z:
             h = seen(h + tz[:, i * dh : (i + 1) * dh])
         net = seen(dense(torch.relu(h), w0[i], b0[i]))
@@ -316,6 +350,21 @@ def _check(z, x, weights, n_blocks, combine_layer, z_is_tz=False) -> Tuple[torch
     return tensors
 
 
+def _check_views(n, n_blocks, combine_layer, z_is_tz, views, points) -> None:
+    """Raise on a multi-view call the kernel does not take."""
+    if views == 1:
+        return
+    if not isinstance(views, int) or views < 1:
+        raise ValueError(f"views must be a positive int, got {views!r}")
+    if z_is_tz:
+        raise ValueError("the multi-view mode takes the latents, not baked injections")
+    if not 1 <= combine_layer < n_blocks:
+        raise ValueError(f"the multi-view mode averages the views at a combine_layer in [1, {n_blocks}), "
+                         f"got {combine_layer}")
+    if not isinstance(points, int) or points < 1 or n % (views * points):
+        raise ValueError(f"{n} rows are not (SB, {views} views, {points} points)")
+
+
 def check_kernel_shapes(tensors, kx: int, zw: int, dh: int) -> None:
     """The launch-side checks shared by the fused kernels: widths the
     kernel is built for (:func:`check_kernel_widths`), contiguous tensors,
@@ -341,13 +390,19 @@ def fused_resnetfc_infer(
     n_blocks: int,
     combine_layer: int,
     z_is_tz: bool = False,
+    views: int = 1,
+    points: Optional[int] = None,
 ) -> torch.Tensor:
     """Run the fused MLP: z (N, d_latent), or with ``z_is_tz`` the baked
-    injections (N, n_lin_z*dh), x (N, d_in) bf16 -> (N, 4) f32. CUDA tensors
-    launch the kernel; CPU tensors run the plain version."""
+    injections (N, n_lin_z*dh), x (N, d_in) bf16 -> (N, 4) f32; with
+    ``views`` above 1, rows ``(SB, views, points)`` averaged at
+    ``combine_layer`` -> (N / views, 4). CUDA tensors launch the kernel; CPU
+    tensors run the plain version."""
     tensors = _check(z, x, weights, n_blocks, combine_layer, z_is_tz)
+    _check_views(z.shape[0], n_blocks, combine_layer, z_is_tz, views, points)
     if z.device.type == "cpu":
-        return fused_resnetfc_infer_plain(z, x, weights, n_blocks, combine_layer, z_is_tz)
+        return fused_resnetfc_infer_plain(z, x, weights, n_blocks, combine_layer, z_is_tz,
+                                          views=views, points=points)
     if z.device.type != "cuda":
         raise ValueError(f"unsupported device {z.device}")
     dh = weights[0].shape[0]
@@ -362,18 +417,27 @@ def fused_resnetfc_infer(
     lib = _build.load("fused_mlp")
     check_kernel_fits(lib, kx, zw, dh)
     n = z.shape[0]
-    out = torch.empty((n, 4), dtype=torch.float32, device=z.device)
+    out = torch.empty((n // views, 4), dtype=torch.float32, device=z.device)
+    scratch, scratch_blocks = None, 0
+    if views > 1:
+        # a block's saved views: views-1 tiles of 64 rows x dh bf16, for a
+        # block per SM or per tile if there are fewer (the launch's grid)
+        tiles = n // (views * points) * -(-points // 64)
+        scratch_blocks = min(tiles, torch.cuda.get_device_properties(z.device).multi_processor_count)
+        scratch = torch.empty((scratch_blocks * (views - 1) * 64 * dh,), dtype=torch.bfloat16, device=z.device)
     fn = lib.fused_resnetfc_infer
-    # x, z, the image, six weight arrays, out: 10 pointers
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int64] + [ctypes.c_int] * 7 + [
-        ctypes.c_void_p
+    # x, z, the image, six weight arrays, out: 10 pointers; the views, the
+    # scratch
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int64] + [ctypes.c_int] * 8 + [
+        ctypes.c_int64, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p
     ]
     fn.restype = ctypes.c_int
     stream = torch.cuda.current_stream(z.device).cuda_stream
     with torch.cuda.device(z.device):
         err = fn(
             x.data_ptr(), z.data_ptr(), image.data_ptr(), *kernel_weight_pointers(weights),
-            out.data_ptr(), n, x.shape[1], kx, d_z, dh, n_blocks, n_lin_z, int(z_is_tz), stream,
+            out.data_ptr(), n, x.shape[1], kx, d_z, dh, n_blocks, n_lin_z, int(z_is_tz), views,
+            points or 0, None if scratch is None else scratch.data_ptr(), scratch_blocks, stream,
         )
     _build.check(err, "fused_resnetfc_infer launch")
     fused_resnetfc_infer.launches += 1

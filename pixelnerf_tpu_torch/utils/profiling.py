@@ -27,7 +27,8 @@ The spans of the port, from the request down:
   ``render_rays.merge``: the chunk loop's output concatenation
 - ``field.features``: ``PixelNeRFNet.query_features`` (``points``,
   ``views``); ``field.mlp``: ``PixelNeRFNet.query_mlp`` (``rows``, and
-  ``kernel_b`` or ``dense``: which of the two ran)
+  ``kernel_b`` or ``dense``: which of the two ran; ``kernel_b_views``: the
+  views a launch of kernel B's multi-view mode averages)
 - ``encode``: ``PixelNeRFNet.encode`` (``images``)
 - ``train.step`` with ``forward``, ``backward``, ``optimizer``;
   ``data.next``: the train loop's wait on the input pipeline

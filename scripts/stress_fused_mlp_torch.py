@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Repeated launches of the fused MLP kernels (B, B with ``z_is_tz``, D) on
-one NVIDIA GPU: every launch must reproduce the first bit for bit, and the
-first must agree with the plain PyTorch version.
+"""Repeated launches of the fused MLP kernels (B, B with ``z_is_tz``, D, B's
+multi-view mode) on one NVIDIA GPU: every launch must reproduce the first
+bit for bit, and the first must agree with the plain PyTorch version.
 
 The kernels' body (``pixelnerf_tpu_torch/csrc/mlp_body.cuh``) orders a
 producer and two consumer warpgroups with ``mbarrier``s; a fault in that
@@ -18,11 +18,13 @@ what such flips alone do, the plain version is also held against itself with
 the hidden units permuted (the same function, its float32 sums in another
 order): ``plain_vs_reordered_plain`` is measured as the kernel is.
 
-Usage: ``python3 scripts/stress_fused_mlp_torch.py [--mode b|tz|d|all]
+Usage: ``python3 scripts/stress_fused_mlp_torch.py [--mode b|tz|d|mv|all]
 [--d_hidden 64 128 256 512] [--rows 1048576] [--launches 200]
-[--fc1_scale 0.1]``. Prints one JSON line per mode and width (launches that
-differ, the disagreement with the plain version, mean ms) and exits
-non-zero if any launch differs or disagrees.
+[--fc1_scale 0.1]``. ``mv`` is B's multi-view mode: the rows as one scene
+of 3 views of ``rows // 3`` points (the DTU model's 3 source views). Prints
+one JSON line per mode and width (launches that differ, the disagreement
+with the plain version, mean ms) and exits non-zero if any launch differs
+or disagrees.
 """
 import argparse
 import json
@@ -35,11 +37,16 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 N_BLOCKS, N_LIN_Z = 5, 3
+VIEWS = 3          # the multi-view mode's source views
+MODES = ["b", "tz", "d", "mv"]
 
 
 def make_case(mode, dh, n, dev, g, fc1_scale=0.1):
     """(wrapper, plain version, arguments) of one kernel at ``n`` rows of a
-    5-block MLP ``dh`` wide with 3 injections, weights from ``g``."""
+    5-block MLP ``dh`` wide with 3 injections, weights from ``g``; in the
+    multi-view mode ``n`` is rounded down to whole points of its views."""
+    import functools
+
     from pixelnerf_tpu_torch.models.resnetfc import ResnetFC
     from pixelnerf_tpu_torch.ops import fused_field, fused_mlp
     from pixelnerf_tpu_torch.ops.grid_sample import bilinear_pair_bases
@@ -55,6 +62,12 @@ def make_case(mode, dh, n, dev, g, fc1_scale=0.1):
     def rows(width):
         return torch.randn((n, width), generator=g).to(torch.bfloat16).to(dev)
 
+    if mode == "mv":
+        n -= n % VIEWS
+        kw = dict(views=VIEWS, points=n // VIEWS)
+        return (functools.partial(fused_mlp.fused_resnetfc_infer, **kw),
+                functools.partial(fused_mlp.fused_resnetfc_infer_plain, **kw),
+                (rows(dh), rows(42), fused_mlp.pack_weights(mlp), N_BLOCKS, N_LIN_Z))
     x = rows(42)
     if mode == "b":
         return (fused_mlp.fused_resnetfc_infer, fused_mlp.fused_resnetfc_infer_plain,
@@ -108,12 +121,20 @@ def against_plain(mode, args, first, chunk=131072):
     perm = torch.randperm(weights[0].shape[0], generator=torch.Generator().manual_seed(1)).to(z.device)
     w_perm, z_perm = reordered(z, weights, tz, perm)
     refs, peaks, others = [], [], []
-    for lo in range(0, z.shape[0], chunk):
-        rows = slice(lo, lo + chunk)
-        ref, peak = fused_resnetfc_infer_plain(z[rows], x[rows], weights, N_BLOCKS, N_LIN_Z, tz, hidden_max=True)
+    views = VIEWS if mode == "mv" else 1
+    points = z.shape[0] // views
+    for lo in range(0, points, chunk // views):
+        hi = min(lo + chunk // views, points)
+
+        def part(t):    # the points lo..hi of every view
+            return t.reshape(views, points, -1)[:, lo:hi].reshape(views * (hi - lo), -1)
+
+        kw = dict(views=views, points=hi - lo)
+        ref, peak = fused_resnetfc_infer_plain(part(z), part(x), weights, N_BLOCKS, N_LIN_Z, tz, hidden_max=True,
+                                               **kw)
         refs.append(ref)
         peaks.append(peak)
-        others.append(fused_resnetfc_infer_plain(z_perm[rows], x[rows], w_perm, N_BLOCKS, N_LIN_Z, tz))
+        others.append(fused_resnetfc_infer_plain(part(z_perm), part(x), w_perm, N_BLOCKS, N_LIN_Z, tz, **kw))
     ref, peak = torch.cat(refs), torch.cat(peaks)
     return (disagreement_with_plain(first, ref, peak), disagreement_with_plain(torch.cat(others), ref, peak),
             peak.max().item())
@@ -145,7 +166,7 @@ def stress(mode, dh, n, launches, dev, fc1_scale):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--mode", default="all", choices=["b", "tz", "d", "all"])
+    ap.add_argument("--mode", default="all", choices=MODES + ["all"])
     ap.add_argument("--d_hidden", type=int, nargs="+", default=[64, 128, 256, 512])
     ap.add_argument("--rows", type=int, default=1048576)
     ap.add_argument("--launches", type=int, default=200)
@@ -158,7 +179,7 @@ def main():
                           capture_output=True, text=True).stdout.strip()
     failed = False
     for dh in a.d_hidden:
-        for mode in (["b", "tz", "d"] if a.mode == "all" else [a.mode]):
+        for mode in (MODES if a.mode == "all" else [a.mode]):
             res = stress(mode, dh, a.rows, a.launches, torch.device("cuda"), a.fc1_scale)
             print(json.dumps({**res, "card": card}), flush=True)
             failed |= bool(res["launches_that_differ"]) or not res["agrees_with_plain"]

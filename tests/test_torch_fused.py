@@ -1,6 +1,7 @@
 """The fused and baked field paths of the port against the JAX package's on
 the CPU: the fused gather+MLP kernel's plain version against the Pallas
-kernel in interpret mode, the ``z_is_tz`` variant of the fused MLP,
+kernel in interpret mode, the ``z_is_tz`` variant of the fused MLP, its
+multi-view mode against the dense chain and the JAX package's XLA path,
 ``bake_encoding``, ``query`` / ``query_fused``, the unstaged renderer and
 ``NeRFRenderer``, ``FullRenderer`` on a baked encoding, and the gather
 study's plain version. Inputs come from numpy seeds and go to both sides;
@@ -28,7 +29,10 @@ from pixelnerf_tpu_torch.ops.fused_field import (
     fused_gather_resnetfc_infer,
     fused_gather_resnetfc_infer_plain,
 )
-from pixelnerf_tpu_torch.ops.fused_mlp import fused_resnetfc_infer, fused_resnetfc_infer_plain, pack_weights
+from pixelnerf_tpu_torch.ops.fused_mlp import (
+    agrees_with_plain, disagreement_with_plain, fused_resnetfc_infer, fused_resnetfc_infer_plain, pack_weights,
+)
+from pixelnerf_tpu_torch.utils import profiling
 from pixelnerf_tpu_torch.ops.gather import gather_bilerp, gather_bilerp_plain
 from pixelnerf_tpu_torch.ops.gather_study import FORMULATIONS, gather_study, gather_study_plain
 from pixelnerf_tpu_torch.render import renderer as tr
@@ -146,6 +150,107 @@ def test_fused_plain_tz_matches_jax_pretransformed():
     # the dummy-free tuple and the full one give the same result
     full = fused_resnetfc_infer_plain(t(tz, torch.bfloat16), t(x, torch.bfloat16), pack_weights(tmlp), 5, 3, True)
     assert torch.equal(full, out)
+
+
+@pytest.mark.parametrize("ns,sb,b", [(2, 1, 70), (2, 2, 130), (3, 1, 100), (3, 2, 70)])
+def test_fused_plain_views_matches_dense_chain_bf16(ns, sb, b):
+    """Kernel B's plain multi-view version (ns views averaged at combine
+    layer 3) against the port's dense bf16 chain, within the MLP contract;
+    ``ResnetFC(fast=True)`` on the CPU runs the plain version."""
+    _, _, tmlp = mlp_pair("bfloat16", d_hidden=64, d_latent=128, seed=ns + sb)
+    g = torch.Generator().manual_seed(10 * ns + sb)
+    z = torch.randn((sb * ns * b, 128), generator=g)
+    x = torch.randn((sb * ns * b, 42), generator=g)
+    with torch.no_grad():
+        dense = tmlp((z, x), combine_inner_dims=(ns, b))
+        fast = tmlp((z, x), combine_inner_dims=(ns, b), fast=True)
+    ref, peak = fused_resnetfc_infer_plain(z.to(torch.bfloat16), x.to(torch.bfloat16), pack_weights(tmlp), 5, 3,
+                                           hidden_max=True, views=ns, points=b)
+    assert dense.shape == fast.shape == (sb, b, 4) and ref.shape == (sb * b, 4)
+    d = disagreement_with_plain(dense.reshape(-1, 4).float(), ref, peak)
+    assert agrees_with_plain(d), d
+    assert torch.equal(fast.reshape(-1, 4), ref)
+    # the mean's rows are the views' of one point: views of one scene
+    # permuted give the same result within the contract
+    perm = torch.arange(sb * ns * b).reshape(sb, ns, b).flip(1).reshape(-1)
+    other = fused_resnetfc_infer_plain(z[perm].to(torch.bfloat16), x[perm].to(torch.bfloat16), pack_weights(tmlp),
+                                       5, 3, views=ns, points=b)
+    assert agrees_with_plain(disagreement_with_plain(other, ref, peak))
+
+
+def test_fused_plain_views_matches_jax_xla_at_three_views():
+    """Kernel B's plain multi-view version against the JAX package's
+    ResnetFC(fast=True) at three views, where the JAX package gates its
+    kernel off and runs the bf16 chain through XLA; the weights carried by
+    the weight bridge."""
+    jmlp, variables, tmlp = mlp_pair("bfloat16", d_hidden=128, d_latent=512)
+    rng = np.random.default_rng(8)
+    sb, ns, b = 2, 3, 90
+    z = rng.normal(size=(sb * ns * b, 512)).astype(np.float32)
+    x = rng.normal(size=(sb * ns * b, 42)).astype(np.float32)
+    ref = _np(jmlp.apply(variables, (jnp.asarray(z), jnp.asarray(x)), combine_inner_dims=(ns, b), fast=True))
+    out = fused_resnetfc_infer_plain(t(z, torch.bfloat16), t(x, torch.bfloat16), pack_weights(tmlp), 5, 3,
+                                     views=ns, points=b)
+    assert ref.shape == (sb, b, 4)
+    _bf16_close(out.numpy(), ref.reshape(-1, 4))
+
+
+@pytest.mark.parametrize("case", ["average", "max", "softplus", "spade", "float32", "baked", "autograd",
+                                  "combine_0", "combine_past_blocks"])
+def test_resnetfc_multi_view_gate(case):
+    """At three views ``fast=True`` takes kernel B's multi-view mode only for
+    an averaged, ReLU, SPADE-free bf16 field on latents that are not baked,
+    averaged after at least one block; the rest takes the dense chain, and
+    autograd raises as at one view. A combine layer past the blocks never
+    averages: each row is a view of its own, the single-view kernel's."""
+    kw = dict(d_in=42, d_latent=64, d_hidden=32, n_blocks=5, combine_layer=3, dtype=torch.bfloat16)
+    if case == "combine_0":
+        kw["combine_layer"] = 0
+    elif case == "combine_past_blocks":
+        kw["combine_layer"] = 1000      # ResnetFC.from_conf's default: the views are never averaged
+    elif case == "max":
+        kw["combine_type"] = "max"
+    elif case == "softplus":
+        kw["beta"] = 5.0
+    elif case == "spade":
+        kw["use_spade"] = True
+    elif case == "float32":
+        kw["dtype"] = torch.float32
+    mlp = ResnetFC(**kw)
+    g = torch.Generator().manual_seed(0)
+    z = torch.randn((3 * 10, 3 * 32 if case == "baked" else 64), generator=g)
+    x = torch.randn((3 * 10, 42), generator=g)
+    call = dict(combine_inner_dims=(3, 10), fast=True, z_pretransformed=case == "baked")
+    if case == "autograd":
+        with pytest.raises(RuntimeError, match="inference-only"):
+            mlp((z, x), **call)
+        return
+    profiling.enable()
+    try:
+        with torch.no_grad(), profiling.span("field.mlp"):
+            if case == "combine_0":
+                # the chain, as the JAX package's, has no injection to
+                # concatenate when the views are averaged before block 0
+                with pytest.raises(ValueError, match="non-empty"):
+                    mlp((z, x), **call)
+            else:
+                out = mlp((z, x), **call)
+    finally:
+        profiling.disable()
+    (rec,) = profiling.take()
+    if case == "combine_0":
+        assert rec.counts == {"dense": 1}
+        return
+    assert out.shape == ((30, 4) if case == "combine_past_blocks" else (1, 10, 4))
+    if case == "combine_past_blocks":
+        assert rec.counts == {"kernel_b": 1}
+    elif case == "average":
+        assert rec.counts == {"kernel_b": 1, "kernel_b_views": 3}
+        want = fused_resnetfc_infer_plain(z.to(torch.bfloat16), x.to(torch.bfloat16), pack_weights(mlp), 5, 3,
+                                          views=3, points=10)
+        assert torch.equal(out.reshape(-1, 4), want)
+    else:
+        assert rec.counts == {"dense": 1}
 
 
 def test_resnetfc_pretransformed_dense_chain_matches_jax_f32():

@@ -192,6 +192,33 @@ def test_a_render_request_gives_the_span_tree_of_its_layers(dtype, fast, path):
     assert all(r.counts["views"] == 1 for r in by["field.features"])
 
 
+@pytest.mark.parametrize("dtype,fast,path", [(None, False, "dense"), ("bfloat16", True, "kernel_b")])
+def test_a_multi_view_request_counts_the_views_of_kernel_b(dtype, fast, path):
+    """At three source views the field MLP's spans say which path ran: the
+    dense chain, or kernel B's multi-view mode with ``kernel_b_views``, the
+    views a launch averages."""
+    net, conf, _, _ = _tiny(dtype)
+    g = torch.Generator().manual_seed(3)
+    images = torch.rand((1, 3, 32, 32, 3), generator=g) * 2 - 1
+    poses = torch.stack([torch.from_numpy(geometry.look_at(eye, (0.0, 0.0, 0.0)))
+                         for eye in ((0.0, 0.4, 1.3), (0.5, 0.3, 1.2), (-0.5, 0.3, 1.2))])[None]
+    cfg = RenderConfig.from_conf(conf["renderer"])
+    renderer = FullRenderer(net, cfg, ray_chunk=SIDE * SIDE, fast=fast)
+    target = geometry.look_at((0.9, 0.3, 1.0), (0.0, 0.0, 0.0))
+    profiling.enable()
+    with torch.inference_mode():
+        enc = net.encode(images, poses, torch.full((1,), 30.0))
+        rays = geometry.gen_rays(target[None], SIDE, SIDE, 30.0 * SIDE / 32, 0.8, 1.8, device="cpu")[0]
+        rgb, _ = renderer.render_image(enc, rays, generator=torch.Generator().manual_seed(2))
+    by = _by_name(profiling.take())
+    assert rgb.shape == (SIDE, SIDE, 3) and torch.isfinite(rgb).all()
+    assert all(r.counts["views"] == 3 for r in by["field.features"])
+    mlp = by["field.mlp"]
+    assert len(mlp) == 3 and all(r.counts[path] == 1 for r in mlp)
+    want = {"kernel_b_views": 3} if path == "kernel_b" else {}
+    assert all({k: v for k, v in r.counts.items() if k not in ("rows", path)} == want for r in mlp)
+
+
 def test_a_train_step_gives_its_forward_backward_and_optimizer_spans():
     net, conf, images, poses = _tiny()
     cfg = RenderConfig.from_conf(conf["renderer"])
