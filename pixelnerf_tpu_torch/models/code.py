@@ -9,7 +9,9 @@ depends on this column order feeding the first MLP layer.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
+from typing import Tuple
 
 import numpy as np
 import torch
@@ -35,11 +37,16 @@ class PositionalEncoding:
         phases[1::2] = math.pi * 0.5                            # sin, cos, ...
         return freqs2, phases
 
+    def device_tables(self, device, dtype) -> Tuple[torch.Tensor, torch.Tensor]:
+        """:meth:`tables` as tensors on ``device`` in ``dtype``, made at the
+        first call for each (device, dtype) and the same objects after it:
+        a copy from the host's pageable memory waits for the device's queue
+        to drain, and the code runs in every feature stage."""
+        return _device_tables(self, torch.device(device), dtype)
+
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
         """(..., d_in) -> (..., d_out)."""
-        freqs2, phases = self.tables()
-        freqs2 = torch.as_tensor(freqs2, device=x.device, dtype=x.dtype)
-        phases = torch.as_tensor(phases, device=x.device, dtype=x.dtype)
+        freqs2, phases = self.device_tables(x.device, x.dtype)
         embed = torch.sin(x[..., None, :] * freqs2[:, None] + phases[:, None])
         embed = embed.reshape(*x.shape[:-1], 2 * self.num_freqs * self.d_in)
         if self.include_input:
@@ -54,3 +61,11 @@ class PositionalEncoding:
             freq_factor=conf.get_float("freq_factor", math.pi),
             include_input=conf.get_bool("include_input", True),
         )
+
+
+@functools.lru_cache(maxsize=64)
+def _device_tables(code: PositionalEncoding, device: torch.device, dtype: torch.dtype):
+    # made outside inference mode, so that a training step can save them
+    # for its backward
+    with torch.inference_mode(False):
+        return tuple(torch.as_tensor(t, device=device, dtype=dtype) for t in code.tables())

@@ -22,6 +22,7 @@ from ..ops.gather import gather_bilerp, gather_bilerp_plain
 from ..ops.gather_rows import GatherRowsLerp
 from ..ops.grid_sample import _compute_source_index, bilinear_corners, bilinear_pair_bases, grid_sample
 from ..ops.resize import resize_area, resize_bilinear
+from ..utils.geometry import device_vector
 from .resnet import ResNetFeatures, ResNetTrunk
 
 
@@ -29,11 +30,9 @@ def latent_scaling(latent_h: int, latent_w: int, device=None) -> torch.Tensor:
     """Pixel->grid scaling constants, (2,) [sx, sy]: ``s = size/(size-1) * 2``
     per axis, the align_corners=True convention relating original-image
     pixel coordinates to the latent's [-1, 1] grid. Filled on ``device``
-    (``torch.tensor`` of a list would copy from the host and stall the
-    stream once per lookup)."""
-    scale = torch.full((2,), latent_w / (latent_w - 1) * 2.0, dtype=torch.float32, device=device)
-    scale[1] = latent_h / (latent_h - 1) * 2.0
-    return scale
+    (``torch.tensor`` of a list, or an element set from a Python number,
+    would copy from the host and wait for the device once per lookup)."""
+    return device_vector((latent_w / (latent_w - 1) * 2.0, latent_h / (latent_h - 1) * 2.0), device)
 
 
 def index_latent(

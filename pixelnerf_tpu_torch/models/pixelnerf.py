@@ -35,7 +35,7 @@ import torch
 import torch.nn as nn
 
 from ..ops.grid_sample import _compute_source_index, bilinear_pair_bases, build_quad_features, grid_sample_quad
-from ..utils.geometry import invert_pose, repeat_interleave
+from ..utils.geometry import device_vector, invert_pose, on_device, repeat_interleave
 from ..utils.profiling import span
 from .code import PositionalEncoding
 from .encoder import ImageEncoder, SpatialEncoder, index_latent, latent_scaling
@@ -69,8 +69,9 @@ def _normalize_intrinsic(v, batch: int, name: str, num_views: int = 1, device=No
 
     A length-2 vector at SB == 1 is an (fx, fy) pair; any other 1-D input is
     per-entry scalars f_i -> (f_i, f_i). Pass shape (SB, 2) to be explicit.
+    Host values are written on ``device``, not copied (``on_device``).
     """
-    v = torch.as_tensor(v, dtype=torch.float32, device=device)
+    v = on_device(v, device)
     if v.dim() == 0:
         v = v.expand(batch, 2)
     elif v.dim() == 1 and batch == 1 and v.shape[0] == 2:
@@ -171,9 +172,9 @@ class PixelNeRFNet(nn.Module):
             if self.use_global_encoder:
                 global_latent = self.global_encoder(images_flat, train)
             w2c = invert_pose(poses.reshape(SB * NS, 4, 4).float())
-            image_shape = torch.tensor([W, H], dtype=torch.float32, device=dev)
+            image_shape = device_vector((W, H), dev)
             focal = _normalize_intrinsic(focal, SB, "focal", NS, dev)
-            focal = focal * torch.tensor([1.0, -1.0], device=dev)   # image y is down
+            focal = focal * device_vector((1.0, -1.0), dev)   # image y is down
             if c is None:
                 c = (image_shape * 0.5).expand(SB, 2)
             else:

@@ -45,10 +45,19 @@ def _area_matrix(out_size: int, in_size: int) -> np.ndarray:
     return m
 
 
-def _apply_separable(x: torch.Tensor, mh: np.ndarray, mw: np.ndarray) -> torch.Tensor:
+@functools.lru_cache(maxsize=128)
+def _device_matrix(make, out_size: int, in_size: int, *args, device: torch.device) -> torch.Tensor:
+    """``make(out_size, in_size, *args)`` as a tensor on ``device``, made
+    once and kept: a copy from the host's pageable memory waits for the
+    device's queue to drain, and the encoder resizes three maps an encode.
+    Made outside inference mode, so that a training step can save it for
+    its backward."""
+    with torch.inference_mode(False):
+        return torch.as_tensor(make(out_size, in_size, *args), device=device)
+
+
+def _apply_separable(x: torch.Tensor, mh: torch.Tensor, mw: torch.Tensor) -> torch.Tensor:
     """x (N, H, W, C) -> (N, H', W', C) via two contractions, in float32."""
-    mh = torch.as_tensor(mh, device=x.device)
-    mw = torch.as_tensor(mw, device=x.device)
     x = torch.einsum("oh,nhwc->nowc", mh, x)
     return torch.einsum("pw,nowc->nopc", mw, x)
 
@@ -61,7 +70,8 @@ def resize_bilinear(
     if (h, w) == (out_h, out_w):
         return x
     return _apply_separable(
-        x, _bilinear_matrix(out_h, h, align_corners), _bilinear_matrix(out_w, w, align_corners)
+        x, _device_matrix(_bilinear_matrix, out_h, h, align_corners, device=x.device),
+        _device_matrix(_bilinear_matrix, out_w, w, align_corners, device=x.device),
     )
 
 
@@ -71,4 +81,5 @@ def resize_area(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
     _, h, w, _ = x.shape
     if (h, w) == (out_h, out_w):
         return x
-    return _apply_separable(x, _area_matrix(out_h, h), _area_matrix(out_w, w))
+    return _apply_separable(x, _device_matrix(_area_matrix, out_h, h, device=x.device),
+                            _device_matrix(_area_matrix, out_w, w, device=x.device))

@@ -20,28 +20,58 @@ import torch
 from .profiling import span
 
 
-def _as_fxfy(f, device) -> torch.Tensor:
-    """Normalize focal to a (2,) [fx, fy] tensor (scalar / (2,) accepted)."""
-    f = torch.as_tensor(f, dtype=torch.float32, device=device).reshape(-1)
-    if f.numel() == 1:
-        f = f.repeat(2)
-    return f
+def device_vector(values, device) -> torch.Tensor:
+    """A float32 vector of Python numbers on ``device``, each written by a
+    fill whose value rides with the launch. ``torch.tensor`` of host numbers
+    copies from pageable memory instead, and on a CUDA device that copy
+    waits until the device's queue has drained."""
+    out = torch.empty(len(values), dtype=torch.float32, device=device)
+    for i, v in enumerate(values):
+        out[i : i + 1].fill_(v)
+    return out
+
+
+def on_device(v, device=None) -> torch.Tensor:
+    """An intrinsic (focal, principal point: a number, a sequence, a numpy
+    array or a tensor) as a float32 tensor on ``device``, with no host wait:
+    a tensor on an accelerator as it is (moved to ``device`` if another);
+    host values through :func:`device_vector`, in their own shape. With
+    ``device`` None, a tensor stays where it is and host values go to the
+    CPU."""
+    if isinstance(v, torch.Tensor) and v.device.type != "cpu":
+        return v.to(device=v.device if device is None else device, dtype=torch.float32)
+    if isinstance(v, torch.Tensor):
+        host = v.detach().to(torch.float32).numpy()
+    else:
+        host = np.asarray(v, dtype=np.float32)
+    return device_vector(host.reshape(-1).tolist(), "cpu" if device is None else device).reshape(host.shape)
+
+
+def _xy(v, device):
+    """(x, y) of a scalar or (2,) intrinsic: 0-dim float32 tensors on
+    ``device``."""
+    v = on_device(v, device).reshape(-1)
+    if v.numel() not in (1, 2):
+        raise ValueError(f"expected a scalar or an (x, y) pair, got {v.numel()} values")
+    return v[0], v[-1]
 
 
 def unproj_map(width: int, height: int, f, c=None, device="cuda") -> torch.Tensor:
     """Per-pixel unit camera-ray directions, (H, W, 3).
 
     Pixel (x, y) maps to the unit vector of ``((x - cx)/fx, -(y - cy)/fy, -1)``.
+    ``f`` and ``c`` (default: the image's centre) are scalars or (x, y)
+    pairs: numbers, host arrays or tensors, none of them copied from the
+    host (:func:`on_device`). Each is a tensor when it meets the pixel
+    grid, so the products are the same whatever form it came in (a CUDA
+    division by a Python number multiplies by its reciprocal instead).
     """
-    if c is None:
-        c = torch.tensor([width * 0.5, height * 0.5], dtype=torch.float32, device=device)
-    else:
-        c = torch.as_tensor(c, dtype=torch.float32, device=device).reshape(2)
-    f = _as_fxfy(f, device)
-    ys = torch.arange(height, dtype=torch.float32, device=device)[:, None] - c[1]
-    xs = torch.arange(width, dtype=torch.float32, device=device)[None, :] - c[0]
-    X = (xs / f[0]).expand(height, width)
-    Y = (ys / f[1]).expand(height, width)
+    fx, fy = _xy(f, device)
+    cx, cy = _xy((width * 0.5, height * 0.5) if c is None else c, device)
+    ys = torch.arange(height, dtype=torch.float32, device=device)[:, None] - cy
+    xs = torch.arange(width, dtype=torch.float32, device=device)[None, :] - cx
+    X = (xs / fx).expand(height, width)
+    Y = (ys / fy).expand(height, width)
     Z = torch.ones((height, width), dtype=torch.float32, device=device)
     dirs = torch.stack([X, -Y, -Z], dim=-1)
     return dirs / torch.linalg.norm(dirs, dim=-1, keepdim=True)
@@ -50,7 +80,9 @@ def unproj_map(width: int, height: int, f, c=None, device="cuda") -> torch.Tenso
 def gen_rays(
     poses, width: int, height: int, focal, z_near, z_far, c=None, device="cuda"
 ) -> torch.Tensor:
-    """Camera rays for each camera-to-world pose (B, 4, 4): (B, H, W, 8)."""
+    """Camera rays for each camera-to-world pose (B, 4, 4): (B, H, W, 8).
+    ``focal`` and ``c`` as :func:`unproj_map` takes them; ``z_near`` and
+    ``z_far`` are numbers."""
     with span("rays", rays=len(poses) * height * width):
         poses = torch.as_tensor(poses, dtype=torch.float32, device=device)
         unproj = unproj_map(width, height, focal, c, device=device)           # (H, W, 3)

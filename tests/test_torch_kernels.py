@@ -6,6 +6,9 @@ This file imports torch and the port only, so that it runs on a machine
 with a card and no JAX: ``python -m pytest --noconftest -m cuda
 tests/test_torch_kernels.py``.
 """
+import functools
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -1311,3 +1314,113 @@ def test_fused_field_kernel_equals_b_fed_by_a_at_the_srn_widths_cuda(cuda_device
     z = gather_bilerp(table, base, wg, ww, torch.bfloat16)
     torch.cuda.synchronize()
     torch.testing.assert_close(out, fused_resnetfc_infer(z, x, weights, 5, 3), atol=0, rtol=0)
+
+
+WAITS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize", "cudaMemcpy")
+
+
+@functools.lru_cache(maxsize=1)
+def _srn_view_setup(device: str):
+    """The ``srn.render`` cell's request at the published widths, weights
+    from a seed: ResNet34 latent 512, ResnetFC 512 x 5, bf16, 64 + 16 + 16
+    samples on white, one 128x128 source view encoded with device-tensor
+    intrinsics; ``FullRenderer(fast=True)``, staged, 50,000-ray chunks."""
+    from pixelnerf_tpu_torch.config import load_config
+    from pixelnerf_tpu_torch.eval import FullRenderer
+    from pixelnerf_tpu_torch.models import make_model
+    from pixelnerf_tpu_torch.render import RenderConfig
+    from pixelnerf_tpu_torch.utils import geometry
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    conf = load_config(os.path.join(repo, "conf", "exp", "srn.conf"))
+    conf["model"]["dtype"] = "bfloat16"
+    net = make_model(conf["model"], device=device, generator=torch.Generator().manual_seed(0))
+    g = torch.Generator().manual_seed(6)
+    with torch.no_grad():
+        for mlp in (net.mlp_coarse, net.mlp_fine):
+            mlp.lin_out.bias[3] += 3.0        # density, so that the view is no blank white
+            for blk in mlp.blocks:
+                blk.fc_1.weight.copy_(torch.randn(blk.fc_1.weight.shape, generator=g).to(device) * 0.02)
+    cfg = RenderConfig.from_conf(conf["renderer"])
+    assert (cfg.n_coarse, cfg.n_fine, cfg.n_fine_depth, cfg.white_bkgd) == (64, 32, 16, True)
+    images = (torch.rand((1, 1, 128, 128, 3), generator=g) * 2 - 1).to(device)
+    poses = torch.from_numpy(geometry.look_at((0.0, 0.4, 1.3), (0.0, 0.0, 0.0)))[None, None].to(device)
+    target = torch.from_numpy(geometry.look_at((0.9, 0.3, 1.0), (0.0, 0.0, 0.0)))[None].to(device)
+    return net, FullRenderer(net, cfg, ray_chunk=50000, fast=True), images, poses, target
+
+
+def _srn_view(renderer, enc, target, seed, focal=(131.25, 131.25), c=(64.0, 64.0)):
+    from pixelnerf_tpu_torch.utils import geometry
+
+    gen = torch.Generator(device=target.device).manual_seed(seed)
+    rays = geometry.gen_rays(target, 128, 128, focal, 0.8, 1.8, c=c, device=target.device)[0]
+    return renderer.render_image(enc, rays, generator=gen)
+
+
+@pytest.mark.cuda
+def test_srn_view_makes_no_host_wait_and_no_new_segment_cuda(cuda_device):
+    """After one warm-up (an encode and a view), the same again
+    under ``torch.profiler``: an ``srn``-shaped encode and view (16,384
+    rays, one chunk) with no wait of the host on the device and no
+    ``cudaMalloc`` from its start to its end, and no segment more in the
+    caching allocator."""
+    net, renderer, images, poses, target = _srn_view_setup(str(cuda_device))
+    focal_t = torch.tensor([[131.25, 131.25]], device=cuda_device)
+    c_t = torch.tensor([[64.0, 64.0]], device=cuda_device)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.inference_mode():
+        enc = net.encode(images, poses, focal_t, c_t)
+        rgb, depth = _srn_view(renderer, enc, target, 1)
+        torch.cuda.synchronize()
+        del enc, rgb, depth
+        before = torch.cuda.memory_stats(cuda_device)
+        with torch.profiler.profile(activities=acts) as prof:
+            with torch.profiler.record_function("srn_view_window"):
+                enc = net.encode(images, poses, focal_t, c_t)
+                rgb, depth = _srn_view(renderer, enc, target, 2)
+            torch.cuda.synchronize()
+        after = torch.cuda.memory_stats(cuda_device)
+    assert rgb.shape == (128, 128, 3) and torch.isfinite(rgb).all() and torch.isfinite(depth).all()
+    events = prof.events()
+    cpu = torch.autograd.DeviceType.CPU
+    (window,) = [e for e in events if e.name == "srn_view_window" and e.device_type == cpu]
+    inside = [e.name for e in events if window.time_range.start <= e.time_range.start <= window.time_range.end]
+    assert inside.count("cudaLaunchKernel") > 50
+    assert [n for n in inside if n in WAITS or n == "cudaMalloc"] == []
+    for key in ("segment.all.allocated", "num_alloc_retries"):
+        assert after[key] == before[key], key
+
+
+@pytest.mark.cuda
+def test_srn_view_is_bit_equal_to_the_request_built_the_old_way_cuda(cuda_device, monkeypatch):
+    """The same view with the code's tables turned into tensors in every
+    call and every vector of host numbers copied (``old_way``), the
+    intrinsics as host tensors: rgb and depth bit for bit. And ``gen_rays``
+    with focal and principal point as numbers, numpy arrays, host tensors
+    and device tensors gives the old way's rays bit for bit (a CUDA division
+    by a Python number would not)."""
+    from pixelnerf_tpu_torch.utils import geometry
+    from test_torch_request_waits import FORMS, old_intrinsics, old_way
+
+    net, renderer, images, poses, target = _srn_view_setup(str(cuda_device))
+    forms = dict(FORMS, device=tuple(torch.as_tensor(v, device=cuda_device) for v in FORMS["host_tensors"]))
+    with torch.inference_mode():
+        enc = net.encode(images, poses, torch.tensor([[131.25, 131.25]], device=cuda_device),
+                         torch.tensor([[64.0, 64.0]], device=cuda_device))
+        rgb, depth = _srn_view(renderer, enc, target, 3)
+        rays = {k: geometry.gen_rays(target, 20, 16, f, 0.8, 1.8, c=c, device=cuda_device)
+                for k, (f, c) in forms.items()}
+        with monkeypatch.context() as m:
+            old_way(m)
+            enc_o = net.encode(images, poses, torch.tensor([[131.25, 131.25]]), torch.tensor([[64.0, 64.0]]))
+            rgb_o, depth_o = _srn_view(renderer, enc_o, target, 3, torch.tensor([131.25, 131.25]),
+                                       torch.tensor([64.0, 64.0]))
+            want = {}
+            for k in forms:
+                f, c = old_intrinsics("host_tensors" if k == "device" else k, 20, 16)
+                want[k] = geometry.gen_rays(target, 20, 16, f, 0.8, 1.8, c=c, device=cuda_device)
+    torch.cuda.synchronize()
+    assert torch.isfinite(rgb).all() and rgb.std() > 0
+    assert torch.equal(rgb, rgb_o) and torch.equal(depth, depth_o)
+    for k in forms:
+        assert torch.equal(rays[k], want[k]), k
