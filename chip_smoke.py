@@ -7,7 +7,8 @@ blocks, 64 coarse + 32 fine samples), weights random from a seed:
 
 - inference, in bf16: ``make_model`` -> ``encode`` of one 128^2 source
   view -> ``FullRenderer(fast=True).render_image`` of three 128x128 novel
-  views (three requests), staged: kernel A's gather, kernel B's MLP;
+  views (three requests), staged: the feature stage in one launch of kernel
+  A's field instance, kernel B's MLP;
 - inference at three source views, in bf16: the DTU model
   (``conf/exp/dtu.conf``) -> ``encode`` of three 400x300 views ->
   ``FullRenderer(fast=True).render_image`` of one view in 40,000-ray
@@ -55,21 +56,28 @@ Phases, one JSON line each:
    PyTorch versions at the inference path's shapes, with times, the bound
    and a library call's time; A also on the baked path's 1536-wide rows,
    at 64 and 256 channels and on one request's ray-major coarse points
+3b. kernel_a_field: A's field instance (the feature stage in one launch)
+   through ``scripts/bench_gather_field_torch.py`` at one ``dtu.render``
+   coarse chunk and one ``srn.render`` view's samples, bit-equal to its
+   plain mirror, timed beside its bound, the mirror and the separate stage
 4b. kernel_b_views: kernel B's multi-view mode at one fine chunk of a DTU
    view (40,000 rays x 96 samples x 3 source views) through
    ``ResnetFC(fast=True)``, against its plain version and timed beside it
    and the dense bf16 chain (both by slices of the points: at this shape
    they do not fit the card); its bound at the function's own widths
    (``mlp_views_flops``) and at the padded ones (``mlp_flops``)
-5. main_path: the inference path, with A's and B's launch counts read
-   around it
+5. main_path: the inference path, with A's field instance's and B's
+   launch counts read around it, and ``field.features``' spans
+   (``inputs_fused``) around one more request
 6. kernel_vs_plain_e2e: a 2048-ray crop rendered through the kernels and
-   through their plain versions, on the same noise
+   through their plain versions, on the same noise; field_vs_separate_e2e:
+   the crop with the feature stage composed around kernel A instead
 6b. dtu_main_path: the DTU request at three source views in bf16
    (``conf/exp/dtu.conf``, 400x300, 40,000-ray chunks) through
    ``FullRenderer(fast=True)``: kernel B's multi-view mode, with the launch
-   counts and ``field.mlp``'s spans read around one view, its ms and peak
-   memory, and a crop against the plain versions on the same noise
+   counts and ``field.mlp``'s and ``field.features``' spans read around one
+   view, its ms and peak memory, and a crop against the plain versions and
+   against the separate feature stage on the same noise
 7. kernel_c and 8. kernel_c_bwd: kernel C (weighted 4-row gather) and its
    backward against their plain versions at the training path's shapes
    (the backward also at the fine gather's and at a skewed input, and
@@ -202,6 +210,7 @@ non-zero; without a GPU it exits non-zero before printing anything.
 
 Usage: ``python3 chip_smoke.py`` from the root of the repository.
 """
+import contextlib
 import copy
 import ctypes
 import json
@@ -394,6 +403,35 @@ def check_kernel_a(dev, g):
     if bad:
         raise AssertionError(f"kernel A disagrees with its plain version: {bad} > {tol}")
     emit({"phase": "kernel_a", **res})
+    return res
+
+
+def check_kernel_a_field(dev):
+    """Kernel A's field instance (``gather_bilerp_field``: the feature stage
+    in one launch) through ``scripts/bench_gather_field_torch.py`` at one
+    ``dtu.render`` coarse chunk (7,680,000 rows, bf16) and one ``srn.render``
+    view's samples (1,572,864 rows, bf16 and float32): bit-equal to its
+    plain mirror, timed beside its bound, the mirror and the separate stage
+    it replaces (``library_ms``: ``_point_inputs``, ``index_latent`` through
+    kernel A, the casts)."""
+    sys.path.insert(0, os.path.join(REPO, "scripts"))
+    import bench_gather_field_torch as bench_f
+
+    readings = [bench_f.measure(shape, pair, dev) for shape, pair in (("dtu", "bf16"), ("srn", "bf16"), ("srn", "f32"))]
+    unequal = [(r["shape"], r["pair"]) for r in readings if not r["bit_equal_to_plain"]]
+    dtu = readings[0]
+    res = {
+        "name": "gather_bilerp_field", "route": "cuda", "source": "pixelnerf_tpu_torch/csrc/gather.cu",
+        "replaces": "none: the feature stage around gather_packed_lerp, pixelnerf_tpu/models/pixelnerf.py (XLA's)",
+        "max_abs_err": float("inf") if unequal else 0.0, "tolerance": 0.0,
+        "ms": dtu["ms"], "plain_ms": dtu["plain_ms"], "bound_ms": dtu["bound_ms"], "bound_by": "bytes",
+        "bound_share": dtu["bound_share"], "library_ms": dtu["separate_ms"],
+        "library_call": "the separate stage: _point_inputs, index_latent through kernel A, the casts",
+        "readings": readings,
+    }
+    emit({"phase": "kernel_a_field", **res})
+    if unequal:
+        raise AssertionError(f"kernel A's field instance differs from its plain mirror: {unequal}")
     return res
 
 
@@ -1185,10 +1223,11 @@ def run_train_app(dev):
     evals = [l for l in lines if l.startswith("*** eval:")]
     steps = epochs * batches
     # unchunked train steps: 2 gathers and 2 backwards each; at batch 1 of
-    # each epoch the trainer's eval renders through kernel A (2 launches)
-    # and so does its visual, one full view in chunks of VIS_RAY_CHUNK rays
-    expect = {"gather_rows_lerp": 2 * steps, "gather_rows_lerp_bwd": 2 * steps,
-              "gather_bilerp": (2 + 2 * vis_chunks()) * epochs, "fused_resnetfc_infer": 0,
+    # each epoch the trainer's eval renders through kernel A's field
+    # instance (2 launches) and so does its visual, one full view in chunks
+    # of VIS_RAY_CHUNK rays
+    expect = {"gather_rows_lerp": 2 * steps, "gather_rows_lerp_bwd": 2 * steps, "gather_bilerp": 0,
+              "gather_bilerp_field": (2 + 2 * vis_chunks()) * epochs, "fused_resnetfc_infer": 0,
               "fused_gather_resnetfc_infer": 0}
     res = {"phase": "train_app", "argv": argv[2:], "seconds": seconds, "steps": trainer.step,
            "printed_losses": losses, "evals": len(evals), "checkpoint_step": saved and saved["step"],
@@ -1452,8 +1491,8 @@ def run_srn_workflow(dev, tmp):
     argv = common + ["-B", "2", "--epochs", "1", "--epoch_batches", "2", "--workers", "1",
                      "--logs_path", os.path.join(tmp, "logs"), "--visual_path", os.path.join(tmp, "vis")]
     trainer, lines, seconds["train"], launches = run_app(train_app, argv)
-    expect = {"gather_rows_lerp": 2 * 2, "gather_rows_lerp_bwd": 2 * 2,
-              "gather_bilerp": 2 + 2 * vis_chunks(), "fused_resnetfc_infer": 0,
+    expect = {"gather_rows_lerp": 2 * 2, "gather_rows_lerp_bwd": 2 * 2, "gather_bilerp": 0,
+              "gather_bilerp_field": 2 + 2 * vis_chunks(), "fused_resnetfc_infer": 0,
               "fused_gather_resnetfc_infer": 0}
     losses = [float(l.split(" t:")[1].split()[0]) for l in lines if l.startswith("E")]
     visuals = os.listdir(os.path.join(tmp, "vis", "example"))
@@ -1475,12 +1514,14 @@ def run_srn_workflow(dev, tmp):
     _, lines, seconds["eval"], launches = run_app(eval_app, argv)
     chunk = int(parse_args(eval_app.extra_args, argv=argv)[0].ray_batch_size)
     per_object = 2 * -(-len(SRN_TARGETS) * IMAGE * IMAGE // chunk)
-    expect = {"gather_rows_lerp": 0, "gather_rows_lerp_bwd": 0, "gather_bilerp": per_object * SRN_OBJECTS,
-              "fused_resnetfc_infer": 0, "fused_gather_resnetfc_infer": 0}
+    expect = {"gather_rows_lerp": 0, "gather_rows_lerp_bwd": 0, "gather_bilerp": 0,
+              "gather_bilerp_field": per_object * SRN_OBJECTS, "fused_resnetfc_infer": 0,
+              "fused_gather_resnetfc_infer": 0}
     finish = open(os.path.join(out_dir, "finish.txt")).read().splitlines()
     res["eval"] = {"ray_chunk": chunk, "printed": [l for l in lines if "psnr" in l], "finish": finish,
                    "launches": launches, "expected_launches": expect,
-                   "gather_bilerp_launches_per_view": launches["gather_bilerp"] / (len(SRN_TARGETS) * SRN_OBJECTS)}
+                   "gather_bilerp_field_launches_per_view":
+                       launches["gather_bilerp_field"] / (len(SRN_TARGETS) * SRN_OBJECTS)}
     if launches != expect:
         raise AssertionError(f"srn_workflow eval: launch counts {launches} != expected {expect}")
     if len(finish) != SRN_OBJECTS or not any(l.startswith("FINAL psnr") for l in lines):
@@ -1515,8 +1556,8 @@ def run_srn_workflow(dev, tmp):
     argv = common + ["-P", str(SRN_SOURCE), "-B", str(SRN_OBJECTS)]
     approx, lines, seconds["eval_approx"], launches = run_app(eval_approx, argv)
     chunk = int(parse_args(eval_approx.extra_args, argv=argv)[0].ray_batch_size)
-    expect = {"gather_rows_lerp": 0, "gather_rows_lerp_bwd": 0,
-              "gather_bilerp": 2 * -(-IMAGE * IMAGE // chunk), "fused_resnetfc_infer": 0,
+    expect = {"gather_rows_lerp": 0, "gather_rows_lerp_bwd": 0, "gather_bilerp": 0,
+              "gather_bilerp_field": 2 * -(-IMAGE * IMAGE // chunk), "fused_resnetfc_infer": 0,
               "fused_gather_resnetfc_infer": 0}
     res["eval_approx"] = {"psnr_ssim": approx, "launches": launches, "expected_launches": expect}
     if launches != expect:
@@ -1535,9 +1576,9 @@ def run_srn_workflow(dev, tmp):
     _, lines, seconds["eval_scale2"], launches = run_app(eval_app, argv)
     chunk = int(parse_args(eval_app.extra_args, argv=argv)[0].ray_batch_size)
     side = 2 * IMAGE
-    expect = {"gather_rows_lerp": 0, "gather_rows_lerp_bwd": 0,
-              "gather_bilerp": 2 * -(-len(SRN_SCALE_TARGETS) * side * side // chunk), "fused_resnetfc_infer": 0,
-              "fused_gather_resnetfc_infer": 0}
+    expect = {"gather_rows_lerp": 0, "gather_rows_lerp_bwd": 0, "gather_bilerp": 0,
+              "gather_bilerp_field": 2 * -(-len(SRN_SCALE_TARGETS) * side * side // chunk),
+              "fused_resnetfc_infer": 0, "fused_gather_resnetfc_infer": 0}
     name, psnr, ssim, n = open(os.path.join(scale_dir, "finish.txt")).read().split()
     gt_src = test_set[0]["images"] * 0.5 + 0.5
     bounds, gt_equal = [], []
@@ -1591,7 +1632,7 @@ def run_srn_workflow(dev, tmp):
     res["eval_ms_per_view"] = seconds["eval"] * 1e3 / views
     res["render_ms_per_view"] = seconds["render_kernels"] * 1e3 / len(SRN_TARGETS)
     res["launches"] = {k: sum(res[p]["launches"][k] for p in ("train", "eval", "eval_approx", "eval_scale2"))
-                       for k in ("gather_bilerp", "gather_rows_lerp", "gather_rows_lerp_bwd")}
+                       for k in ("gather_bilerp", "gather_bilerp_field", "gather_rows_lerp", "gather_rows_lerp_bwd")}
     # rgb = sum(w c) + (1 - sum(w)) over the fine pass's K samples is at
     # most 1 in exact arithmetic; float32 rounds each K-term sum by at most
     # (K - 1) 2^-24 and each of the two adds by 2^-24, so the render may
@@ -1678,8 +1719,9 @@ def run_apps_workflow(dev, tmp, train_features):
     """The apps that consume a trained model, on the card, on
     ``srn_workflow``'s fixture, checkpoint and ``apps.eval`` output in
     ``tmp`` (the SRN model at full width, f32): ``apps.gen_video`` (a
-    spherical orbit and a spline, kernel A; one frame also through A's
-    plain version, bit for bit; the GIF's structure and write time),
+    spherical orbit and a spline, kernel A's field instance; one frame also
+    through its plain version, bit for bit, and through the separate
+    feature stage, within 1e-4; the GIF's structure and write time),
     ``apps.eval_real`` (a 128x128 and a 256x256 input, the latter area
     resized), ``apps.calc_metrics --require_lpips`` over the eval output
     (LPIPS on the card held to the same module on the CPU, with TF32
@@ -1709,10 +1751,10 @@ def run_apps_workflow(dev, tmp, train_features):
     data = os.path.join(tmp, "data", "cars")
     ck = os.path.join(tmp, "ck")
     common = ["-c", conf, "--device", str(dev), "--checkpoints_path", ck]
-    none = {"gather_rows_lerp": 0, "gather_rows_lerp_bwd": 0, "gather_bilerp": 0, "fused_resnetfc_infer": 0,
-            "fused_gather_resnetfc_infer": 0}
+    none = {"gather_rows_lerp": 0, "gather_rows_lerp_bwd": 0, "gather_bilerp": 0, "gather_bilerp_field": 0,
+            "fused_resnetfc_infer": 0, "fused_gather_resnetfc_infer": 0}
     res = {"phase": "apps_workflow", "model": "conf/exp/srn.conf, float32", "image": IMAGE}
-    launches = {"gather_bilerp": 0, "gather_rows_lerp": 0, "gather_rows_lerp_bwd": 0}
+    launches = {"gather_bilerp": 0, "gather_bilerp_field": 0, "gather_rows_lerp": 0, "gather_rows_lerp_bwd": 0}
 
     # 1. gen_video: 8 frames of a spherical orbit, 4 of a spline through
     # the object's poses, from source view 64 (one 16,384-ray chunk a frame)
@@ -1723,7 +1765,7 @@ def run_apps_workflow(dev, tmp, train_features):
                          "-O", out]
         frames, lines, seconds, got = run_app(gen_video, argv)
         chunk = int(parse_args(gen_video.extra_args, argv=argv)[0].ray_batch_size)
-        expect = {**none, "gather_bilerp": 2 * n * -(-IMAGE * IMAGE // chunk)}
+        expect = {**none, "gather_bilerp_field": 2 * n * -(-IMAGE * IMAGE // chunk)}
         files = sorted(os.listdir(out))
         path = os.path.join(out, "example_obj0.gif")
         images = gif_image_count(path)
@@ -1738,7 +1780,7 @@ def run_apps_workflow(dev, tmp, train_features):
             raise AssertionError(f"apps_workflow gen_video {traj}: {video[traj]}")
         if not all(f.shape == (IMAGE, IMAGE, 3) and f.dtype == np.uint8 and f.std() > 0 for f in frames):
             raise AssertionError(f"apps_workflow gen_video {traj}: degenerate frames")
-        launches["gather_bilerp"] += got["gather_bilerp"]
+        launches["gather_bilerp_field"] += got["gather_bilerp_field"]
         if traj == "spherical":
             t0 = time.perf_counter()
             gif.mimwrite(os.path.join(tmp, "again.gif"), frames, duration=1000 / 30)
@@ -1777,6 +1819,21 @@ def run_apps_workflow(dev, tmp, train_features):
                                     "frame_ms_kernels": frame_ms[True], "frame_ms_plain": frame_ms[False]}
     if err != 0.0 or not torch.isfinite(frame[True]).all():
         raise AssertionError(f"apps_workflow: the gen_video frame through kernel A differs from plain: {err}")
+    # 2b. the same frame with the feature stage composed around kernel A
+    # (the path before the field instance), float32: the x and latent rows
+    # move by the camera rotation's rounding alone (~1e-5 of their values
+    # at most, tests/test_torch_kernels.py), and the float32 field keeps
+    # that size
+    renderer = FullRenderer(net, cfg, ray_chunk=args.ray_batch_size)
+    rgb_f, depth_f = renderer.render_image(enc, rays, torch.Generator(device=dev).manual_seed(9))
+    with separate_feature_stage():
+        rgb_s, depth_s = renderer.render_image(enc, rays, torch.Generator(device=dev).manual_seed(9))
+    err_s = {"rgb": (rgb_f - rgb_s).abs().max().item(), "depth": (depth_f - depth_s).abs().max().item()}
+    tol_s = {"rgb": 1e-4, "depth": 1e-4 * (test_set.z_far - test_set.z_near)}
+    res["frame_field_vs_separate"] = {"max_abs_err": err_s, "tolerance": tol_s}
+    if any(err_s[k] > tol_s[k] for k in tol_s):
+        raise AssertionError(f"apps_workflow: the f32 frame through the field instance differs from the "
+                             f"separate stage's: {err_s}")
 
     # 3. eval_real: a 128x128 input and a 256x256 one (the factor-2 area resize)
     real = os.path.join(tmp, "real")
@@ -1790,7 +1847,7 @@ def run_apps_workflow(dev, tmp, train_features):
     argv = common + ["--input", real, "--size", str(IMAGE), "--num_views", str(REAL_VIEWS), "-O", out]
     _, lines, seconds, got = run_app(eval_real, argv)
     chunk = int(parse_args(eval_real.extra_args, argv=argv)[0].ray_batch_size)
-    expect = {**none, "gather_bilerp": 2 * 2 * REAL_VIEWS * -(-IMAGE * IMAGE // chunk)}
+    expect = {**none, "gather_bilerp_field": 2 * 2 * REAL_VIEWS * -(-IMAGE * IMAGE // chunk)}
     files = sorted(os.listdir(out))
     counts = {b: (len(os.listdir(os.path.join(out, f"{b}_frames"))), gif_image_count(os.path.join(out, f"{b}.gif")))
               for b in ("a_normalize", "b_normalize")}
@@ -1803,7 +1860,7 @@ def run_apps_workflow(dev, tmp, train_features):
             or any(c != (REAL_VIEWS, REAL_VIEWS) for c in counts.values())
             or not all(f.shape == (IMAGE, IMAGE, 3) and f.std() > 0 for f in frames)):
         raise AssertionError(f"apps_workflow eval_real: {res['eval_real']}")
-    launches["gather_bilerp"] += got["gather_bilerp"]
+    launches["gather_bilerp_field"] += got["gather_bilerp_field"]
 
     # 4. calc_metrics with LPIPS over srn_workflow's eval output, TF32
     # allowed as a process allows it by default; then the same LPIPS module
@@ -1983,8 +2040,8 @@ def run_tools(dev):
         if launches != want:
             wrong.append(f"{step}: launch counts {launches} != expected {want}")
 
-    none = {"gather_bilerp": 0, "gather_rows_lerp": 0, "gather_rows_lerp_bwd": 0, "fused_resnetfc_infer": 0,
-            "fused_gather_resnetfc_infer": 0}
+    none = {"gather_bilerp": 0, "gather_bilerp_field": 0, "gather_rows_lerp": 0, "gather_rows_lerp_bwd": 0,
+            "fused_resnetfc_infer": 0, "fused_gather_resnetfc_infer": 0}
     with tempfile.TemporaryDirectory() as tmp:
         # 1. the multi-object dataset, read back
         data = os.path.join(tmp, "multi")
@@ -2023,7 +2080,7 @@ def run_tools(dev):
             res["train"]["snapshot_steps"].append(last_snap)
         vis = 2 * -(-TOOLS_IMAGE * TOOLS_IMAGE // VIS_RAY_CHUNK)
         expect("train", launches_sum, {**none, "gather_rows_lerp": 2 * 4, "gather_rows_lerp_bwd": 2 * 4,
-                                       "gather_bilerp": 2 * (2 + vis)})
+                                       "gather_bilerp_field": 2 * (2 + vis)})
         snaps = sorted(f for f in os.listdir(os.path.dirname(live)) if "_step" in f)
         res["train"]["snapshots"] = snaps
         if (res["train"]["steps"] != [2, 4] or snaps != ["train_state_step2.pt", "train_state_step4.pt"]
@@ -2035,7 +2092,7 @@ def run_tools(dev):
         curve, _, seconds["quality_curve"], launches = run_app(
             quality_curve_torch, ["-n", "tools", "--checkpoints_path", ck] + approx)
         res["quality_curve"] = {"curve": curve}
-        expect("quality_curve", launches, {**none, "gather_bilerp": 2 * 3})
+        expect("quality_curve", launches, {**none, "gather_bilerp_field": 2 * 3})
         if [p["step"] for p in curve] != [2, 4, 4] or not all(math.isfinite(p["psnr"]) for p in curve):
             raise AssertionError(f"tools: quality curve {curve}")
 
@@ -2049,7 +2106,7 @@ def run_tools(dev):
             eval_approx, ["-n", "tools", "--checkpoints_path", demo] + approx)
         res["export_demo_checkpoint"] = {"bytes": sizes, "ratio": sizes[1] / sizes[0],
                                          "psnr_ssim": approx_demo, "live_psnr": curve[-1]["psnr"]}
-        expect("export_demo_checkpoint", launches, {**none, "gather_bilerp": 2})
+        expect("export_demo_checkpoint", launches, {**none, "gather_bilerp_field": 2})
         if sizes[1] * 5 > sizes[0] or approx_demo is None or not all(math.isfinite(v) for v in approx_demo) \
                 or not any(l.startswith("Loaded checkpoint at step 4") for l in lines):
             raise AssertionError(f"tools: export {res['export_demo_checkpoint']}")
@@ -2099,7 +2156,7 @@ def run_tools(dev):
                                                    "max_level_diff": int(diff.max())}
     res["seconds"] = seconds
     res["launches"] = {k: sum(res[s]["launches"][k] for s in ("train", "quality_curve", "export_demo_checkpoint"))
-                       for k in ("gather_bilerp", "gather_rows_lerp", "gather_rows_lerp_bwd")}
+                       for k in ("gather_bilerp", "gather_bilerp_field", "gather_rows_lerp", "gather_rows_lerp_bwd")}
     res["card"] = nvidia_smi_line()
     emit(res)
     if wrong:
@@ -2163,7 +2220,7 @@ def run_recon(dev, tmp):
     verts, faces = res["verts"], res["faces"]
     n_grid = -(-RECON_RESO ** 3 // RECON_CHUNK)
     expect = {k: 0 for k in got}
-    expect["gather_bilerp"] = n_grid + -(-len(verts) // RECON_CHUNK)
+    expect["gather_bilerp_field"] = n_grid + -(-len(verts) // RECON_CHUNK)
     rec = {"phase": "recon", "model": "conf/exp/srn.conf, float32", "reso": RECON_RESO, "points": RECON_RESO ** 3,
            "queries": n_grid, "level": level, "vertices": len(verts), "faces": len(faces),
            "ms": res["ms"], "app_seconds": seconds, "obj_bytes": os.path.getsize(res["path"]),
@@ -2288,7 +2345,7 @@ def run_preproc(dev, tmp):
     _, lines, seconds, got = run_app(eval_real, argv)
     chunk = int(parse_args(eval_real.extra_args, argv=argv)[0].ray_batch_size)
     expect = {k: 0 for k in got}
-    expect["gather_bilerp"] = 2 * len(PREPROC_PHOTOS) * REAL_VIEWS * -(-IMAGE * IMAGE // chunk)
+    expect["gather_bilerp_field"] = 2 * len(PREPROC_PHOTOS) * REAL_VIEWS * -(-IMAGE * IMAGE // chunk)
     frames = [png.imread(os.path.join(out, f"{os.path.splitext(n)[0]}_normalize_frames", f"{i:04}.png"))
               for n in PREPROC_PHOTOS for i in range(REAL_VIEWS)]
     rec = {"phase": "preproc_eval_real", "card": smi, "seconds": seconds,
@@ -2310,7 +2367,7 @@ def run_preproc(dev, tmp):
     argv = argv[:at] + ["--input", jpg] + argv[at + 2 : -1] + [out]
     _, lines, seconds, got = run_app(eval_real, argv)
     expect = {k: 0 for k in got}
-    expect["gather_bilerp"] = 2 * REAL_VIEWS * -(-IMAGE * IMAGE // chunk)
+    expect["gather_bilerp_field"] = 2 * REAL_VIEWS * -(-IMAGE * IMAGE // chunk)
     base = os.path.splitext(PREPROC_PHOTOS[2])[0]
     frames = [png.imread(os.path.join(out, f"{base}_frames", f"{i:04}.png")) for i in range(REAL_VIEWS)]
     emit({"phase": "eval_real_jpeg", "card": smi, "input": PREPROC_PHOTOS[2], "seconds": seconds,
@@ -2320,7 +2377,7 @@ def run_preproc(dev, tmp):
         raise AssertionError(f"eval_real on a JPEG: launch counts {got} != expected {expect}")
     if not all(f.shape == (IMAGE, IMAGE, 3) and f.std() > 0 for f in frames):
         raise AssertionError("eval_real on a JPEG: degenerate frames")
-    launches["gather_bilerp"] += got["gather_bilerp"]
+    launches["gather_bilerp_field"] += got["gather_bilerp_field"]
     return {"runs": runs, "launches": launches}
 
 
@@ -2383,7 +2440,7 @@ def run_parallel(dev, net, cfg, enc, pose):
             rec["render"] = {"rays": rays.shape[1], "ms": ms, "max_abs_err": errs, "tolerance": 0.0,
                              "launches": launches}
             expect = {k: 0 for k in counters}
-            expect.update({"gather_bilerp": 2 * 2, "fused_resnetfc_infer": 2 * 3})
+            expect.update({"gather_bilerp_field": 2 * 2, "fused_resnetfc_infer": 2 * 3})
             if any(v != expect for v in launches.values()):
                 raise AssertionError(f"parallel: render launch counts {launches} != {expect} each")
             if any(errs.values()):
@@ -2706,8 +2763,9 @@ def run_dtu_workflow(dev):
         from pixelnerf_tpu_torch.apps.train import VIS_RAY_CHUNK
 
         vis_chunks = -(-DTU_H * DTU_W // VIS_RAY_CHUNK)
-        expect = {"gather_rows_lerp": 2 * 2, "gather_rows_lerp_bwd": 2 * 2, "gather_bilerp": 2 + 2 * vis_chunks,
-                  "fused_resnetfc_infer": 0, "fused_gather_resnetfc_infer": 0}
+        expect = {"gather_rows_lerp": 2 * 2, "gather_rows_lerp_bwd": 2 * 2, "gather_bilerp": 0,
+                  "gather_bilerp_field": 2 + 2 * vis_chunks, "fused_resnetfc_infer": 0,
+                  "fused_gather_resnetfc_infer": 0}
         losses = [float(l.split(" t:")[1].split()[0]) for l in lines if l.startswith("E")]
         visuals = os.listdir(os.path.join(tmp, "vis", "example"))
         vis = png.imread(os.path.join(tmp, "vis", "example", visuals[0])) if visuals else None
@@ -2729,8 +2787,8 @@ def run_dtu_workflow(dev):
         _, lines, seconds["eval"], launches = run_app(eval_app, argv)
         views = len(DTU_TARGETS) * len(DTU_SPLITS["test"])
         chunks = -(-len(DTU_TARGETS) * DTU_H * DTU_W // DTU_RAY_CHUNK)
-        expect = {"gather_rows_lerp": 0, "gather_rows_lerp_bwd": 0, "gather_bilerp": 2 * chunks,
-                  "fused_resnetfc_infer": 0, "fused_gather_resnetfc_infer": 0}
+        expect = {"gather_rows_lerp": 0, "gather_rows_lerp_bwd": 0, "gather_bilerp": 0,
+                  "gather_bilerp_field": 2 * chunks, "fused_resnetfc_infer": 0, "fused_gather_resnetfc_infer": 0}
         finish = open(os.path.join(out_dir, "finish.txt")).read().splitlines()
         res["eval"] = {"ray_chunk": DTU_RAY_CHUNK, "finish": finish, "launches": launches, "expected_launches": expect,
                        "printed": [l for l in lines if "psnr" in l]}
@@ -2780,8 +2838,8 @@ def run_dtu_workflow(dev):
     res["eval_ms_per_view"] = seconds["eval"] * 1e3 / views
     res["render_ms_per_view"] = seconds["render_kernels"] * 1e3 / len(DTU_TARGETS)
     res["launches"] = {k: res["train"]["launches"][k] + res["eval"]["launches"][k]
-                       for k in ("gather_bilerp", "gather_rows_lerp", "gather_rows_lerp_bwd")}
-    res["launches_per"] = {"gather_bilerp_per_eval_view": res["eval"]["launches"]["gather_bilerp"] / views,
+                       for k in ("gather_bilerp", "gather_bilerp_field", "gather_rows_lerp", "gather_rows_lerp_bwd")}
+    res["launches_per"] = {"gather_bilerp_field_per_eval_view": res["eval"]["launches"]["gather_bilerp_field"] / views,
                            "gather_rows_lerp_per_train_step": res["train"]["launches"]["gather_rows_lerp"] / 2,
                            "gather_rows_lerp_bwd_per_train_step": res["train"]["launches"]["gather_rows_lerp_bwd"] / 2}
     res["card"] = nvidia_smi_line()
@@ -2861,11 +2919,13 @@ def run_dtu_main_path(dev, g, height=DTU_H, width=DTU_W, chunk=DTU_RENDER_CHUNK,
             profiling.disable()
         launches = {name: fn.launches for name, fn in kernels.items()}
         spans = {}
-        for rec in profiling.take():
+        records = profiling.take()
+        for rec in records:
             if rec.name == "field.mlp":
                 for k, v in rec.counts.items():
                     if k != "rows":
                         spans[k] = spans.get(k, 0) + v
+        feature_spans = field_features_counts(records)
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         view_ms = time_ms(lambda: fr.render_image(enc, rays, torch.Generator(device=dev).manual_seed(4)),
                           reps=3, warmup=0)
@@ -2874,10 +2934,15 @@ def run_dtu_main_path(dev, g, height=DTU_H, width=DTU_W, chunk=DTU_RENDER_CHUNK,
         rgb_k, depth_k = fr.render_image(enc, crop, noise=noise)
         rgb_p, depth_p = FullRenderer(net, cfg, ray_chunk=chunk, fast=True, use_kernels=False).render_image(
             enc, crop, noise=noise)
+        with separate_feature_stage():
+            rgb_s, depth_s = fr.render_image(enc, crop, noise=noise)
     chunks = -(-height * width // chunk)
-    expect = {"gather_bilerp": 2 * chunks, "fused_resnetfc_infer": 3 * chunks, "fused_gather_resnetfc_infer": 0}
+    expect = {"gather_bilerp": 0, "gather_bilerp_field": 2 * chunks, "fused_resnetfc_infer": 3 * chunks,
+              "fused_gather_resnetfc_infer": 0}
     expect_spans = {"kernel_b": 3 * chunks, "kernel_b_views": 3 * 3 * chunks}
+    expect_feature_spans = {"inputs_fused": 2 * chunks}
     e2e = {"rgb": (rgb_k - rgb_p).abs().max().item(), "depth": (depth_k - depth_p).abs().max().item()}
+    sep = {"rgb": (rgb_k - rgb_s).abs().max().item(), "depth": (depth_k - depth_s).abs().max().item()}
     # kernel_vs_plain_e2e's tolerance for rgb; for depth, scaled from the
     # SRN scene's depth range (1.0) to this one's (4.9)
     tol = {"rgb": 2e-2, "depth": 2e-2 * (DTU_FAR - DTU_NEAR)}
@@ -2886,13 +2951,17 @@ def run_dtu_main_path(dev, g, height=DTU_H, width=DTU_W, chunk=DTU_RENDER_CHUNK,
         "image": [width, height], "ray_chunk": chunk, "chunks": chunks, "view_ms": view_ms,
         "rays_per_s": height * width / (view_ms / 1e3), "peak_memory_gb": peak_gb,
         "launches": launches, "expected_launches": expect, "field_mlp_spans": spans, "expected_spans": expect_spans,
+        "field_features_spans": feature_spans, "expected_feature_spans": expect_feature_spans,
         "kernel_vs_plain_crop": {"rays": crop.shape[0] * crop.shape[1], "max_abs_err": e2e, "tolerance": tol},
+        "field_vs_separate_crop": {"max_abs_err": sep, "tolerance": tol},
         "rgb_range": [rgb.min().item(), rgb.max().item()], "depth_range": [depth.min().item(), depth.max().item()],
         "rgb_std": rgb.float().std().item(),
     }
     emit(res)
     if spans != expect_spans:
         raise AssertionError(f"dtu_main_path: field.mlp's spans {spans} != expected {expect_spans}")
+    if feature_spans != expect_feature_spans:
+        raise AssertionError(f"dtu_main_path: field.features' spans {feature_spans} != {expect_feature_spans}")
     if launches != expect:
         raise AssertionError(f"dtu_main_path: launch counts {launches} != expected {expect}")
     if not (torch.isfinite(rgb).all() and torch.isfinite(depth).all() and rgb.shape == (height, width, 3)
@@ -2901,7 +2970,25 @@ def run_dtu_main_path(dev, g, height=DTU_H, width=DTU_W, chunk=DTU_RENDER_CHUNK,
         raise AssertionError(f"dtu_main_path: render out of range: {res}")
     if any(e2e[k] > tol[k] for k in tol):
         raise AssertionError(f"dtu_main_path: kernel and plain renders disagree: {e2e}")
+    if any(sep[k] > tol[k] for k in tol):
+        raise AssertionError(f"dtu_main_path: the field instance's and the separate stage's renders disagree: {sep}")
     return res
+
+
+@contextlib.contextmanager
+def separate_feature_stage():
+    """Inside the block every feature stage is composed in PyTorch around
+    kernel A, as before kernel A's field instance took it
+    (``PixelNeRFNet.fuses_inputs`` answers no): the stage that the
+    instance's renders are held to."""
+    from pixelnerf_tpu_torch.models.pixelnerf import PixelNeRFNet
+
+    fuses = PixelNeRFNet.fuses_inputs
+    PixelNeRFNet.fuses_inputs = lambda self, *args, **kwargs: False
+    try:
+        yield
+    finally:
+        PixelNeRFNet.fuses_inputs = fuses
 
 
 def make_request(path, net, cfg, enc):
@@ -2975,17 +3062,33 @@ def inference_kernels():
     """The launch counters of the inference kernels, by kernel name."""
     from pixelnerf_tpu_torch.ops.fused_field import fused_gather_resnetfc_infer
     from pixelnerf_tpu_torch.ops.fused_mlp import fused_resnetfc_infer
-    from pixelnerf_tpu_torch.ops.gather import gather_bilerp
+    from pixelnerf_tpu_torch.ops.gather import gather_bilerp, gather_bilerp_field
 
-    return {"gather_bilerp": gather_bilerp, "fused_resnetfc_infer": fused_resnetfc_infer,
-            "fused_gather_resnetfc_infer": fused_gather_resnetfc_infer}
+    return {"gather_bilerp": gather_bilerp, "gather_bilerp_field": gather_bilerp_field,
+            "fused_resnetfc_infer": fused_resnetfc_infer, "fused_gather_resnetfc_infer": fused_gather_resnetfc_infer}
 
 
-def run_path(phase, render, targets, dev, rgen, per_request, extra):
+def field_features_counts(records):
+    """The ``inputs_fused`` and ``separate`` counts of the ``field.features``
+    spans among ``records``: which path each feature stage took."""
+    out = {}
+    for r in records:
+        if r.name == "field.features":
+            for k in ("inputs_fused", "separate"):
+                if k in r.counts:
+                    out[k] = out.get(k, 0) + r.counts[k]
+    return out
+
+
+def run_path(phase, render, targets, dev, rgen, per_request, extra, spans_per_request=None):
     """Drive one inference path for one request per target, with every
     inference kernel's count set to 0 just before and read just after, and
     hold the counts to ``per_request`` launches per request and the
-    renders to the render checks. Returns the phase's record."""
+    renders to the render checks; then, with ``spans_per_request``, one
+    more request with the program's spans on, its ``field.features``
+    counts held to them. Returns the phase's record."""
+    from pixelnerf_tpu_torch.utils import profiling
+
     kernels = inference_kernels()
     for fn in kernels.values():
         fn.launches = 0
@@ -2998,6 +3101,17 @@ def run_path(phase, render, targets, dev, rgen, per_request, extra):
     if launches != expect:
         raise AssertionError(f"{phase}: launch counts {launches} != expected {expect}")
     check_renders(renders)
+    spans = None
+    if spans_per_request is not None:
+        profiling.enable()
+        try:
+            run_requests(render, targets[:1], dev, rgen)
+        finally:
+            profiling.disable()
+        spans = field_features_counts(profiling.take())
+        want = {k: v * -(-IMAGE * IMAGE // RAY_CHUNK) for k, v in spans_per_request.items()}
+        if spans != want:
+            raise AssertionError(f"{phase}: field.features spans {spans} != expected {want}")
     steady = request_ms[1:]
     res = {
         "phase": phase, "config": "conf/exp/srn.conf, bf16, 128x128, 64+32 samples",
@@ -3005,7 +3119,7 @@ def run_path(phase, render, targets, dev, rgen, per_request, extra):
         "request_ms": request_ms,
         "rays_per_s_steady": IMAGE * IMAGE * len(steady) / (sum(steady) / 1e3),
         "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
-        "launches": launches, "expected_launches": expect,
+        "launches": launches, "expected_launches": expect, "field_features_spans": spans,
         "rgb_std": [r.float().std().item() for r, _ in renders],
         "depth_range": [min(d.min().item() for _, d in renders), max(d.max().item() for _, d in renders)],
     }
@@ -3018,14 +3132,17 @@ def run_path(phase, render, targets, dev, rgen, per_request, extra):
 # A's and B's launches per request of each variant's staged render (one
 # 16,384-ray chunk: A gathers the coarse and the new fine samples, B runs
 # the coarse MLP and the fine MLP on the cached and on the new features).
+# A's field instance takes the feature stage from a 512-channel latent (the
+# global encoder's vector put in front after it), A itself the custom conv
+# encoder's 128-channel map (rows A serves narrower than a warp a point).
 # SPADE and softplus fields, and ImplicitNet, take the dense chain (the
 # kernel's gate, read from the config); the quad gather is a plain row
 # gather.
 VARIANT_REQUEST_LAUNCHES = {
-    "global": {"gather_bilerp": 2, "fused_resnetfc_infer": 3},
+    "global": {"gather_bilerp_field": 2, "fused_resnetfc_infer": 3},
     "custom": {"gather_bilerp": 2, "fused_resnetfc_infer": 3},
-    "spade_softplus": {"gather_bilerp": 2},
-    "implicit": {"gather_bilerp": 2},
+    "spade_softplus": {"gather_bilerp_field": 2},
+    "implicit": {"gather_bilerp_field": 2},
     "quad": {"fused_resnetfc_infer": 3},
 }
 VARIANT_SETTINGS = {
@@ -3214,8 +3331,9 @@ def run_variants(dev, g, targets, rgen, smi, main_request_ms, crop, noise):
         torch.cuda.synchronize()
         extra = {"variant": name, "settings": VARIANT_SETTINGS[name], "d_latent": net.d_latent,
                  "latent_shape": list(enc.latent.shape), "encode_ms": (time.time() - t0) * 1e3, "card": smi}
+        stage = "inputs_fused" if "gather_bilerp_field" in per_request else "separate"
         paths[name] = run_path(f"variant_{name}", make_request("staged", net, cfg, enc), targets, dev, rgen,
-                               per_request, extra)
+                               per_request, extra, {stage: 2})
         with torch.inference_mode():
             if name in ("global", "custom"):
                 kernels[f"b_{name}"] = check_kernel_b(dev, g, net.mlp_fine, phase=f"variant_kernel_b_{name}",
@@ -3296,6 +3414,7 @@ def main():
 
     with torch.inference_mode():
         res_a = timed("kernel_a", check_kernel_a, dev, g)
+        res_a_field = timed("kernel_a_field", check_kernel_a_field, dev)
         res_b = timed("kernel_b", check_kernel_b, dev, g, net.mlp_fine)
         res_b_views = timed("kernel_b_views", check_kernel_b_views, dev, g, net.mlp_fine)
 
@@ -3310,7 +3429,8 @@ def main():
     torch.cuda.synchronize()
     encode_ms = (time.time() - t0) * 1e3
     main_res = timed("main_path", run_path, "main_path", make_request("staged", net, cfg, enc), targets, dev, rgen,
-                     {"gather_bilerp": 2, "fused_resnetfc_infer": 3}, {"encode_ms": encode_ms, "card": smi})
+                     {"gather_bilerp_field": 2, "fused_resnetfc_infer": 3}, {"encode_ms": encode_ms, "card": smi},
+                     {"inputs_fused": 2})
     launches = dict(main_res["launches"])
 
     # kernels vs their plain versions, end to end, on the same noise
@@ -3327,6 +3447,17 @@ def main():
           "tolerance": e2e_tol})
     if max(e2e.values()) > e2e_tol:
         raise AssertionError(f"kernel and plain renders disagree: {e2e}")
+    # the same crop with the feature stage composed around kernel A (the
+    # path before the field instance): the rotations' sums in cuBLAS's
+    # order may flip a bf16 rounding of an x or latent row (kernel B's
+    # tolerance, as above)
+    with torch.inference_mode(), separate_feature_stage():
+        rgb_s, depth_s = make_request("staged", net, cfg, enc)(crop, noise=noise)
+    sep = {"rgb": (rgb_k - rgb_s).abs().max().item(), "depth": (depth_k - depth_s).abs().max().item()}
+    emit({"phase": "field_vs_separate_e2e", "rays": crop.shape[0] * crop.shape[1], "max_abs_err": sep,
+          "tolerance": e2e_tol})
+    if max(sep.values()) > e2e_tol:
+        raise AssertionError(f"the field instance's and the separate stage's renders disagree: {sep}")
 
     # the DTU request at three source views: kernel B's multi-view mode
     dtu_main = timed("dtu_main_path", run_dtu_main_path, dev, torch.Generator().manual_seed(10))
@@ -3373,23 +3504,25 @@ def main():
     bake_ms = (time.time() - t0) * 1e3
     baked_res = timed("baked_path", run_path, "baked_path", make_request("baked", net, cfg, baked), targets, dev,
                       rgen, {"gather_bilerp": 2, "fused_resnetfc_infer": 2},
-                      {"bake_encoding_ms": bake_ms, "tz_map_shape": list(baked.tz_coarse.shape), "card": smi})
+                      {"bake_encoding_ms": bake_ms, "tz_map_shape": list(baked.tz_coarse.shape), "card": smi},
+                      {"separate": 2})
 
     # the crop again: fused against staged and plain, baked against unbaked
     with torch.inference_mode():
         rgb_f, depth_f = make_request("fused", net, cfg, penc)(crop, noise=noise)
         rgb_b, depth_b = make_request("baked", net, cfg, baked)(crop, noise=noise)
-    pairs = {"fused_vs_staged": ((rgb_f, depth_f), (rgb_k, depth_k)),
+    pairs = {"fused_vs_staged": ((rgb_f, depth_f), (rgb_s, depth_s)),
              "fused_vs_plain": ((rgb_f, depth_f), (rgb_p, depth_p)),
-             "baked_vs_unbaked": ((rgb_b, depth_b), (rgb_k, depth_k))}
+             "baked_vs_unbaked": ((rgb_b, depth_b), (rgb_s, depth_s))}
     errs = {name: {"rgb": (a[0] - b[0]).abs().max().item(), "depth": (a[1] - b[1]).abs().max().item()}
             for name, (a, b) in pairs.items()}
-    # fused against staged: kernel D is bit-equal to B fed by A, and a
+    # fused against staged (its feature stage composed around kernel A, as
+    # query_fused composes it): kernel D is bit-equal to B fed by A, and a
     # sample's value does not depend on its place in the batch, so only the
     # order of equal depths could differ; against plain, kernel B's
-    # tolerance as above; baked against unbaked, the injections are rounded
-    # to bf16 once more (~1 bf16 ulp of each), carried through the MLP and
-    # composited along 96 samples
+    # tolerance as above; baked against unbaked (the same staged render),
+    # the injections are rounded to bf16 once more (~1 bf16 ulp of each),
+    # carried through the MLP and composited along 96 samples
     tols = {"fused_vs_staged": 1e-5, "fused_vs_plain": e2e_tol, "baked_vs_unbaked": 3e-2}
     emit({"phase": "fused_vs_staged_e2e", "rays": crop.shape[0] * crop.shape[1], "max_abs_err": errs,
           "tolerance": tols})
@@ -3409,24 +3542,26 @@ def main():
 
     keys = ("name", "route", "source", "replaces", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")
-    # launches: A over the staged inference path, the SRN and DTU
-    # workflows (with eval --scale 2), the video and real-image apps,
-    # eval_real on preproc's outputs, recon, the sharded render and the
-    # tools (the multi-object train app, the quality curve, eval_approx on
-    # the export) and the DTU request, B over the staged path and the
-    # sharded render, B's multi-view mode over the DTU request, B's z_is_tz
-    # variant over the baked path, D over the fused path, C and C-bwd over
-    # both training configs, the train app, the two workflows, the "dots"
-    # run, the profiled train app, the sharded train step and the tools'
-    # multi-object train app, the study's formulations over its bench script
-    launches["gather_bilerp"] += sum(r["launches"]["gather_bilerp"] for r in (srn, dtu, apps, preproc, recon,
-                                                                             parallel, tools, dtu_main))
+    # launches: A's field instance over the staged inference path, the SRN
+    # and DTU workflows (with eval --scale 2), the video and real-image
+    # apps, eval_real on preproc's outputs, recon, the sharded render and
+    # the tools (the multi-object train app, the quality curve, eval_approx
+    # on the export) and the DTU request, A itself over the baked path, B
+    # over the staged path and the sharded render, B's multi-view mode over
+    # the DTU request, B's z_is_tz variant over the baked path, D over the
+    # fused path, C and C-bwd over both training configs, the train app,
+    # the two workflows, the "dots" run, the profiled train app, the
+    # sharded train step and the tools' multi-object train app, the study's
+    # formulations over its bench script
+    for k in ("gather_bilerp", "gather_bilerp_field"):
+        launches[k] += sum(r["launches"][k] for r in (srn, dtu, apps, preproc, recon, parallel, tools, dtu_main))
+    launches["gather_bilerp"] += baked_res["launches"]["gather_bilerp"]
     launches["fused_resnetfc_infer"] += parallel["launches"]["fused_resnetfc_infer"]
     launches.update(train_launches)
     launches["fused_resnetfc_infer[z_is_tz]"] = baked_res["launches"]["fused_resnetfc_infer"]
     launches["fused_gather_resnetfc_infer"] = fused_res["launches"]["fused_gather_resnetfc_infer"]
     ported = [{**{k: r[k] for k in keys}, "launches": launches[r["name"]]}
-              for r in (res_a, res_b, res_b_tz, res_c, res_c_bwd, res_d)]
+              for r in (res_a, res_a_field, res_b, res_b_tz, res_c, res_c_bwd, res_d)]
     ported.append({**{k: res_b_views[k] for k in keys},
                    "launches": dtu_main["launches"]["fused_resnetfc_infer"]})
     ported += [dict(r) for r in study]   # with their float32 table's time and shares

@@ -34,6 +34,7 @@ from typing import Optional
 import torch
 import torch.nn as nn
 
+from ..ops.gather import field_rows_wide, gather_bilerp_field, gather_bilerp_field_plain
 from ..ops.grid_sample import _compute_source_index, bilinear_pair_bases, build_quad_features, grid_sample_quad
 from ..utils.geometry import device_vector, invert_pose, on_device, repeat_interleave
 from ..utils.profiling import span
@@ -238,6 +239,11 @@ class PixelNeRFNet(nn.Module):
         """The per-point feature stage: camera transform, uv projection,
         pixel-aligned gather, positional code.
 
+        Where :meth:`fuses_inputs` holds (the card's inference path of the
+        published configs) the stage is one launch of kernel A's field
+        instance, its plain mirror with ``use_kernels=False``; the
+        ``field.features`` span counts ``inputs_fused`` or ``separate``.
+
         :param differentiable: gather through kernel C and its backward
             (training) instead of kernel A (inference); the quad-corner
             gather is plain PyTorch either way
@@ -248,36 +254,78 @@ class PixelNeRFNet(nn.Module):
             gathered injections, (SB*NS, B, n_lin_z*d_hidden); with the
             global encoder its vector comes first, then the gathered latent
         """
-        with span("field.features", points=xyz.shape[0] * xyz.shape[1], views=enc.num_views):
-            z_feature, uv = self._point_inputs(enc, xyz, viewdirs)
+        with span("field.features", points=xyz.shape[0] * xyz.shape[1], views=enc.num_views) as s:
             dt = self.mlp_coarse.dtype
-            latent = None
-            if self.use_encoder:
-                if enc.tz_coarse is not None:
-                    # baked: the gather returns the latent injections directly
-                    source = enc.tz_coarse if (coarse or self.mlp_fine is None) else enc.tz_fine
-                    latent = index_latent(
-                        source, uv, enc.image_shape, self.encoder.index_interp,
-                        self.encoder.index_padding, out_dtype=dt, use_kernels=use_kernels,
-                        differentiable=differentiable,
-                    )
-                elif enc.latent_quad is not None:
-                    Hl, Wl = enc.latent.shape[1:3]
-                    scale = latent_scaling(Hl, Wl, uv.device) / enc.image_shape
-                    # lerped in float32, rounded once to the MLP's dtype
-                    latent = grid_sample_quad(enc.latent_quad, uv * scale - 1.0).to(dt)
-                else:
-                    latent = index_latent(
-                        enc.latent, uv, enc.image_shape, self.encoder.index_interp,
-                        self.encoder.index_padding, out_dtype=dt, use_kernels=use_kernels,
-                        differentiable=differentiable,
-                    )
-                if self.stop_encoder_grad:
-                    latent = latent.detach()
-                if self.use_global_encoder:
-                    glob = ImageEncoder.index(enc.global_latent, latent.shape[1]).to(dt)
-                    latent = torch.cat([glob, latent], dim=-1)
-            return latent, z_feature.to(dt)
+            if self.fuses_inputs(enc, xyz.device, viewdirs is not None, differentiable):
+                s.count("inputs_fused")
+                freqs, phases = self.code.device_tables(xyz.device, torch.float32)
+                run = gather_bilerp_field if use_kernels else gather_bilerp_field_plain
+                latent, z_feature = run(enc.latent, xyz, viewdirs, enc.poses, enc.focal, enc.c, enc.image_shape,
+                                        freqs, phases, dt)
+            else:
+                s.count("separate")
+                latent, z_feature = self._separate_features(enc, xyz, viewdirs, use_kernels, differentiable,
+                                                            coarse)
+            if latent is not None and self.use_global_encoder:
+                glob = ImageEncoder.index(enc.global_latent, latent.shape[1]).to(dt)
+                latent = torch.cat([glob, latent], dim=-1)
+            return latent, z_feature
+
+    def fuses_inputs(self, enc: SceneEncoding, device, viewdirs_given: bool = True,
+                     differentiable: bool = False) -> bool:
+        """Whether ``query_features`` takes the feature stage in one launch
+        of kernel A's field instance (``ops/gather.py``
+        ``gather_bilerp_field``): on a CUDA device, for inference (neither
+        ``differentiable`` nor autograd on), from an unbaked spatial latent
+        without a quad table, gathered bilinear/border in rows that A serves
+        a warp a point, with the model's inputs the instance computes: the
+        rotated xyz, its code, then the rotated view directions
+        (``use_xyz``, ``normalize_z``, ``use_code``, ``use_viewdirs``, not
+        ``use_code_viewdirs``). Every other call composes the stage in
+        PyTorch around the gather (``_separate_features``)."""
+        lat = enc.latent
+        return (
+            torch.device(device).type == "cuda" and not differentiable and not torch.is_grad_enabled()
+            and self.use_encoder and lat is not None and enc.tz_coarse is None and enc.latent_quad is None
+            and self.encoder.index_interp == "bilinear" and self.encoder.index_padding == "border"
+            and self.use_xyz and self.normalize_z and self.use_code and self.code.d_in == 3
+            and self.code.include_input
+            and self.use_viewdirs and not self.use_code_viewdirs and viewdirs_given
+            and self.mlp_coarse.dtype in (torch.float32, torch.bfloat16)
+            and field_rows_wide(lat.shape[-1], lat.dtype)
+        )
+
+    def _separate_features(self, enc: SceneEncoding, xyz, viewdirs, use_kernels: bool, differentiable: bool,
+                           coarse: bool):
+        """The feature stage composed in PyTorch around the gather:
+        ``_point_inputs``, then ``index_latent`` (or the quad table's plain
+        gather), each output in the MLP's dtype; the spatial latent alone."""
+        z_feature, uv = self._point_inputs(enc, xyz, viewdirs)
+        dt = self.mlp_coarse.dtype
+        latent = None
+        if self.use_encoder:
+            if enc.tz_coarse is not None:
+                # baked: the gather returns the latent injections directly
+                source = enc.tz_coarse if (coarse or self.mlp_fine is None) else enc.tz_fine
+                latent = index_latent(
+                    source, uv, enc.image_shape, self.encoder.index_interp,
+                    self.encoder.index_padding, out_dtype=dt, use_kernels=use_kernels,
+                    differentiable=differentiable,
+                )
+            elif enc.latent_quad is not None:
+                Hl, Wl = enc.latent.shape[1:3]
+                scale = latent_scaling(Hl, Wl, uv.device) / enc.image_shape
+                # lerped in float32, rounded once to the MLP's dtype
+                latent = grid_sample_quad(enc.latent_quad, uv * scale - 1.0).to(dt)
+            else:
+                latent = index_latent(
+                    enc.latent, uv, enc.image_shape, self.encoder.index_interp,
+                    self.encoder.index_padding, out_dtype=dt, use_kernels=use_kernels,
+                    differentiable=differentiable,
+                )
+            if self.stop_encoder_grad:
+                latent = latent.detach()
+        return latent, z_feature.to(dt)
 
     def query_mlp(
         self, enc: SceneEncoding, feats, coarse: bool = True, fast: bool = False,

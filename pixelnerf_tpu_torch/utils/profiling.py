@@ -26,7 +26,8 @@ The spans of the port, from the request down:
   the renderer's: sampling, the sort, compositing, the ``torch.cat``\\ s.
   ``render_rays.merge``: the chunk loop's output concatenation
 - ``field.features``: ``PixelNeRFNet.query_features`` (``points``,
-  ``views``); ``field.mlp``: ``PixelNeRFNet.query_mlp`` (``rows``, and
+  ``views``, and ``inputs_fused`` or ``separate``: whether kernel A's
+  field instance ran the whole stage); ``field.mlp``: ``PixelNeRFNet.query_mlp`` (``rows``, and
   ``kernel_b`` or ``dense``: which of the two ran; ``kernel_b_views``: the
   views a launch of kernel B's multi-view mode averages)
 - ``encode``: ``PixelNeRFNet.encode`` (``images``)

@@ -7,6 +7,7 @@ with a card and no JAX: ``python -m pytest --noconftest -m cuda
 tests/test_torch_kernels.py``.
 """
 import functools
+import math
 import os
 
 import numpy as np
@@ -1424,3 +1425,278 @@ def test_srn_view_is_bit_equal_to_the_request_built_the_old_way_cuda(cuda_device
     assert torch.equal(rgb, rgb_o) and torch.equal(depth, depth_o)
     for k in forms:
         assert torch.equal(rays[k], want[k]), k
+
+
+# --- kernel A's field instance: the feature stage in one launch ---
+
+# the geometry of a case: scenes, views a scene, the encoded image (W, H),
+# the latent map (hl, wl), focal (fx, fy), principal point, the cameras'
+# radius and the points' half extent
+FIELD_GEOMETRY = {
+    "srn": (1, 1, (128, 128), (64, 64), (131.25, 131.25), (64.0, 64.0), 1.3, 0.5),
+    "dtu": (1, 3, (400, 300), (150, 200), (720.0, 718.0), (212.0, 141.0), 2.4, 1.0),
+}
+FIELD_CASES = ["srn", "dtu", "sb2", "ragged", "outside", "edge", "mixed"]
+FIELD_DTYPES = [torch.bfloat16, torch.float32]
+
+
+def _field_case(case, out_dtype, channels, device):
+    """The feature stage's inputs of one case: a ``SceneEncoding`` of random
+    latent maps on cameras looking at the origin, world points and unit
+    view directions (SB, B, 3). ``srn``: 128x128 images, a 64x64 latent,
+    4,096 points; ``dtu``: three 400x300 views a scene with a focal of its
+    own each, a 150x200 latent; ``sb2``: two SRN scenes; ``ragged``: 1,001
+    points; ``outside``: points whose uv falls far outside the image, so
+    border clamping applies; ``edge``: points unprojected from whole pixels
+    of the latent, so the floor is taken at a pixel edge; ``mixed``: the
+    table in the other dtype than the output."""
+    from pixelnerf_tpu_torch.models.pixelnerf import SceneEncoding
+    from pixelnerf_tpu_torch.utils import geometry
+
+    g = torch.Generator().manual_seed(FIELD_CASES.index(case))
+    sb, ns, (w, h), (hl, wl), (fx, fy), (cx, cy), radius, extent = FIELD_GEOMETRY["dtu" if case == "dtu" else "srn"]
+    sb = 2 if case == "sb2" else sb
+    b = 1001 if case == "ragged" else 4096
+    n = sb * ns
+    angles = torch.rand((n, 2), generator=g, dtype=torch.float64)
+    eyes = [(radius * math.cos(6.0 * a) * math.cos(0.5 * e), radius * math.sin(0.5 * e), radius * math.sin(6.0 * a) *
+             math.cos(0.5 * e)) for a, e in angles.tolist()]
+    c2w = torch.stack([torch.from_numpy(geometry.look_at(e, (0.0, 0.0, 0.0))) for e in eyes])
+    w2c = geometry.invert_pose(c2w)
+    if case == "dtu":
+        focal = torch.tensor([[fx + 3.0 * v, -(fy + 3.0 * v)] for v in range(n)])      # a focal a view
+    else:
+        focal = torch.tensor([[fx, -fy]]).expand(sb, 2).contiguous()
+    c = torch.tensor([cx, cy]).expand(sb, 2)        # as encode's default: a row a scene, stride 0
+    xyz = (torch.rand((sb, b, 3), generator=g) * 2 - 1) * (6.0 * extent if case == "outside" else extent)
+    if case == "edge":
+        # whole latent pixels (ix, iy) of each scene's first view, back to
+        # the world at a depth near the camera's radius, in float64
+        ix = torch.randint(0, wl, (sb, b), generator=g).double()
+        iy = torch.randint(0, hl, (sb, b), generator=g).double()
+        u, v = ix * w / wl, iy * h / hl
+        zc = -(radius + (torch.rand((sb, b), generator=g, dtype=torch.float64) - 0.5) * extent)
+        cam = torch.stack([-(u - cx) * zc / fx, -(v - cy) * zc / -fy, zc], dim=-1)
+        first = w2c[::ns].double()
+        xyz = torch.einsum("sji,sbj->sbi", first[:, :, :3], cam - first[:, None, :, 3]).float()
+    dirs = torch.nn.functional.normalize(torch.randn((sb, b, 3), generator=g), dim=-1)
+    table_dtype = out_dtype
+    if case == "mixed":
+        table_dtype = torch.float32 if out_dtype == torch.bfloat16 else torch.bfloat16
+    latent = torch.randn((n, hl, wl, channels), generator=g).to(table_dtype)
+    image_shape = torch.tensor([float(w), float(h)])
+    enc = SceneEncoding(latent.to(device), w2c.to(device), focal.to(device), c.to(device), image_shape.to(device), ns)
+    return enc, xyz.to(device), dirs.to(device)
+
+
+@functools.lru_cache(maxsize=4)
+def _field_net(out_dtype, device):
+    """A small SRN-conf model (the published flags: use_xyz, normalize_z, the
+    code on xyz, view directions; a 64-channel encoder and ResnetFC of 32)
+    whose MLPs compute in ``out_dtype``: the separate stage's owner."""
+    from pixelnerf_tpu_torch.config import load_config
+    from pixelnerf_tpu_torch.models import make_model
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    conf = load_config(os.path.join(repo, "conf", "exp", "srn.conf"))
+    conf["model"]["encoder"]["num_layers"] = 1
+    for mlp in ("mlp_coarse", "mlp_fine"):
+        conf["model"][mlp]["d_hidden"] = 32
+    conf["model"]["dtype"] = "bfloat16" if out_dtype == torch.bfloat16 else "float32"
+    return make_model(conf["model"], device=device, generator=torch.Generator().manual_seed(0))
+
+
+def _field_mirror(net, enc, xyz, dirs):
+    from pixelnerf_tpu_torch.ops.gather import gather_bilerp_field_plain
+
+    freqs, phases = net.code.device_tables(xyz.device, torch.float32)
+    return gather_bilerp_field_plain(enc.latent, xyz, dirs, enc.poses, enc.focal, enc.c, enc.image_shape, freqs,
+                                     phases, net.mlp_coarse.dtype)
+
+
+def _ulp(a, b, dtype):
+    """One ulp of ``dtype`` (bf16: 8 significant bits, float32: 24) at the
+    larger magnitude of ``a`` and ``b``, elementwise."""
+    _, e = torch.frexp(torch.maximum(a.abs(), b.abs()))
+    return torch.ldexp(torch.ones_like(a), e - (8 if dtype == torch.bfloat16 else 24))
+
+
+def _assert_field_close_to_separate(out, sep, enc, freqs):
+    """The field instance's (latent, x) against the separate stage's. Their
+    camera rotations sum in other orders, a few float32 ulps apart: the x
+    rows within 1 ulp of their dtype plus 4 float32 ulps of the largest
+    rotated coordinate through the code's highest frequency (a sine's
+    argument moves by that much, and a value near 0 keeps no relative
+    precision); the latent rows, their source index moved by 4 float32
+    ulps of the map's side, within 1 ulp plus that move times the largest
+    step between neighbouring map values."""
+    (lat, x), (lat0, x0) = out, sep
+    assert lat.shape == lat0.shape and x.shape == x0.shape and lat.dtype == lat0.dtype and x.dtype == x0.dtype
+    eps = torch.finfo(torch.float32).eps
+    x, x0 = x.float(), x0.float()
+    moved = 4 * eps * x0[..., :3].abs().max() * freqs.max()
+    assert ((x - x0).abs() <= _ulp(x, x0, out[1].dtype) + moved).all(), (x - x0).abs().max()
+    table = enc.latent
+    moved = 4 * eps * max(table.shape[1:3]) * 2 * table.abs().max().float()
+    lat, lat0 = lat.float(), lat0.float()
+    assert ((lat - lat0).abs() <= _ulp(lat, lat0, out[0].dtype) + moved).all(), (lat - lat0).abs().max()
+
+
+@pytest.mark.parametrize("out_dtype", FIELD_DTYPES, ids=["bf16", "f32"])
+@pytest.mark.parametrize("case", FIELD_CASES)
+def test_field_mirror_agrees_with_the_separate_stage(case, out_dtype):
+    """On the CPU: the field instance's plain mirror against today's
+    composition of the stage (``_point_inputs``, ``index_latent``, the
+    casts), at 64 channels."""
+    from pixelnerf_tpu_torch.ops.gather import gather_bilerp_field
+
+    net = _field_net(out_dtype, "cpu")
+    enc, xyz, dirs = _field_case(case, out_dtype, 64, "cpu")
+    freqs, phases = net.code.device_tables("cpu", torch.float32)
+    before = gather_bilerp_field.launches
+    with torch.no_grad():
+        out = _field_mirror(net, enc, xyz, dirs)
+        wrapped = gather_bilerp_field(enc.latent, xyz, dirs, enc.poses, enc.focal, enc.c, enc.image_shape, freqs,
+                                      phases, out_dtype)
+        sep = net._separate_features(enc, xyz, dirs, use_kernels=True, differentiable=False, coarse=True)
+    # the wrapper runs the mirror for CPU tensors, with no launch
+    assert gather_bilerp_field.launches == before
+    assert torch.equal(wrapped[0], out[0]) and torch.equal(wrapped[1], out[1])
+    _assert_field_close_to_separate(out, sep, enc, freqs)
+    if case == "outside":
+        assert (out[1][..., :3].float().abs() > 1.0).any()
+
+
+@pytest.mark.parametrize("case", ["table_int", "table_3d", "xyz_f64", "xyz_shape", "dirs_shape", "views",
+                                  "w2c_shape", "focal_shape", "image_shape", "tables", "out_f16", "channels"])
+def test_field_wrapper_rejects_bad_inputs(case):
+    """``gather_bilerp_field`` checks its inputs before any launch."""
+    from pixelnerf_tpu_torch.ops.gather import gather_bilerp_field
+
+    n, b = 2, 5
+    args = {"latent": torch.zeros((n, 3, 4, 8)), "xyz": torch.zeros((1, b, 3)), "dirs": torch.zeros((1, b, 3)),
+            "w2c": torch.zeros((n, 3, 4)), "focal": torch.ones((1, 2)), "c": torch.ones((1, 2)),
+            "image_shape": torch.ones(2), "freqs": torch.ones(12), "phases": torch.ones(12),
+            "out_dtype": torch.bfloat16}
+    change = {
+        "table_int": ("latent", torch.zeros((n, 3, 4, 8), dtype=torch.int32)),
+        "table_3d": ("latent", torch.zeros((n, 12, 8))),
+        "xyz_f64": ("xyz", torch.zeros((1, b, 3), dtype=torch.float64)),
+        "xyz_shape": ("xyz", torch.zeros((1, b, 2))),
+        "dirs_shape": ("dirs", torch.zeros((1, b + 1, 3))),
+        "views": ("xyz", torch.zeros((3, b, 3))),
+        "w2c_shape": ("w2c", torch.zeros((n, 4, 4))),
+        "focal_shape": ("focal", torch.ones((3, 2))),
+        "image_shape": ("image_shape", torch.ones(3)),
+        "tables": ("phases", torch.ones(11)),
+        "out_f16": ("out_dtype", torch.float16),
+        "channels": ("latent", torch.zeros((n, 3, 4, 6))),
+    }[case]
+    args[change[0]] = change[1]
+    before = gather_bilerp_field.launches
+    with pytest.raises((TypeError, ValueError)):
+        gather_bilerp_field(**args)
+    assert gather_bilerp_field.launches == before
+
+
+@functools.lru_cache(maxsize=4)
+def _published_net(name):
+    """The published model of ``name`` on the CPU: ``srn`` and ``dtu`` in bf16
+    (the benchmark's cells), ``srn_f32`` as the float32 apps build it."""
+    from pixelnerf_tpu_torch.config import load_config
+    from pixelnerf_tpu_torch.models import make_model
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    conf = load_config(os.path.join(repo, "conf", "exp", "dtu.conf" if name == "dtu" else "srn.conf"))
+    if name != "srn_f32":
+        conf["model"]["dtype"] = "bfloat16"
+    return make_model(conf["model"], device="cpu", generator=torch.Generator().manual_seed(0))
+
+
+FIELD_GATE = {
+    # case: (model, expected); each old-path case changes one thing of srn on the card
+    "srn": ("srn", True), "dtu": ("dtu", True), "srn_f32": ("srn_f32", True),
+    "cpu": ("srn", False), "differentiable": ("srn", False), "autograd": ("srn", False),
+    "baked": ("srn", False), "quad": ("srn", False), "use_code_viewdirs": ("srn", False),
+    "normalize_z_off": ("srn", False), "use_xyz_off": ("srn", False), "no_viewdirs": ("srn", False),
+    "code_without_input": ("srn", False), "narrow_latent": ("srn", False),
+}
+
+
+@pytest.mark.parametrize("case", sorted(FIELD_GATE))
+def test_field_gate_chooses_by_what_it_can_observe(case):
+    """``PixelNeRFNet.fuses_inputs``, the one predicate of the feature
+    stage's path, over the model, the encoding and the call: the field
+    instance for the published SRN and DTU models and the float32 apps' on
+    a CUDA device; the separate stage on the CPU, for training
+    (``differentiable`` or autograd on), for a baked encoding or a quad
+    table, for inputs the instance does not compute and for a latent that
+    A serves narrower than a warp a point."""
+    import copy
+    import dataclasses
+
+    from pixelnerf_tpu_torch.models.pixelnerf import SceneEncoding
+
+    name, want = FIELD_GATE[case]
+    net = copy.copy(_published_net(name))
+    views = 3 if name == "dtu" else 1
+    latent = torch.zeros((views, 2, 2, net.encoder.latent_size), dtype=net.latent_dtype)
+    enc = SceneEncoding(latent, torch.zeros((views, 3, 4)), torch.ones((1, 2)), torch.ones((1, 2)),
+                        torch.tensor([4.0, 4.0]), views)
+    device, viewdirs_given, differentiable, grad = "cuda", True, False, False
+    if case == "cpu":
+        device = "cpu"
+    elif case == "differentiable":
+        differentiable = True
+    elif case == "autograd":
+        grad = True
+    elif case == "baked":
+        enc.tz_coarse = enc.tz_fine = torch.zeros((views, 2, 2, 1536), dtype=net.latent_dtype)
+    elif case == "quad":
+        enc.latent_quad = torch.zeros((views, 2, 2, 4 * net.encoder.latent_size), dtype=net.latent_dtype)
+    elif case == "use_code_viewdirs":
+        net.use_code_viewdirs = True
+    elif case == "normalize_z_off":
+        net.normalize_z = False
+    elif case == "use_xyz_off":
+        net.use_xyz = False
+    elif case == "no_viewdirs":
+        viewdirs_given = False
+    elif case == "code_without_input":
+        net.code = dataclasses.replace(net.code, include_input=False)
+    elif case == "narrow_latent":
+        enc.latent = torch.zeros((views, 2, 2, 128), dtype=net.latent_dtype)
+    with torch.set_grad_enabled(grad):
+        assert net.fuses_inputs(enc, torch.device(device), viewdirs_given, differentiable) is want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_dtype", FIELD_DTYPES, ids=["bf16", "f32"])
+@pytest.mark.parametrize("case", FIELD_CASES)
+def test_field_kernel_matches_its_mirror_and_the_separate_stage_cuda(cuda_device, case, out_dtype):
+    """Kernel A's field instance at 512 channels, through
+    ``query_features`` on the card: one launch (``gather_bilerp_field``,
+    none of ``gather_bilerp``) and ``field.features`` counting
+    ``inputs_fused``; its latent and x rows bit-equal to the plain mirror
+    (``use_kernels=False``), and close to the separate stage (kernel A fed
+    by the PyTorch composition) as the CPU test holds the mirror."""
+    from pixelnerf_tpu_torch.ops.gather import gather_bilerp_field
+    from pixelnerf_tpu_torch.utils import profiling
+
+    net = _field_net(out_dtype, str(cuda_device))
+    enc, xyz, dirs = _field_case(case, out_dtype, 512, cuda_device)
+    before, before_a = gather_bilerp_field.launches, gather_bilerp.launches
+    with torch.inference_mode():
+        profiling.enable()
+        try:
+            out = net.query_features(enc, xyz, dirs)
+            torch.cuda.synchronize()
+        finally:
+            profiling.disable()
+        records = [r for r in profiling.take() if r.name == "field.features"]
+        assert gather_bilerp_field.launches == before + 1 and gather_bilerp.launches == before_a
+        mirror = net.query_features(enc, xyz, dirs, use_kernels=False)
+        sep = net._separate_features(enc, xyz, dirs, use_kernels=True, differentiable=False, coarse=True)
+    assert [r.counts.get("inputs_fused") for r in records] == [1]
+    assert torch.equal(out[0], mirror[0]) and torch.equal(out[1], mirror[1])
+    _assert_field_close_to_separate(out, sep, enc, net.code.device_tables(cuda_device, torch.float32)[0])
