@@ -704,7 +704,7 @@ def check_kernel_d(dev, g, mlp):
     import torch.nn.functional as F
 
     from pixelnerf_tpu_torch.ops.fused_field import (
-        fused_gather_resnetfc_infer, fused_gather_resnetfc_infer_plain, gather_prologue_probe,
+        fused_gather_resnetfc_infer, fused_gather_resnetfc_infer_plain,
     )
     from pixelnerf_tpu_torch.ops.fused_mlp import fused_resnetfc_infer, pack_weights
     from pixelnerf_tpu_torch.ops.gather import gather_bilerp
@@ -735,7 +735,6 @@ def check_kernel_d(dev, g, mlp):
     err, tol, close = assert_mlp_close(out, fused_gather_resnetfc_infer_plain(*args), "kernel D")
     ms = time_ms(lambda: fused_gather_resnetfc_infer(*args), reps=5)
     composition_ms = time_ms(composition, reps=5)
-    prologue_ms = time_ms(lambda: gather_prologue_probe(*args), reps=10)
     plain_ms = time_ms(lambda: fused_gather_resnetfc_infer_plain(*args), reps=2, warmup=1)
     # yardstick: F.grid_sample on the NCHW map, then the bf16 torch.matmul chain
     fmap = table.reshape(1, hl, wl, c).permute(0, 3, 1, 2).contiguous()
@@ -760,8 +759,7 @@ def check_kernel_d(dev, g, mlp):
         "max_abs_err_vs_b_fed_by_a": err_comp,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": library_ms, "library_call": "F.grid_sample(NCHW bf16) + bf16 torch.matmul chain",
-        "b_fed_by_a_ms": composition_ms, "gather_prologue_ms": prologue_ms,
-        "gather_prologue_share": prologue_ms / ms, "tflops": flops / ms / 1e9,
+        "b_fed_by_a_ms": composition_ms, "tflops": flops / ms / 1e9,
         **mlp_traffic(n, ms, weights, 4 * c * 2, bytes_moved),
     }
     del base, wg, x, out, args

@@ -28,18 +28,17 @@
 namespace {
 
 // The z tile: the bilinear gather of the tile's rows, rounded to bf16; zero
-// past the last row.
+// from row `end` on.
 struct GatherFill {
   const bf16* table;
   const int32_t* base;
   const float* wg;
-  int64_t n;
   int d_z, width;
-  __device__ __forceinline__ void operator()(int, int64_t row0, uint8_t* dst, int ft) const {
+  __device__ __forceinline__ void operator()(int, int64_t row0, int64_t end, uint8_t* dst, int ft) const {
     const int lane = ft & 31;
     for (int r = ft >> 5; r < T; r += FILLERS / 32) {
       const int64_t row = row0 + r;
-      if (row < n) {
+      if (row < end) {
         const int32_t b0 = __ldg(base + 2 * row);
         const int32_t b1 = __ldg(base + 2 * row + 1);
         const float wx = __ldg(wg + 2 * row);
@@ -58,21 +57,18 @@ struct GatherFill {
   }
 };
 
-// MODE_PROBE: gather one tile per 64 rows and write the first 4 latent
-// channels of each row, to time the gather alone.
-template <int NI, int NH, int MODE>
+template <int NI, int NH>
 __global__ void __launch_bounds__(THREADS, 1)
 fused_field_kernel(const Params p, const GatherFill fill) {
-  mlp_block<NI, NH, MODE>(p, fill);
+  mlp_block<NI, NH, MODE_Z>(p, fill);
 }
 
-template <int MODE>
 int launch_width(const Params& p, const GatherFill& f, cudaStream_t s) {
   switch (p.dh) {
-    case 64: return launch_mlp(fused_field_kernel<32, 1, MODE>, p, s, p, f);
-    case 128: return launch_mlp(fused_field_kernel<64, 1, MODE>, p, s, p, f);
-    case 256: return launch_mlp(fused_field_kernel<128, 1, MODE>, p, s, p, f);
-    case 512: return launch_mlp(fused_field_kernel<128, 2, MODE>, p, s, p, f);
+    case 64: return launch_mlp(fused_field_kernel<32, 1>, p, s, p, f);
+    case 128: return launch_mlp(fused_field_kernel<64, 1>, p, s, p, f);
+    case 256: return launch_mlp(fused_field_kernel<128, 1>, p, s, p, f);
+    case 512: return launch_mlp(fused_field_kernel<128, 2>, p, s, p, f);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -85,16 +81,14 @@ extern "C" size_t mlp_body_smem_bytes(int kx, int zw, int d_hidden) {
 }
 
 // table (rows, d_z) bf16 feature rows of views `width` pixels wide; base
-// (n, 2) int32; wg (n, 2) float32; the rest as fused_resnetfc_infer. With
-// probe != 0 only the gather runs. Returns the CUDA error of the launch
-// (0 = success).
+// (n, 2) int32; wg (n, 2) float32; the rest as fused_resnetfc_infer.
+// Returns the CUDA error of the launch (0 = success).
 extern "C" int fused_gather_resnetfc_infer(const void* table, const void* base, const void* wg,
                                            const void* x, const void* image, const void* bin,
                                            const void* bz, const void* b0, const void* b1,
                                            const void* wout, const void* bout, void* out,
                                            int64_t n, int d_in, int kx, int d_z, int d_hidden,
-                                           int n_blocks, int n_lin_z, int width, int probe,
-                                           void* stream) {
+                                           int n_blocks, int n_lin_z, int width, void* stream) {
   Params p;
   p.x = static_cast<const bf16*>(x);
   p.image = static_cast<const bf16*>(image);
@@ -115,8 +109,6 @@ extern "C" int fused_gather_resnetfc_infer(const void* table, const void* base, 
   p.stages = stages_that_fit(kx, d_z, d_hidden);
   if (!p.stages) return (int)cudaErrorInvalidValue;
   const GatherFill f = {static_cast<const bf16*>(table), static_cast<const int32_t*>(base),
-                        static_cast<const float*>(wg), n, d_z, width};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (probe) return launch_width<MODE_PROBE>(p, f, s);
-  return launch_width<MODE_Z>(p, f, s);
+                        static_cast<const float*>(wg), d_z, width};
+  return launch_width(p, f, static_cast<cudaStream_t>(stream));
 }

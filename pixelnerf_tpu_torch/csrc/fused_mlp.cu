@@ -48,22 +48,17 @@ namespace {
 template <bool PAD>
 struct RowsFill {
   const bf16* z;
-  int64_t ld, n;
+  int64_t ld;
   int src_width, width, step;   // columns read; of the tile; from one injection to the next
-  __device__ __forceinline__ void operator()(int inj, int64_t row0, uint8_t* dst, int ft) const {
-    fill_tile_rows<PAD>(z + (int64_t)inj * step, ld, src_width, width, row0, n, dst, ft);
+  __device__ __forceinline__ void operator()(int inj, int64_t row0, int64_t end, uint8_t* dst, int ft) const {
+    fill_tile_rows<PAD>(z + (int64_t)inj * step, ld, src_width, width, row0, end, dst, ft);
   }
 };
 
-// The multi-view mode's z tile: a view's latents, zero from the view's row
-// `end` on; and the mode's Views.
+// The multi-view mode's z tile, a view's latents, and the mode's Views.
 template <bool PAD>
-struct ViewsFill {
-  RowsFill<PAD> rows;
+struct ViewsFill : RowsFill<PAD> {
   Views views;
-  __device__ __forceinline__ void operator()(int, int64_t row0, int64_t end, uint8_t* dst, int ft) const {
-    fill_tile_rows<PAD>(rows.z, rows.ld, rows.src_width, rows.width, row0, end, dst, ft);
-  }
 };
 
 template <int NI, int NH, int MODE, class Fill, bool MULTI_VIEW>
@@ -139,14 +134,14 @@ extern "C" int fused_resnetfc_infer(const void* x, const void* z, const void* im
     const Views w = {views, points, static_cast<uint4*>(scratch), 1.0f / (float)views};
     const int64_t tiles = view_tiles(p, w);
     if (p.zw != d_z)
-      return launch_width<MODE_Z, true>(p, ViewsFill<true>{{zp, d_z, n, d_z, p.zw, 0}, w}, tiles,
+      return launch_width<MODE_Z, true>(p, ViewsFill<true>{{zp, d_z, d_z, p.zw, 0}, w}, tiles,
                                         scratch_blocks, s);
-    return launch_width<MODE_Z, true>(p, ViewsFill<false>{{zp, d_z, n, d_z, p.zw, 0}, w}, tiles,
+    return launch_width<MODE_Z, true>(p, ViewsFill<false>{{zp, d_z, d_z, p.zw, 0}, w}, tiles,
                                       scratch_blocks, s);
   }
   const int64_t tiles = (n + T - 1) / T;
   if (z_is_tz)
-    return launch_width<MODE_TZ, false>(p, RowsFill<false>{zp, d_z, n, d_hidden, d_hidden, d_hidden}, tiles, 0, s);
-  if (p.zw != d_z) return launch_width<MODE_Z, false>(p, RowsFill<true>{zp, d_z, n, d_z, p.zw, 0}, tiles, 0, s);
-  return launch_width<MODE_Z, false>(p, RowsFill<false>{zp, d_z, n, d_z, p.zw, 0}, tiles, 0, s);
+    return launch_width<MODE_TZ, false>(p, RowsFill<false>{zp, d_z, d_hidden, d_hidden, d_hidden}, tiles, 0, s);
+  if (p.zw != d_z) return launch_width<MODE_Z, false>(p, RowsFill<true>{zp, d_z, d_z, p.zw, 0}, tiles, 0, s);
+  return launch_width<MODE_Z, false>(p, RowsFill<false>{zp, d_z, d_z, p.zw, 0}, tiles, 0, s);
 }

@@ -61,7 +61,9 @@
 // rows, the x and z tiles filled a view ahead; then the views' mean, then the
 // blocks from the combine layer on and lin_out on the tile's 64 points, one
 // output row a point. The producer walks the slabs before the combine layer
-// NS times a tile, the rest once. The mean cannot keep a float32 sum in the
+// NS times a tile, the rest once. Every instance runs these steps: outside the
+// multi-view mode the rows are one scene of one view (NS = 1 at compile time,
+// B = n), and there is no mean. The mean cannot keep a float32 sum in the
 // registers (h and the accumulator hold 192 of a consumer's 224 at dh 512) nor
 // in shared memory (full): before the last view each thread stores its own
 // fragment of h, 16-byte units, in the block's slice of a scratch in global
@@ -101,9 +103,8 @@ constexpr int CONSUMER_REGS = 224;
 constexpr int PRODUCER_REGS = 56;
 
 // What the z buffer holds: the tile's z rows (given, or gathered by kernel D),
-// one injection's slice of the baked injections, or the z rows alone with
-// the MLP cut off (kernel D's probe).
-enum Mode { MODE_Z = 0, MODE_TZ = 1, MODE_PROBE = 2 };
+// or one injection's slice of the baked injections.
+enum Mode { MODE_Z = 0, MODE_TZ = 1 };
 
 struct Params {
   const bf16* x;      // (n, d_in)
@@ -351,17 +352,8 @@ __device__ __forceinline__ int swz_unit(int r, int cu) {
   return (cu >> 3) * CHUNK + r * 128 + (((cu & 7) ^ (r & 7)) << 4);
 }
 
-// x tile, zero-padded to kx columns and past the last row
-__device__ __forceinline__ void fill_x_tile(const Params& p, uint8_t* xs, int64_t row0, int ft) {
-  for (int i = ft; i < T * p.kx; i += FILLERS) {
-    const int r = i / p.kx, c = i % p.kx;
-    bf16 v = __float2bfloat16_rn(0.0f);
-    if (row0 + r < p.n && c < p.d_in) v = p.x[(row0 + r) * p.d_in + c];
-    *reinterpret_cast<bf16*>(xs + swz_unit(r, c >> 3) + (c & 7) * 2) = v;
-  }
-}
-
-// the same, zero from row `end` on (a view's last row in the multi-view mode)
+// x tile, zero-padded to kx columns and from row `end` on (the last row, or
+// a view's in the multi-view mode)
 __device__ __forceinline__ void fill_x_tile(const Params& p, uint8_t* xs, int64_t row0, int64_t end, int ft) {
   for (int i = ft; i < T * p.kx; i += FILLERS) {
     const int r = i / p.kx, c = i % p.kx;
@@ -596,18 +588,25 @@ __device__ __forceinline__ void mean_views(float (&acc)[NH][NI / 2], uint32_t (&
   }
 }
 
-// Where a multi-view tile's rows lie: 64 points from p0 of one scene, rows
-// (scene, view, point) of x and z and (scene, point) of out; the rows of a
-// view end at the view's last point.
+// Where tile t's rows lie: 64 points from p0 of one scene, rows (scene,
+// view, point) of x and z and (scene, point) of out, ns views of pts points
+// a scene; the rows of a view end at the view's last point. Outside the
+// multi-view mode (one scene of one view, pts = n) tile t is rows 64t.. .
+template <bool MULTI_VIEW>
 struct ViewTile {
   int64_t scene, p0;
-  __device__ __forceinline__ ViewTile(const Views& w, int64_t t) {
-    const int64_t tiles = (w.pts + T - 1) / T;
-    scene = t / tiles;
-    p0 = (t - scene * tiles) * T;
+  __device__ __forceinline__ ViewTile(int64_t pts, int64_t t) {
+    if constexpr (MULTI_VIEW) {
+      const int64_t tiles = (pts + T - 1) / T;
+      scene = t / tiles;
+      p0 = (t - scene * tiles) * T;
+    } else {
+      scene = 0;
+      p0 = t * T;
+    }
   }
-  __device__ __forceinline__ int64_t row0(const Views& w, int v) const { return (scene * w.ns + v) * w.pts + p0; }
-  __device__ __forceinline__ int64_t end(const Views& w, int v) const { return (scene * w.ns + v + 1) * w.pts; }
+  __device__ __forceinline__ int64_t row0(int ns, int64_t pts, int v) const { return (scene * ns + v) * pts + p0; }
+  __device__ __forceinline__ int64_t end(int ns, int64_t pts, int v) const { return (scene * ns + v + 1) * pts; }
 };
 
 // Tiles of the multi-view mode: ceil(pts/64) a scene.
@@ -615,13 +614,7 @@ __host__ __device__ inline int64_t view_tiles(const Params& p, const Views& w) {
   return p.n / ((int64_t)w.ns * w.pts) * ((w.pts + T - 1) / T);
 }
 
-// ---- the multi-view mode's steps --------------------------------------
-//
-// The single-view loops' steps, as the multi-view mode calls them. The
-// single-view loops keep theirs inline: called through these helpers, their
-// compiled code changed (PERF.md, the multi-view mode's findings). Each
-// inline step names its copy here ("copied by"): a fix to the ring, the
-// barriers or their phases in one of the two is made in the other as well.
+// ---- the block's steps ------------------------------------------------
 
 // `count` slabs of the image from src into the ring, one bulk copy each
 __device__ __forceinline__ void stream_slabs(const uint8_t* src, int count, uint32_t slab, uint32_t ring,
@@ -663,6 +656,17 @@ __device__ __forceinline__ void inject_z(float (&acc)[NH][NI / 2], uint32_t (&h)
   product<NI, NH>(acc, z_addr, p.zw / 64, rg, first);
   if (blk == p.n_lin_z - 1 && first) mbar_arrive(zempty);
   epilogue<NI, NH, EPI_ADD>(acc, h, p.bz + blk * p.dh, pl, nullptr);
+}
+
+// h += tz[:, blk*dh:(blk+1)*dh] (the TZ mode), from the injection's own
+// slice, which goes back to the fillers at once
+template <int NI, int NH>
+__device__ __forceinline__ void inject_tz(uint32_t (&h)[NH][NI / 8][2], const Place<NI, NH>& pl,
+                                          const uint8_t* ztile, uint32_t zfull, uint32_t zempty, uint32_t& ph_z) {
+  mbar_wait(zfull, ph_z);
+  ph_z ^= 1;
+  add_tile<NI, NH>(h, pl, ztile);
+  mbar_arrive(zempty);
 }
 
 // net = relu(h).W0 + b0;  h += relu(net).W1 + b1. Each sync: the product
@@ -726,15 +730,12 @@ __device__ __forceinline__ void head(const uint32_t (&h)[NH][NI / 8][2], const P
 // ---- the block --------------------------------------------------------
 
 // The whole kernel body. NI, NH: a warpgroup's columns are NH slabs of NI
-// (dh = 2*NH*NI). MODE: what the z buffer holds (Mode). fill(inj, row0, dst,
-// ft) is called by the 96 filler threads (ft = 0..95) and writes the z tile
-// of the rows from row0 (in the TZ mode: the slice of injection `inj`) into
-// dst, 64 rows in the swizzled layout of swz_unit, zero past the last row.
-// In MODE_PROBE only the z tile is filled and its first 4 columns are
-// written to out. MULTI_VIEW: the multi-view mode (MODE_Z; see the top), its
-// own instance, sharing the products, epilogues and ring with the
-// single-view loops; its fill(inj, row0, end, dst, ft) is zero from row `end`
-// on, and fill.views holds its Views.
+// (dh = 2*NH*NI). MODE: what the z buffer holds (Mode). fill(inj, row0, end,
+// dst, ft) is called by the 96 filler threads (ft = 0..95) and writes the z
+// tile of the rows from row0 (in the TZ mode: the slice of injection `inj`)
+// into dst, 64 rows in the swizzled layout of swz_unit, zero from row `end`
+// on. MULTI_VIEW: the multi-view mode (MODE_Z; see the top), whose
+// fill.views holds its Views.
 template <int NI, int NH, int MODE, typename Fill, bool MULTI_VIEW = false>
 __device__ __forceinline__ void mlp_block(const Params& p, const Fill& fill) {
   static_assert(!MULTI_VIEW || MODE == MODE_Z, "the multi-view mode takes the latents");
@@ -746,7 +747,6 @@ __device__ __forceinline__ void mlp_block(const Params& p, const Fill& fill) {
   const uint32_t xfull = wempty + 8 * MAX_STAGES, xempty = xfull + 8;
   const uint32_t zfull = xfull + 16, zempty = xfull + 24;
   const int tid = threadIdx.x;
-  constexpr bool PROBE = MODE == MODE_PROBE;
 
   if (tid == 0) {
     for (int s = 0; s < p.stages; ++s) {
@@ -769,9 +769,16 @@ __device__ __forceinline__ void mlp_block(const Params& p, const Fill& fill) {
   fence_proxy_async();
   __syncthreads();
 
-  // the block walks the tiles blockIdx.x, blockIdx.x + gridDim.x, ...
-  int64_t n_tiles = (p.n + T - 1) / T;
-  if constexpr (MULTI_VIEW) n_tiles = view_tiles(p, fill.views);
+  // the views a scene and the points a view (one of the n rows outside the
+  // multi-view mode); the block walks the tiles blockIdx.x, blockIdx.x +
+  // gridDim.x, ...
+  int ns = 1;
+  int64_t pts = p.n, n_tiles = (p.n + T - 1) / T;
+  if constexpr (MULTI_VIEW) {
+    ns = fill.views.ns;
+    pts = fill.views.pts;
+    n_tiles = view_tiles(p, fill.views);
+  }
   const int iters = (int)((n_tiles - blockIdx.x + gridDim.x - 1) / gridDim.x);
 
   if (tid >= CONSUMERS) {
@@ -779,81 +786,46 @@ __device__ __forceinline__ void mlp_block(const Params& p, const Fill& fill) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
     const int pt = tid - CONSUMERS;
     if (pt < 32) {
-      if (pt == 0 && !PROBE) {
-        // the weight ring: every tile takes the whole image, slab by slab
+      if (pt == 0) {
+        // the weight ring: every tile takes the whole image, slab by slab,
+        // the slabs before the combine layer (lin_in and the injected
+        // blocks) once a view
         const uint32_t slab = NI * 128;
         const int wz_chunks = MODE == MODE_TZ ? 0 : p.n_lin_z * (p.zw / 64);
         const int slabs = 2 * NH * (p.kx / 64 + wz_chunks + 2 * p.n_blocks * (p.dh / 64));
+        const int pre = 2 * NH * (p.kx / 64 + wz_chunks + 2 * p.n_lin_z * (p.dh / 64));
+        const uint8_t* image = reinterpret_cast<const uint8_t*>(p.image);
         int stage = 0;
         uint32_t phase = 1;
-        if constexpr (MULTI_VIEW) {
-          // lin_in and the injected blocks, before the combine layer, once a view
-          const int pre = 2 * NH * (p.kx / 64 + wz_chunks + 2 * p.n_lin_z * (p.dh / 64));
-          const uint8_t* image = reinterpret_cast<const uint8_t*>(p.image);
-          for (int it = 0; it < iters; ++it) {
-            for (int v = 0; v < fill.views.ns; ++v)
-              stream_slabs(image, pre, slab, sbase + L.ring, wfull, wempty, p.stages, stage, phase);
-            stream_slabs(image + (size_t)pre * slab, slabs - pre, slab, sbase + L.ring, wfull, wempty, p.stages,
-                         stage, phase);
-          }
-        } else {
-          for (int it = 0; it < iters; ++it) {
-            // copied by stream_slabs
-            const uint8_t* src = reinterpret_cast<const uint8_t*>(p.image);
-            for (int s = 0; s < slabs; ++s, src += slab) {
-              mbar_wait(wempty + 8 * stage, phase);
-              mbar_expect_tx(wfull + 8 * stage, slab);
-              bulk_copy(sbase + L.ring + stage * slab, src, slab, wfull + 8 * stage);
-              if (++stage == p.stages) {
-                stage = 0;
-                phase ^= 1;
-              }
-            }
-          }
+        for (int it = 0; it < iters; ++it) {
+          for (int v = 0; v < ns; ++v)
+            stream_slabs(image, pre, slab, sbase + L.ring, wfull, wempty, p.stages, stage, phase);
+          stream_slabs(image + (size_t)pre * slab, slabs - pre, slab, sbase + L.ring, wfull, wempty, p.stages,
+                       stage, phase);
         }
       }
-    } else if constexpr (MULTI_VIEW) {
-      // the x and z tiles of each view in turn, a view ahead
+    } else {
+      // the x tile and the tile of the injections of each view in turn, a
+      // view ahead (in the TZ mode a slice per injection, a block ahead)
       const int ft = pt - 32;
+      const int fills = MODE == MODE_TZ ? p.n_lin_z : 1;
       uint32_t ph_x = 1, ph_z = 1;
-      const Views& vw = fill.views;
       for (int it = 0; it < iters; ++it) {
-        const ViewTile vt(vw, (int64_t)it * gridDim.x + blockIdx.x);
-        for (int v = 0; v < vw.ns; ++v) {
-          const int64_t row0 = vt.row0(vw, v), end = vt.end(vw, v);
+        const ViewTile<MULTI_VIEW> vt(pts, (int64_t)it * gridDim.x + blockIdx.x);
+        for (int v = 0; v < ns; ++v) {
+          const int64_t row0 = vt.row0(ns, pts, v), end = vt.end(ns, pts, v);
           mbar_wait(xempty, ph_x);
           ph_x ^= 1;
           fill_x_tile(p, base + L.x, row0, end, ft);
           fence_proxy_async();
           mbar_arrive(xfull);
-          mbar_wait(zempty, ph_z);
-          ph_z ^= 1;
-          fill(0, row0, end, base + L.z, ft);
-          fence_proxy_async();
-          mbar_arrive(zfull);
-        }
-      }
-    } else {
-      // the x tile and the tile of the injections a tile ahead (in the TZ
-      // mode a slice per injection, a block ahead)
-      const int ft = pt - 32;
-      const int fills = MODE == MODE_TZ ? p.n_lin_z : 1;
-      uint32_t ph_x = 1, ph_z = 1;
-      for (int it = 0; it < iters; ++it) {
-        const int64_t row0 = ((int64_t)it * gridDim.x + blockIdx.x) * T;
-        if (!PROBE) {
-          mbar_wait(xempty, ph_x);
-          ph_x ^= 1;
-          fill_x_tile(p, base + L.x, row0, ft);
-          fence_proxy_async();
-          mbar_arrive(xfull);
-        }
-        for (int inj = 0; inj < fills; ++inj) {
-          mbar_wait(zempty, ph_z);
-          ph_z ^= 1;
-          fill(inj, row0, base + L.z, ft);
-          fence_proxy_async();
-          mbar_arrive(zfull);
+          for (int inj = 0; inj < fills; ++inj) {
+            mbar_wait(zempty, ph_z);
+            ph_z ^= 1;
+            fill(inj, row0, end, base + L.z, ft);
+            fence_proxy_async();
+            mbar_arrive(zfull);
+          }
         }
       }
     }
@@ -863,128 +835,39 @@ __device__ __forceinline__ void mlp_block(const Params& p, const Fill& fill) {
     const int wg = tid >> 7, wtid = tid & 127, lane = tid & 31;
     const bool first = lane == 0;     // reports for its warp
     const int row_a = (wtid >> 5) * 16 + (lane >> 2);
-    uint32_t ph_z = 0;
-    if constexpr (PROBE) {
-      for (int it = 0; it < iters; ++it) {
-        const int64_t row0 = ((int64_t)it * gridDim.x + blockIdx.x) * T;
-        mbar_wait(zfull, ph_z);
-        ph_z ^= 1;
-        const int r = tid >> 2, c = tid & 3;
-        if (row0 + r < p.n)
-          p.out[(row0 + r) * 4 + c] =
-              __bfloat162float(*reinterpret_cast<const bf16*>(base + L.z + swz_unit(r, 0) + c * 2));
-        consumer_sync();
-        if (first) mbar_arrive(zempty);
-      }
-    } else {
-      float acc[NH][NI / 2];
-      uint32_t h[NH][NI / 8][2];     // the residual stream, bf16 pairs
-      const Place<NI, NH> pl(wg, row_a, lane);
-      Ring rg = {wfull, wempty, sbase + L.ring, p.stages, wg, 0u};
-      uint8_t* const act = base + L.act;       // relu(h), then relu(net): what a product reads
-      const uint8_t* const ztile = base + L.z;
-      const uint32_t act_addr = sbase + L.act, z_addr = sbase + L.z;
-      const int hc = p.dh / 64;
-      uint32_t ph_x = 0;
-      if constexpr (MULTI_VIEW) {
-        // this thread's units of the block's saved views
-        const Views& vw = fill.views;
-        uint4* const saved = vw.scratch + (int64_t)blockIdx.x * (vw.ns - 1) * (NH * NI / 16) * CONSUMERS + tid;
-        for (int it = 0; it < iters; ++it) {
-          const ViewTile vt(vw, (int64_t)it * gridDim.x + blockIdx.x);
-          for (int v = 0; v < vw.ns; ++v) {
-            lin_in<NI, NH>(acc, h, p, pl, sbase + L.x, xfull, xempty, ph_x, rg, first);
-            for (int blk = 0; blk < p.n_lin_z; ++blk) {
-              inject_z<NI, NH>(acc, h, p, blk, pl, z_addr, zfull, zempty, ph_z, rg, first);
-              residual_block<NI, NH>(acc, h, p, blk, pl, act, act_addr, rg, first);
-            }
-            if (v < vw.ns - 1)
-              save_view<NI, NH>(h, saved + (int64_t)v * (NH * NI / 16) * CONSUMERS);
-            else
-              mean_views<NI, NH>(acc, h, saved, vw.ns - 1, vw.mean_scale);
-          }
-          for (int blk = p.n_lin_z; blk < p.n_blocks; ++blk)
-            residual_block<NI, NH>(acc, h, p, blk, pl, act, act_addr, rg, first);
-          head<NI, NH>(h, p, pl, act, act_addr, sbase + L.wout, wg, lane, row_a, vt.scene * vw.pts + vt.p0,
-                       (vt.scene + 1) * vw.pts);
+    float acc[NH][NI / 2];
+    uint32_t h[NH][NI / 8][2];       // the residual stream, bf16 pairs
+    const Place<NI, NH> pl(wg, row_a, lane);
+    Ring rg = {wfull, wempty, sbase + L.ring, p.stages, wg, 0u};
+    uint8_t* const act = base + L.act;       // relu(h), then relu(net): what a product reads
+    const uint32_t act_addr = sbase + L.act, z_addr = sbase + L.z;
+    uint32_t ph_x = 0, ph_z = 0;
+    // this thread's units of the block's saved views (the multi-view mode)
+    uint4* saved = nullptr;
+    if constexpr (MULTI_VIEW)
+      saved = fill.views.scratch + (int64_t)blockIdx.x * (ns - 1) * (NH * NI / 16) * CONSUMERS + tid;
+    for (int it = 0; it < iters; ++it) {
+      const ViewTile<MULTI_VIEW> vt(pts, (int64_t)it * gridDim.x + blockIdx.x);
+      for (int v = 0; v < ns; ++v) {
+        lin_in<NI, NH>(acc, h, p, pl, sbase + L.x, xfull, xempty, ph_x, rg, first);
+        for (int blk = 0; blk < p.n_lin_z; ++blk) {
+          if constexpr (MODE == MODE_TZ)
+            inject_tz<NI, NH>(h, pl, base + L.z, zfull, zempty, ph_z);
+          else
+            inject_z<NI, NH>(acc, h, p, blk, pl, z_addr, zfull, zempty, ph_z, rg, first);
+          residual_block<NI, NH>(acc, h, p, blk, pl, act, act_addr, rg, first);
         }
-      } else {
-        for (int it = 0; it < iters; ++it) {
-          const int64_t row0 = ((int64_t)it * gridDim.x + blockIdx.x) * T;
-          // h = x.Win + bin (copied by lin_in)
-          mbar_wait(xfull, ph_x);
-          ph_x ^= 1;
-          product<NI, NH>(acc, sbase + L.x, p.kx / 64, rg, first);
-          if (first) mbar_arrive(xempty);
-          epilogue<NI, NH, EPI_SET>(acc, h, p.bin, pl, nullptr);
-          for (int blk = 0; blk < p.n_blocks; ++blk) {
-            if (blk < p.n_lin_z) {
-              if constexpr (MODE == MODE_TZ) {
-                // h += tz[:, blk*dh:(blk+1)*dh], a slice per injection
-                mbar_wait(zfull, ph_z);
-                ph_z ^= 1;
-                add_tile<NI, NH>(h, pl, ztile);
-                mbar_arrive(zempty);
-              } else {
-                // h += z.Wz[:, blk*dh:(blk+1)*dh] + bz, from the tile's one z
-                // tile (copied by inject_z)
-                if (blk == 0) {
-                  mbar_wait(zfull, ph_z);
-                  ph_z ^= 1;
-                }
-                product<NI, NH>(acc, z_addr, p.zw / 64, rg, first);
-                if (blk == p.n_lin_z - 1 && first) mbar_arrive(zempty);
-                epilogue<NI, NH, EPI_ADD>(acc, h, p.bz + blk * p.dh, pl, nullptr);
-              }
-            }
-            // net = relu(h).W0 + b0; each sync: the product before has read
-            // the buffer in both warpgroups, or the epilogue has written it
-            // (this and h += relu(net).W1 + b1: copied by residual_block)
-            consumer_sync();
-            store_relu<NI, NH>(h, pl, act);
-            fence_proxy_async();
-            consumer_sync();
-            product<NI, NH>(acc, act_addr, hc, rg, first);
-            consumer_sync();
-            epilogue<NI, NH, EPI_NET>(acc, h, p.b0 + blk * p.dh, pl, act);
-            fence_proxy_async();
-            consumer_sync();
-            // h += relu(net).W1 + b1
-            product<NI, NH>(acc, act_addr, hc, rg, first);
-            epilogue<NI, NH, EPI_ADD>(acc, h, p.b1 + blk * p.dh, pl, nullptr);
-          }
-          // out = relu(h).Wout + bout, columns 0..3 of one 8-wide wgmma
-          // (copied by head)
-          consumer_sync();
-          store_relu<NI, NH>(h, pl, act);
-          fence_proxy_async();
-          consumer_sync();
-          if (wg == 0) {
-            float o[4];
-            wgmma_fence();
-            for (int kc = 0; kc < hc; ++kc) {
-              const uint64_t da = make_desc(act_addr + kc * CHUNK);
-              const uint64_t db = make_desc(sbase + L.wout + kc * 1024);
-#pragma unroll
-              for (int kk = 0; kk < 4; ++kk) Wgmma<8>::mma(o, da + 2 * kk, db + 2 * kk, (kc | kk) != 0);
-            }
-            wgmma_commit();
-            wgmma_wait<0>();
-            fence_registers(o);
-            const int c = 2 * (lane & 3);
-            if (c < 4) {
-              const bf162 b = ld_pair(p.bout + c);
-#pragma unroll
-              for (int half = 0; half < 2; ++half) {
-                const int64_t row = row0 + row_a + 8 * half;
-                if (row < p.n)
-                  *reinterpret_cast<float2*>(p.out + row * 4 + c) =
-                      __bfloat1622float2(dense_round(o[2 * half], o[2 * half + 1], b));
-              }
-            }
-          }
+        if constexpr (MULTI_VIEW) {
+          if (v < ns - 1)
+            save_view<NI, NH>(h, saved + (int64_t)v * (NH * NI / 16) * CONSUMERS);
+          else
+            mean_views<NI, NH>(acc, h, saved, ns - 1, fill.views.mean_scale);
         }
       }
+      for (int blk = p.n_lin_z; blk < p.n_blocks; ++blk)
+        residual_block<NI, NH>(acc, h, p, blk, pl, act, act_addr, rg, first);
+      head<NI, NH>(h, p, pl, act, act_addr, sbase + L.wout, wg, lane, row_a, vt.scene * pts + vt.p0,
+                   (vt.scene + 1) * pts);
     }
   }
 }

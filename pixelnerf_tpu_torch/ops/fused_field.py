@@ -62,37 +62,6 @@ def _check(table, base, wg, x, weights, n_blocks, combine_layer, width):
     return (table, base, wg) + _check_mlp(z, x, weights, n_blocks, combine_layer)[1:]
 
 
-def _launch(table, base, wg, x, weights, n_blocks, combine_layer, width, probe: bool) -> torch.Tensor:
-    tensors = _check(table, base, wg, x, weights, n_blocks, combine_layer, width)
-    if table.device.type != "cuda":
-        raise ValueError(f"unsupported device {table.device}")
-    dh = weights[0].shape[0]
-    c = table.shape[1]
-    kx = _round_up(x.shape[1], KC)
-    n_lin_z = min(combine_layer, n_blocks)
-    check_kernel_shapes(tensors[2:], kx, c, dh)     # wg, x, then the weights
-    if table.data_ptr() % 16 or any(not t.is_contiguous() for t in tensors[:2]):
-        raise ValueError("table and base must be contiguous, table 16-byte aligned")
-    image = weight_image(weights, kx, n_blocks, n_lin_z, with_wz=True)
-    lib = _build.load("fused_field")
-    check_kernel_fits(lib, kx, c, dh)
-    n = base.shape[0]
-    out = torch.empty((n, 4), dtype=torch.float32, device=table.device)
-    fn = lib.fused_gather_resnetfc_infer
-    # table, base, wg, x, the image, six weight arrays, out: 12 pointers
-    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int64] + [ctypes.c_int] * 8 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    stream = torch.cuda.current_stream(table.device).cuda_stream
-    with torch.cuda.device(table.device):
-        err = fn(
-            table.data_ptr(), base.data_ptr(), wg.data_ptr(), x.data_ptr(), image.data_ptr(),
-            *kernel_weight_pointers(weights), out.data_ptr(),
-            n, x.shape[1], kx, c, dh, n_blocks, n_lin_z, int(width), int(probe), stream,
-        )
-    _build.check(err, "fused_gather_resnetfc_infer launch")
-    return out
-
-
 def fused_gather_resnetfc_infer(
     table: torch.Tensor,
     base: torch.Tensor,
@@ -114,22 +83,40 @@ def fused_gather_resnetfc_infer(
     :param width: W, the row length of one view of the map
     :return: (N, 4) float32 raw rgb and sigma
     """
+    tensors = _check(table, base, wg, x, weights, n_blocks, combine_layer, width)
     if table.device.type == "cpu":
-        _check(table, base, wg, x, weights, n_blocks, combine_layer, width)
         return fused_gather_resnetfc_infer_plain(
             table, base, wg, x, weights, n_blocks, combine_layer, width
         )
-    out = _launch(table, base, wg, x, weights, n_blocks, combine_layer, width, probe=False)
+    if table.device.type != "cuda":
+        raise ValueError(f"unsupported device {table.device}")
+    dh = weights[0].shape[0]
+    c = table.shape[1]
+    kx = _round_up(x.shape[1], KC)
+    n_lin_z = min(combine_layer, n_blocks)
+    check_kernel_shapes(tensors[2:], kx, c, dh)     # wg, x, then the weights
+    if table.data_ptr() % 16 or any(not t.is_contiguous() for t in tensors[:2]):
+        raise ValueError("table and base must be contiguous, table 16-byte aligned")
+    image = weight_image(weights, kx, n_blocks, n_lin_z, with_wz=True)
+    lib = _build.load("fused_field")
+    check_kernel_fits(lib, kx, c, dh)
+    n = base.shape[0]
+    out = torch.empty((n, 4), dtype=torch.float32, device=table.device)
+    fn = lib.fused_gather_resnetfc_infer
+    # table, base, wg, x, the image, six weight arrays, out: 12 pointers
+    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int64] + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    stream = torch.cuda.current_stream(table.device).cuda_stream
+    with torch.cuda.device(table.device):
+        err = fn(
+            table.data_ptr(), base.data_ptr(), wg.data_ptr(), x.data_ptr(), image.data_ptr(),
+            *kernel_weight_pointers(weights), out.data_ptr(),
+            n, x.shape[1], kx, c, dh, n_blocks, n_lin_z, int(width), stream,
+        )
+    _build.check(err, "fused_gather_resnetfc_infer launch")
     fused_gather_resnetfc_infer.launches += 1
     return out
 
 
 fused_gather_resnetfc_infer.launches = 0
 
-
-def gather_prologue_probe(table, base, wg, x, weights, n_blocks, combine_layer, width) -> torch.Tensor:
-    """A measurement aid, CUDA only: launch the kernel with its MLP cut off,
-    so that only the x tile and the gather prologue run. Returns the first 4
-    channels of each gathered latent, (N, 4) float32. Not counted in
-    ``launches``; nothing in the port calls it."""
-    return _launch(table, base, wg, x, weights, n_blocks, combine_layer, width, probe=True)

@@ -18,7 +18,6 @@ from pixelnerf_tpu_torch.ops import grid_sample as tgs
 from pixelnerf_tpu_torch.ops.fused_field import (
     fused_gather_resnetfc_infer,
     fused_gather_resnetfc_infer_plain,
-    gather_prologue_probe,
 )
 from pixelnerf_tpu_torch.ops import fused_mlp as fm
 from pixelnerf_tpu_torch.ops.fused_mlp import fused_resnetfc_infer, fused_resnetfc_infer_plain
@@ -835,9 +834,6 @@ def test_fused_field_kernel_matches_composition_and_plain_cuda(cuda_device, n, d
                                              weights, 5, 3, hidden_max=True)
     assert torch.equal(ref, ref_b)
     _assert_agrees_with_plain(out, ref, peak)
-    # the prologue alone leaves the gathered latents' first channels
-    probe = gather_prologue_probe(table, base, wg, x, weights, 5, 3, ww)
-    torch.testing.assert_close(probe, z[:, :4].float(), atol=0, rtol=0)
     assert fused_gather_resnetfc_infer.launches == before + 1
 
 
